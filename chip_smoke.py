@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds every CUDA source of the query path (in parallel);
+2. build   — nvcc builds the query path's CUDA source;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the query path's chunk shape (64, 4096, 63) with S = 64 and a ragged
    (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4}, with and
@@ -19,7 +19,8 @@ Phases, each printing one JSON line:
    through QueryService on the spmd backend with the kernel, checked
    against a second service on the plain path; then spmd_query_step and
    spmd_query_batch_step with and without the kernel over one brick.
-   Launch counts are zeroed just before this phase and read just after.
+   Launch counts are zeroed just before each path (the serve run, each
+   lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
    time by kernel and the card's busy share;
 5. timing  — each kernel at the shape the main path gave it, beside its
@@ -33,7 +34,6 @@ result line.  It needs one CUDA card and the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import functools
 import json
 import subprocess
@@ -392,9 +392,16 @@ def phase_serve(n_events):
           "bricks": len(store.bricks), "resident_gb": resident / 1e9,
           "build_s": build_s})
 
-    # ---- the main path: counts are zeroed just before it ----
-    for key in ef_kernel.LAUNCHES:
-        ef_kernel.LAUNCHES[key] = 0
+    def counted(run):
+        """Run one path with the launch counts zeroed just before it and
+        read just after it: (its output, its launches)."""
+        for key in ef_kernel.LAUNCHES:
+            ef_kernel.LAUNCHES[key] = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(ef_kernel.LAUNCHES)
+
+    # ---- the serve path ----
     backend = RecordingBackend(MetadataCatalog(store.n_nodes), store,
                                use_pallas=True, device="cuda")
     svc = QueryService(store, backend=backend,
@@ -402,30 +409,43 @@ def phase_serve(n_events):
                        device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tids = serve_workload(svc)
-    torch.cuda.synchronize()
+    tids, launches = counted(lambda: serve_workload(svc))
     wall = time.perf_counter() - t0
+
+    scanned = sum(s.events_scanned for s in backend.window_stats)
+    kernel_events = sum(s.kernel_events for s in backend.window_stats)
+    kernel_chunks = sum(s.packets for s, k in zip(backend.window_stats,
+                                                  backend.kernel_widths)
+                        if k)
+    if launches["event_filter_batch"] <= 0 \
+            or launches["event_filter_batch"] != kernel_chunks:
+        raise AssertionError(
+            f"the serve run launched event_filter_batch "
+            f"{launches['event_filter_batch']} times for {kernel_chunks} "
+            f"chunks of windows with kernel targets")
+    if launches["event_filter"] != 0:
+        raise AssertionError("the serve run launched the single-query "
+                             "event_filter")
+    if kernel_events != scanned or scanned == 0:
+        raise AssertionError(f"kernel_events {kernel_events} != "
+                             f"events_scanned {scanned}")
+
+    # ---- the lockstep entry points, each over one brick ----
     brick0 = store.bricks[0]
     lock_expr = "e_total > 40 && count(pt > 15) >= 2"
     lock_exprs = [lock_expr, "e_t_miss > 30 && count(pt > 20) >= 1",
                   "pt_lead > 60 && count(pt > 10) >= 3"]
-    step_k = spmd_query_step(lock_expr, schema, use_pallas=True,
-                             device="cuda")(brick0)
-    bstep_k = spmd_query_batch_step(lock_exprs, schema, use_pallas=True,
-                                    device="cuda")(brick0)
-    torch.cuda.synchronize()
-    launches = dict(ef_kernel.LAUNCHES)
-    # ---- end of the main path ----
-
-    scanned = sum(s.events_scanned for s in backend.window_stats)
-    kernel_events = sum(s.kernel_events for s in backend.window_stats)
-    if launches["event_filter_batch"] <= 0:
-        raise AssertionError("the serve run launched no event_filter_batch")
-    if launches["event_filter"] <= 0:
-        raise AssertionError("spmd_query_step launched no event_filter")
-    if kernel_events != scanned or scanned == 0:
-        raise AssertionError(f"kernel_events {kernel_events} != "
-                             f"events_scanned {scanned}")
+    step_k, step_launches = counted(lambda: spmd_query_step(
+        lock_expr, schema, use_pallas=True, device="cuda")(brick0))
+    bstep_k, bstep_launches = counted(lambda: spmd_query_batch_step(
+        lock_exprs, schema, use_pallas=True, device="cuda")(brick0))
+    for name, got, want in (
+            ("spmd_query_step", step_launches,
+             {"event_filter": 1, "event_filter_batch": 0}),
+            ("spmd_query_batch_step", bstep_launches,
+             {"event_filter": 0, "event_filter_batch": 1})):
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
 
     def service(use_pallas):
         return QueryService(store, backend="spmd",
@@ -469,12 +489,19 @@ def phase_serve(n_events):
           "windows": len(backend.window_stats),
           "kernel_widths": backend.kernel_widths,
           "events_scanned": scanned, "kernel_events": kernel_events,
-          "launches": launches, "wall_s": wall,
-          "events_per_s": scanned / wall,
+          "kernel_chunks": kernel_chunks, "launches": launches,
+          "wall_s": wall, "events_per_s": scanned / wall,
           "track_gb_per_s": scanned * t * v * 4 / wall / 1e9,
-          "results_identical_to_plain": True,
-          "lockstep_steps_identical": True})
-    return launches, backend.kernel_widths
+          "results_identical_to_plain": True})
+    emit({"phase": "lockstep", "events": int(brick0["scalars"].shape[0]),
+          "spmd_query_step_launches": step_launches,
+          "spmd_query_batch_step_launches": bstep_launches,
+          "identical_to_plain": True})
+    # each kernel's count from its own path: the batched kernel from the
+    # serve run, the single-query kernel from spmd_query_step
+    return ({"event_filter_batch": launches["event_filter_batch"],
+             "event_filter": step_launches["event_filter"]},
+            backend.kernel_widths)
 
 
 # --------------------------------------------------------------------- #
@@ -496,14 +523,10 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # 2. build: one nvcc per source, all started together
-    builds = {"event_filter.cu": ef_kernel.build}
+    # 2. build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        futs = {name: pool.submit(fn) for name, fn in builds.items()}
-        for fut in futs.values():
-            fut.result()
-    emit({"phase": "build", "sources": list(builds),
+    ef_kernel.build()
+    emit({"phase": "build", "sources": [ef_kernel.SOURCE.name],
           "build_s": time.perf_counter() - t0})
 
     # 3. kernels against their plain versions
@@ -515,7 +538,8 @@ def main(argv=None) -> int:
           "max_abs_err": max(r["max_abs_err"] for r in rows),
           "rows": rows})
 
-    # 4. serve (the main path; launch counts read around it)
+    # 4. serve and lockstep (the main paths; launch counts read around
+    # each)
     launches, widths = phase_serve(args.n_events)
 
     # 5. timing at the shapes the main path gave each kernel

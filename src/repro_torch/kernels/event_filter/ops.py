@@ -151,12 +151,12 @@ def event_filter(scalars, tracks, n_tracks, thresholds, var_idx, *,
     pt_thresh, min_count, sum_cap], var_idx a (1,) int32 tensor.  CUDA
     tensors launch the kernel, CPU tensors take the plain version.
     Returns (mask (N,), var (N,))."""
-    ef_kernel.validate(scalars, tracks, n_tracks, thresholds, batch=False)
     dev = _device_of(scalars, tracks, n_tracks, thresholds, var_idx)
-    if dev.type == "cuda":
+    if dev.type == "cuda":      # the wrapper validates
         return ef_kernel.event_filter_cuda(
             scalars, tracks, n_tracks, thresholds, var_idx,
             calib_iters=calib_iters)
+    ef_kernel.validate(scalars, tracks, n_tracks, thresholds, batch=False)
     a, b, c, d = thresholds.tolist()
     return event_filter_ref(
         scalars, tracks, n_tracks, var_idx=int(var_idx[0]),
@@ -169,12 +169,12 @@ def event_filter_batch(scalars, tracks, n_tracks, thresholds, var_idx, *,
     """K-query dispatch (thresholds and var_idx in the layout of
     :func:`batch_kernel_params`): CUDA tensors launch the kernel, CPU
     tensors take the plain version.  Returns (mask (N, K), var (N,))."""
-    ef_kernel.validate(scalars, tracks, n_tracks, thresholds, batch=True)
     dev = _device_of(scalars, tracks, n_tracks, thresholds, var_idx)
-    if dev.type == "cuda":
+    if dev.type == "cuda":      # the wrapper validates
         return ef_kernel.event_filter_batch_cuda(
             scalars, tracks, n_tracks, thresholds, var_idx,
             calib_iters=calib_iters)
+    ef_kernel.validate(scalars, tracks, n_tracks, thresholds, batch=True)
     return event_filter_batch_ref(scalars, tracks, n_tracks, thresholds,
                                   var_idx=var_idx, calib_iters=calib_iters)
 
