@@ -6,13 +6,19 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds the query path's CUDA source;
-3. kernels — each kernel against its plain PyTorch version on the card, at
-   the query path's chunk shape (64, 4096, 63) with S = 64 and a ragged
-   (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4}, with and
-   without a sum(pt) cap.  Masks must be equal at calib 0 without a cap;
-   otherwise they may differ only on band events (a count-driving pt or
-   the sum within rtol 1e-5 of its threshold), which are counted;
+2. build   — nvcc builds both CUDA sources, one nvcc each, started together;
+3. kernels — each kernel against its plain PyTorch version on the card.
+   event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
+   and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
+   with and without a sum(pt) cap.  Masks must be equal at calib 0 without
+   a cap; otherwise they may differ only on band events (a count-driving
+   pt or the sum within rtol 1e-5 of its threshold), which are counted.
+   flash_attention at qwen3-14b's decode (B 2, Sq 1, Sk in {1, 9, 24,
+   256}, 48 q heads over 8 kv heads of 128, bf16) and prefill (B 1,
+   Sq = Sk = 2048, causal, bf16) shapes and small cases (Sq < Sk, a
+   window, a softcap, ragged tiles, f32, head dim 16), within
+   |kernel - plain| <= atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with
+   TF32 off (FA_TOL);
 4. serve   — the paper's event workload (64 scalars, 4096 tracks x 63
    vars, 256 events per brick, replication 2) on 4 nodes, resident on the
    card; the serve workload (64 queries, 4 tenants, window 16, streamed)
@@ -23,10 +29,26 @@ Phases, each printing one JSON line:
    lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
    time by kernel and the card's busy share;
-5. timing  — each kernel at the shape the main path gave it, beside its
+5. lm      — the query store freed, qwen3-14b at full width (40 layers,
+   d_model 5120, 48 (40 real) q heads x 128 over 8 kv heads, d_ff 17408,
+   vocab 152064 padded, bf16, 30.4 GB of parameters drawn from a seeded
+   generator) serves generate() for a batch of 2 prompts of 8 tokens and
+   16 new tokens: 24 decode steps, each attention call the kernel, so
+   flash_attention must launch 40 x 24 = 960 times (counts zeroed just
+   before, read just after).  The same tokens are replayed teacher-forced
+   through the kernel (its argmax must give generate()'s tokens) and
+   through the plain attention; each step's max |logit difference| over
+   the plain logits' spread must stay within LM_REL_TOL, and the top-1
+   agreement at or above LM_TOP1_MIN.  One more generate() under
+   torch.profiler gives the device time by kernel and the busy share;
+6. prefill — one forward() over 1 x 2048 tokens (40 launches), compared
+   with the plain attention in the same way;
+7. timing  — each kernel at the shape the main path gave it, beside its
    plain version and its bound: device time (CUDA graph replay) and time
-   per call (CUDA events around calls from the host);
-6. the kernels line, nvidia-smi's line, and the result line.
+   per call (CUDA events around calls from the host); flash_attention at
+   the decode shape with Sk = 24 and at the 2048 prefill, with
+   scaled_dot_product_attention (enable_gqa) as the library call;
+8. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -34,7 +56,10 @@ result line.  It needs one CUDA card and the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -48,6 +73,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 BAND_RTOL = 1e-5
 CHUNK_SHAPE = (64, 4096, 63)   # the query path's chunk: chunk_events x T x V
 RAGGED_SHAPE = (37, 1000, 63)
@@ -56,6 +82,14 @@ DEVICE = torch.device("cuda")
 N_SCALARS = 64
 TIMING_ROTATION = 16           # distinct inputs cycled so L2 stays cold
 TIMING_ITERS = 48
+
+# flash attention: (rtol, atol) of |kernel - plain| <= atol + rtol |plain|
+FA_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 2e-4)}
+LM_ARCH = "qwen3-14b"
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 8, 16
+PREFILL_LEN = 2048
+LM_REL_TOL = 5e-2     # max |logit difference| / spread of the plain logits
+LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 
 
 def emit(obj) -> None:
@@ -300,6 +334,116 @@ def time_kernel(name, gen, shape, k, calib_iters):
 
 
 # --------------------------------------------------------------------- #
+# flash attention
+# --------------------------------------------------------------------- #
+# (case, B, Sq, Sk, H, K, D, dtype, flags): qwen3-14b's decode steps and
+# prefill at full width, then the small cases
+FA_CASES = [
+    *[("decode", 2, 1, sk, 48, 8, 128, torch.bfloat16, {})
+      for sk in (1, 9, 24, 256)],
+    ("prefill", 1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128, torch.bfloat16, {}),
+    ("sq<sk", 2, 37, 100, 4, 2, 16, torch.bfloat16, {}),
+    ("sq<sk", 2, 37, 100, 4, 2, 16, torch.float32, {}),
+    ("window", 1, 96, 96, 8, 2, 64, torch.bfloat16, {"window": 40}),
+    ("window", 1, 96, 96, 8, 2, 64, torch.float32, {"window": 40}),
+    ("softcap", 2, 64, 64, 4, 4, 32, torch.float32, {"logit_cap": 30.0}),
+    ("ragged", 1, 300, 300, 48, 8, 128, torch.float32, {}),
+    ("reduced", 2, 24, 24, 16, 2, 16, torch.float32, {}),
+    ("not causal", 1, 50, 50, 4, 1, 16, torch.float32,
+     {"causal": False, "window": 9}),
+]
+
+
+def fa_operands(gen, b, sq, sk, h, kh, d, dtype):
+    return tuple(torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                 for shape in ((b, sq, h, d), (b, sk, kh, d),
+                               (b, sk, kh, d)))
+
+
+def fa_check(out, want, dtype, name) -> float:
+    """Max |kernel - plain|; raises when an element lies outside
+    atol + rtol |plain| (FA_TOL) or is not finite."""
+    rtol, atol = FA_TOL[dtype]
+    o, w = out.float(), want.float()
+    if o.shape != w.shape or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"flash_attention {name}: shape {o.shape} or "
+                             "non-finite output")
+    err = (o - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"flash_attention {name} ({dtype}): {int(bad.sum())} elements "
+            f"outside rtol {rtol} atol {atol}, max err {float(err.max())}")
+    return float(err.max())
+
+
+def phase_flash_kernels(gen):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rows = []
+    for name, b, sq, sk, h, kh, d, dtype, kw in FA_CASES:
+        q, k, v = fa_operands(gen, b, sq, sk, h, kh, d, dtype)
+        out = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+        again = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"flash_attention {name}: two runs differ")
+        err = fa_check(out, flash_attention_ref(q, k, v, **kw), dtype, name)
+        rows.append({"case": name, "shape": [b, sq, sk, h, kh, d],
+                     "dtype": str(dtype).split(".")[-1], "flags": kw,
+                     "max_abs_err": err})
+    return rows
+
+
+def fa_bound_ms(b, sq, sk, h, kh, d, itemsize):
+    """Least time for causal attention on these shapes: q, k, v read and
+    the output written once at the HBM rate, against 4 flops per (query,
+    valid key, head, head-dim) pair at the bf16 tensor-core rate; the
+    larger of the two, and which one it is."""
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * sk * kh * d)
+    pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def time_flash(gen, b, sq, sk, h, kh, d):
+    """flash_attention at one main-path shape (bf16, causal) over
+    TIMING_ROTATION operand sets: kernel and plain version as in
+    ``time_kernel``, and the library call,
+    ``scaled_dot_product_attention(enable_gqa=True)`` (causal at prefill;
+    at decode every key is valid and SDPA would align a causal mask
+    top-left), timed only."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sets = [fa_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16)
+            for _ in range(TIMING_ROTATION)]
+    kern = [functools.partial(fa_kernel.flash_attention_cuda, *qkv)
+            for qkv in sets]
+    plain = [functools.partial(flash_attention_ref, *qkv) for qkv in sets]
+    lib = [functools.partial(sdpa, *(x.transpose(1, 2) for x in qkv),
+                             is_causal=sq > 1, enable_gqa=True)
+           for qkv in sets]
+    err = lib_err = 0.0
+    for kc, pc, lc in zip(kern[:4], plain[:4], lib[:4]):
+        out, want, lo = kc(), pc(), lc().transpose(1, 2)
+        err = max(err, fa_check(out, want, torch.bfloat16, "timing"))
+        lib_err = max(lib_err, float((lo.float() - want.float()).abs()
+                                     .max()))
+    out = {}
+    for key, timer in (("ms", device_time_ms), ("call_ms", call_time_ms)):
+        p1, k1, k2, p2 = (timer(plain), timer(kern), timer(kern),
+                          timer(plain))
+        out[key] = (k1 + k2) / 2
+        out["plain_" + key] = (p1 + p2) / 2
+    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2)
+    return {**out, "library_ms": device_time_ms(lib),
+            "library_max_abs_err": lib_err, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err}
+
+
+# --------------------------------------------------------------------- #
 # serve
 # --------------------------------------------------------------------- #
 def serve_workload(svc, n_queries=64, tenants=4, window=16):
@@ -321,21 +465,18 @@ def serve_workload(svc, n_queries=64, tenants=4, window=16):
     return tids
 
 
-def profile_serve(make_service):
-    """Device time by kernel over one more run of the serve workload on a
-    fresh service (the same scans), from torch.profiler; the profiler's
-    own cost is in ``wall_s``."""
+def profile_run(phase, run):
+    """Device time by kernel over one ``run()``, from torch.profiler; the
+    profiler's own cost is in ``wall_s``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    svc = make_service()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_workload(svc)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    svc.close()
     # device-side activities only (kernels, copies): a host op's device
     # time is its children's, so counting both would count it twice
     rows = sorted(((e.self_device_time_total, e.key, e.count)
@@ -343,10 +484,19 @@ def profile_serve(make_service):
                    if e.device_type != DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(us for us, _, _ in rows) / 1e6
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_s,
+    emit({"phase": phase, "wall_s": wall, "device_busy_s": busy_s,
           "device_busy_share": busy_s / wall,
+          "device_launches": sum(n for _, _, n in rows),
           "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
                   for us, key, n in rows[:12]]})
+
+
+def profile_serve(make_service):
+    """One more run of the serve workload on a fresh service (the same
+    scans) under the profiler."""
+    svc = make_service()
+    profile_run("profile", lambda: serve_workload(svc))
+    svc.close()
 
 
 def phase_serve(n_events):
@@ -505,6 +655,179 @@ def phase_serve(n_events):
 
 
 # --------------------------------------------------------------------- #
+# LM serve and prefill
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_attention():
+    """Inside the block the dense model's attention calls take the plain
+    version on CUDA tensors: the comparison runs only, never the served
+    path, whose calls launch the kernel."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import transformer
+    saved = transformer.flash_attention
+    transformer.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        transformer.flash_attention = saved
+
+
+def compare_logits(kern, plain, vocab):
+    """Per leading index (a decode step, a prefill position): max |logit
+    difference| over the plain logits' spread (max - min over the real
+    vocab), and the share of rows whose argmax agrees."""
+    k = kern[..., :vocab].float().flatten(1, -2)   # (N, rows, V)
+    p = plain[..., :vocab].float().flatten(1, -2)
+    if not bool(torch.isfinite(k).all()) or not bool(torch.isfinite(p).all()):
+        raise AssertionError("non-finite logits")
+    diff = (k - p).abs().amax(dim=(1, 2))
+    spread = p.amax(dim=(1, 2)) - p.amin(dim=(1, 2))
+    rel = (diff / spread).tolist()
+    top1 = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    return rel, top1
+
+
+def check_logits(name, rel, top1):
+    if max(rel) > LM_REL_TOL or top1 < LM_TOP1_MIN:
+        raise AssertionError(
+            f"{name}: kernel vs plain attention max rel logit difference "
+            f"{max(rel)} (limit {LM_REL_TOL}), top-1 agreement {top1} "
+            f"(at least {LM_TOP1_MIN})")
+
+
+def build_lm():
+    """qwen3-14b at full width on the card, weights from a seeded
+    generator: (cfg, model facade, parameter tree)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config(LM_ARCH)
+    model = model_zoo.build_model(cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm = TransformerLM(cfg, model.table.init(gen, DEVICE))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model,
+          "q_heads": [cfg.num_heads, cfg.num_heads_padded],
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded,
+          "dtype": cfg.param_dtype, "params": model.table.num_params(),
+          "param_gb": model.table.bytes() / 1e9,
+          "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "init_s": time.perf_counter() - t0})
+    return cfg, model, lm.tree()
+
+
+def replay(cfg, model, params, seq):
+    """Teacher-forced decode of ``seq`` (B, S) from an empty cache: the
+    logits of every step, (S, B, Vp) f32."""
+    cache = model.init_cache(seq.shape[0], 256, DEVICE)
+    steps = []
+    for s in range(seq.shape[1]):
+        logits, cache = model.decode_step(params, cache, seq[:, s:s + 1])
+        steps.append(logits[:, -1].float())
+    return torch.stack(steps)
+
+
+@torch.inference_mode()
+def phase_lm(cfg, model, params):
+    """generate() through the kernel, its launch count, tok/s, and the
+    teacher-forced comparison with the plain attention."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import generate
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=DEVICE)
+    generate(cfg, model, params, prompt, max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    fa_kernel.LAUNCHES["flash_attention"] = 0
+    t0 = time.perf_counter()
+    tokens = generate(cfg, model, params, prompt, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_kernel.LAUNCHES["flash_attention"]
+    want = cfg.num_layers * (LM_PROMPT + LM_NEW)
+    if launches != want:
+        raise AssertionError(f"generate launched flash_attention {launches} "
+                             f"times, expected {want}")
+    if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate returned {tuple(tokens.shape)} or "
+                             "ids outside the vocab")
+
+    seq = torch.cat([prompt, tokens], dim=1)   # what the 24 steps were fed
+    kern = replay(cfg, model, params, seq)
+    with plain_attention():
+        plain = replay(cfg, model, params, seq)
+    pred = kern[..., :cfg.vocab_size].argmax(-1)       # (steps, B)
+    if not torch.equal(pred[LM_PROMPT - 1:LM_PROMPT - 1 + LM_NEW].T, tokens):
+        raise AssertionError("the kernel's teacher-forced replay does not "
+                             "give generate()'s tokens")
+    rel, top1 = compare_logits(kern, plain, cfg.vocab_size)
+    check_logits("lm serve", rel, top1)
+    profile_run("lm_profile", lambda: generate(
+        cfg, model, params, prompt, max_new_tokens=LM_NEW))
+    emit({"phase": "lm", "batch": LM_BATCH, "prompt": LM_PROMPT,
+          "new_tokens": LM_NEW, "decode_steps": LM_PROMPT + LM_NEW,
+          "flash_attention_launches": launches, "wall_s": wall,
+          "tok_per_s": LM_BATCH * LM_NEW / wall,
+          "ms_per_decode_step": wall / (LM_PROMPT + LM_NEW) * 1e3,
+          "rel_logit_diff_per_step": rel, "top1_agreement": top1,
+          "sample": tokens[0].tolist()})
+    return launches
+
+
+@torch.inference_mode()
+def phase_prefill(cfg, model, params):
+    """One forward() over 1 x PREFILL_LEN tokens through the kernel
+    (one launch per layer), compared with the plain attention."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen,
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    fa_kernel.LAUNCHES["flash_attention"] = 0
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_kernel.LAUNCHES["flash_attention"]
+    if launches != cfg.num_layers:
+        raise AssertionError(f"forward launched flash_attention {launches} "
+                             f"times, expected {cfg.num_layers}")
+    with plain_attention():
+        plain, _ = model.forward(params, {"tokens": toks})
+    # each position is one row of the comparison
+    rel, top1 = compare_logits(logits[0][:, None], plain[0][:, None],
+                               cfg.vocab_size)
+    check_logits("prefill", rel, top1)
+    emit({"phase": "prefill", "tokens": PREFILL_LEN,
+          "flash_attention_launches": launches, "wall_s": wall,
+          "tok_per_s": PREFILL_LEN / wall, "max_rel_logit_diff": max(rel),
+          "top1_agreement": top1})
+    return launches
+
+
+# --------------------------------------------------------------------- #
+def build_all():
+    """One nvcc per source, all started together."""
+    from repro_torch.kernels.event_filter import kernel as ef_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        futures = [pool.submit(m.build) for m in (ef_kernel, fa_kernel)]
+        for f in futures:
+            f.result()
+    emit({"phase": "build",
+          "sources": [ef_kernel.SOURCE.name, fa_kernel.SOURCE.name],
+          "build_s": time.perf_counter() - t0})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-events", type=int, default=8192,
@@ -514,7 +837,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels.event_filter import kernel as ef_kernel
 
     # 1. device
     smi = nvidia_smi_line()
@@ -524,12 +846,12 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
-    t0 = time.perf_counter()
-    ef_kernel.build()
-    emit({"phase": "build", "sources": [ef_kernel.SOURCE.name],
-          "build_s": time.perf_counter() - t0})
+    build_all()
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (f32 plain path without
+    # TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     rows = phase_kernels(gen)
@@ -537,12 +859,26 @@ def main(argv=None) -> int:
           "band_events": sum(r["band_events"] for r in rows),
           "max_abs_err": max(r["max_abs_err"] for r in rows),
           "rows": rows})
+    fa_rows = phase_flash_kernels(gen)
+    emit({"phase": "flash_kernels", "cases": len(fa_rows),
+          "tolerance": {str(k).split(".")[-1]: v for k, v in FA_TOL.items()},
+          "rows": fa_rows})
 
-    # 4. serve and lockstep (the main paths; launch counts read around
+    # 4. serve and lockstep (the query paths; launch counts read around
     # each)
     launches, widths = phase_serve(args.n_events)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 5. timing at the shapes the main path gave each kernel
+    # 5, 6. LM serve and prefill (launch counts read around each)
+    lm = build_lm()
+    launches["flash_attention"] = phase_lm(*lm)
+    prefill_launches = phase_prefill(*lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
     gen.manual_seed(1)
     timed = {
@@ -550,27 +886,44 @@ def main(argv=None) -> int:
                                           CHUNK_SHAPE, main_k, 0),
         "event_filter": time_kernel("event_filter", gen,
                                     BRICK_SHAPE, 1, 0),
+        "flash_attention": time_flash(gen, LM_BATCH, 1,
+                                      LM_PROMPT + LM_NEW, 48, 8, 128),
     }
+    prefill = time_flash(gen, 1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128)
     emit({"phase": "timing", "smi": smi,
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
                                  **timed["event_filter_batch"]},
           "event_filter": {"shape": list(BRICK_SHAPE), "k": 1,
-                           **timed["event_filter"]}})
+                           **timed["event_filter"]},
+          "flash_attention_decode": {
+              "shape": [LM_BATCH, 1, LM_PROMPT + LM_NEW, 48, 8, 128],
+              "launches_serve": launches["flash_attention"],
+              **timed["flash_attention"]},
+          "flash_attention_prefill": {
+              "shape": [1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128],
+              "launches_prefill": prefill_launches, **prefill}})
 
-    # 6. kernels line, nvidia-smi line, result line
-    src = "src/repro_torch/kernels/event_filter/csrc/event_filter.cu"
-    replaces = {"event_filter_batch": "src/repro/kernels/event_filter/"
-                                      "kernel.py:178",
-                "event_filter": "src/repro/kernels/event_filter/"
-                                "kernel.py:225"}
+    # 8. kernels line, nvidia-smi line, result line
+    ef_src = "src/repro_torch/kernels/event_filter/csrc/event_filter.cu"
+    sources = {
+        "event_filter_batch": (ef_src, "src/repro/kernels/event_filter/"
+                                       "kernel.py:178"),
+        "event_filter": (ef_src, "src/repro/kernels/event_filter/"
+                                 "kernel.py:225"),
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
+                            "src/repro/kernels/flash_attention/"
+                            "kernel.py:81"),
+    }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": timed[name]["max_abs_err"],
          "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
          "bound_ms": timed[name]["bound_ms"],
-         "bound_by": timed[name]["bound_by"], "library_ms": None}
-        for name in ("event_filter_batch", "event_filter")]})
+         "bound_by": timed[name]["bound_by"],
+         "library_ms": timed[name].get("library_ms")}
+        for name, (src, replaces) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 """GEPS grid-brick event processing on PyTorch and CUDA.
 
 The PyTorch port of the ``repro`` package: the same modules at the same
-relative paths, with brick data held as device-resident torch tensors
-and the fused ``event_filter`` scan written as a hand-made CUDA kernel
-for Hopper (``kernels/event_filter/csrc/event_filter.cu``).  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+relative paths, with brick data held as device-resident torch tensors,
+the fused ``event_filter`` scan and the dense LM's attention written as
+hand-made CUDA kernels for Hopper (``kernels/*/csrc/*.cu``).  Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

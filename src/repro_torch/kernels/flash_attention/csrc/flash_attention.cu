@@ -1,0 +1,294 @@
+// Forward flash attention (online softmax, GQA, causal, window, softcap)
+// for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel of the JAX package,
+// src/repro/kernels/flash_attention/kernel.py: flash_attention (_kernel).
+//
+// What it computes, for q (B,Sq,H,D), k/v (B,Sk,K,D), f32 inside:
+//   q_pos = i + (causal ? Sk - Sq : 0),  k_pos = j
+//   s     = (f32(q_i) * scale) . f32(k_j)            [f32 products and sums]
+//   s     = cap * tanh(s / cap)                      [when a cap is given]
+//   valid = j < Sk && (!causal || k_pos <= q_pos)
+//                  && (!window || k_pos > q_pos - window)
+//   per key tile: m_new = max(m, max_j s, 0.1 * NEG_INF)   (masked guard)
+//                 p = exp(s - m_new), corr = exp(m - m_new)
+//                 l = l * corr + sum_j p,  acc = acc * corr + p . v  (f32)
+//   out   = acc / max(l, 1e-30), cast to q's dtype.
+// Query head h reads kv head h / (H / K) directly: K and V are never
+// repeated.  q, k and v are read through their (batch, seq, head) strides
+// with the head dim contiguous, so no transpose copy is made; out is a
+// contiguous (B,Sq,H,D).
+//
+// Layout: one block of 128 threads per (b, q head, tile of 32 query rows).
+// The block stages the scaled Q tile once and then walks tiles of 32 keys:
+// K and V are loaded into shared memory as f32, each lane computes the
+// score of one key against the warp's 8 rows (float4 reads, K rows padded
+// by 4 floats so the lanes hit distinct banks), the softmax statistics of a
+// row are reduced across the warp with butterfly shuffles, and the warp's
+// probabilities go through shared memory to the P.V product, where each
+// lane owns the head-dim columns lane, lane + 32, ...  Tiles that are fully
+// masked for every row of the block (above the causal diagonal, or before
+// the window) are skipped: under the guard they change neither m, l nor
+// acc, so skipping them is exact.
+//
+// Bound on this card: at prefill, operations (4 * B * H * pairs * D flops
+// against 989 TFLOP/s bf16); at decode, bytes (q, k, v in, out out at
+// 3.35 TB/s).  This first design is simple and right, not fast: the
+// products run on the CUDA cores in f32 (the Pallas kernel's own
+// arithmetic), not on the tensor cores, and decode puts one block on each
+// (b, head) with 1 of its 32 query rows in use.  wgmma with TMA-fed tiles
+// and a split-K decode layout are the known next steps.
+//
+// Determinism: every sum has a fixed order (per-lane FMAs in index order,
+// butterfly shuffles), no atomics, so runs repeat bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlockQ = 32;                       // query rows per block
+constexpr int kBlockK = 32;                       // keys per tile, one a lane
+constexpr int kRowsPerWarp = kBlockQ / kWarps;    // rows warp + kWarps * r
+constexpr float kNegInf = -1e30f;
+constexpr float kGuard = 0.1f * kNegInf;          // masked-block guard
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int64_t sq, sk, h, kh;
+  int64_t q_sb, q_ss, q_sh;                       // strides, in elements
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  float scale;
+  int causal;
+  int has_window;
+  int64_t window;
+  int has_cap;
+  float cap;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kBlockQ * D + kBlockK * (D + 4) + kBlockK * D +
+                          kBlockQ * kBlockK);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const Params p) {
+  static_assert(D % 4 == 0, "float4 reads need D % 4 == 0");
+  constexpr int kStrideK = D + 4;                 // pad: distinct banks
+  constexpr int kCols = (D + 31) / 32;            // head-dim columns a lane
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                              // [kBlockQ][D]
+  float* k_s = q_s + kBlockQ * D;                 // [kBlockK][kStrideK]
+  float* v_s = k_s + kBlockK * kStrideK;          // [kBlockK][D]
+  float* p_s = v_s + kBlockK * D;                 // [kBlockQ][kBlockK]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBlockQ;
+  const int64_t hh = blockIdx.y;
+  const int64_t bb = blockIdx.z;
+  const int64_t kvh = hh / (p.h / p.kh);
+  const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
+  const int64_t off = p.causal ? p.sk - p.sq : 0;
+
+  // the Q tile, upcast and scaled in f32; rows past Sq are zero
+  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    const int64_t row = q0 + r;
+    q_s[idx] = row < p.sq ? to_f32(q[row * p.q_ss + d]) * p.scale : 0.0f;
+  }
+
+  // keys [k_lo, k_hi) hold every key valid for some row of this block
+  const int64_t row_last = (q0 + kBlockQ < p.sq ? q0 + kBlockQ : p.sq) - 1;
+  int64_t k_lo = 0, k_hi = p.sk;
+  if (p.causal && row_last + off + 1 < k_hi) k_hi = row_last + off + 1;
+  if (p.has_window && q0 + off - p.window + 1 > k_lo)
+    k_lo = q0 + off - p.window + 1;
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
+  }
+
+  for (int64_t k0 = (k_lo / kBlockK) * kBlockK; k0 < k_hi; k0 += kBlockK) {
+    __syncthreads();  // the last tile's K, V reads are done (Q is written)
+    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
+      const int j = idx / D, d = idx % D;
+      const int64_t key = k0 + j;
+      const bool in = key < p.sk;
+      k_s[j * kStrideK + d] = in ? to_f32(k[key * p.k_ss + d]) : 0.0f;
+      v_s[j * D + d] = in ? to_f32(v[key * p.v_ss + d]) : 0.0f;
+    }
+    __syncthreads();
+
+    // scores of key k0 + lane against the warp's rows
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.0f;
+    const float4* kr = reinterpret_cast<const float4*>(k_s + lane * kStrideK);
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 kv = kr[d4];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float4 qv = reinterpret_cast<const float4*>(
+            q_s + (warp + kWarps * r) * D)[d4];
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+
+    const int64_t key = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = warp + kWarps * r;
+      const int64_t q_pos = q0 + i + off;
+      float x = s[r];
+      if (p.has_cap) x = p.cap * tanhf(x / p.cap);
+      bool valid = key < p.sk;
+      if (p.causal) valid = valid && key <= q_pos;
+      if (p.has_window) valid = valid && key > q_pos - p.window;
+      x = valid ? x : kNegInf;
+      const float m_new = fmaxf(fmaxf(m[r], warp_max(x)), kGuard);
+      const float pe = expf(x - m_new);
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + warp_sum(pe);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[r][c] *= corr;
+      m[r] = m_new;
+      p_s[i * kBlockK + lane] = pe;
+    }
+    __syncwarp();  // a warp reads back only its own rows of P
+
+    // acc[r][c] += sum_j p[i][j] * v[j][lane + 32 c]
+#pragma unroll 2
+    for (int j4 = 0; j4 < kBlockK / 4; ++j4) {
+      float vv[4][kCols];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int d = lane + 32 * c;
+          vv[jj][c] = d < D ? v_s[(4 * j4 + jj) * D + d] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float4 pv = reinterpret_cast<const float4*>(
+            p_s + (warp + kWarps * r) * kBlockK)[j4];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          acc[r][c] = fmaf(pv.x, vv[0][c], acc[r][c]);
+          acc[r][c] = fmaf(pv.y, vv[1][c], acc[r][c]);
+          acc[r][c] = fmaf(pv.z, vv[2][c], acc[r][c]);
+          acc[r][c] = fmaf(pv.w, vv[3][c], acc[r][c]);
+        }
+      }
+    }
+  }
+
+  T* o = static_cast<T*>(p.o);
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int64_t row = q0 + warp + kWarps * r;
+    if (row >= p.sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* orow = o + ((bb * p.sq + row) * p.h + hh) * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) store(orow + d, acc[r][c] / den);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const Params& p, long long b, cudaStream_t stream) {
+  // above 48 KB a block gets dynamic shared memory only after opting in;
+  // done once per instance, at its first launch (never inside a capture
+  // that is not preceded by a launch)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<D>()));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>((p.sq + kBlockQ - 1) / kBlockQ),
+                  static_cast<unsigned>(p.h), static_cast<unsigned>(b));
+  flash_attention_kernel<T, D>
+      <<<grid, kThreads, smem_bytes<D>(), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dim(const Params& p, int head_dim, long long b,
+               cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch<T, 16>(p, b, stream);
+    case 32: return launch<T, 32>(p, b, stream);
+    case 64: return launch<T, 64>(p, b, stream);
+    case 128: return launch<T, 128>(p, b, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  dtype 0 is float32, 1 is
+// bfloat16; strides are in elements.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() so a refused launch is seen.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int head_dim, long long b, long long sq, long long sk, long long h,
+    long long kh, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, float scale, int causal, int has_window,
+    long long window, int has_cap, float cap, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || kh <= 0 || h % kh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q,    k,    v,    o,    sq,    sk,     h,          kh,
+           q_sb, q_ss, q_sh, k_sb, k_ss,  k_sh,   v_sb,       v_ss,
+           v_sh, scale, causal, has_window, window, has_cap, cap};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dim<float>(p, head_dim, b, s);
+  if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

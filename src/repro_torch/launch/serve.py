@@ -1,6 +1,14 @@
-"""Serving launcher of the port: the multi-tenant GEPS query service.
+"""Serving launcher of the port, with two modes.
 
-``python -m repro_torch.launch.serve --mode query --backend spmd
+``--mode lm``: batched prefill -> decode loop over the ring KV cache of a
+dense decoder LM.  ``python -m repro_torch.launch.serve --mode lm --arch
+qwen3-14b`` builds the model at full width with seeded random weights,
+generates ``--new-tokens`` for a ``--batch`` of random prompts, and prints
+tok/s and a sample; ``--reduced`` takes the tiny same-family config.  On a
+CUDA device every attention call launches the hand-written flash-attention
+kernel.
+
+``--mode query`` (default): ``python -m repro_torch.launch.serve --mode query --backend spmd
 --use-pallas`` stands up a brick store on the card, replays a
 multi-tenant workload with repeats through a ``QueryService``, and
 reports shared-scan amortization and cache hit rates.  ``--stream`` turns
@@ -13,14 +21,17 @@ device-resident bricks; ``--use-pallas`` (spmd) runs in-family plan
 targets through the fused ``event_filter`` CUDA kernel.  ``--device``
 picks where the store lives and the scans run (default ``cuda``).
 
-Not ported yet: ``--mode lm``, ``--fleet > 1``, ``--policy``,
-``--trace-out``, ``--metrics-dump``, ``--flight-out`` and
-``--autotune``; each exits with a message saying so.
+Not ported yet: the LM families other than dense without experts,
+``--production-mesh``, ``--fleet > 1``, ``--policy``, ``--trace-out``,
+``--metrics-dump``, ``--flight-out`` and ``--autotune``; each exits with a
+message saying so.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 NOT_PORTED = "is not ported to repro_torch yet"
 
@@ -51,6 +62,68 @@ def _backend_kwargs(args):
     if args.mesh_devices is not None:
         kw["mesh_devices"] = args.mesh_devices
     return kw or None
+
+
+def prefill_into_cache(cfg, model, params, cache, tokens):
+    """Feed a prompt through decode steps to fill the ring cache (token by
+    token, as the reference does for correctness and small prompts)."""
+    for i in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
+    return logits, cache
+
+
+@torch.inference_mode()
+def generate(cfg, model, params, prompt, max_new_tokens=16, cache_len=256):
+    """Greedy generation: prompt (B, P) int64 -> (B, max_new_tokens) token
+    ids, on the prompt's device."""
+    b = prompt.shape[0]
+    cache = model.init_cache(b, cache_len, prompt.device)
+    logits, cache = prefill_into_cache(cfg, model, params, cache, prompt)
+    out = []
+    tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+    for _ in range(max_new_tokens):
+        out.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                           dim=-1).reshape(b, 1)
+    return torch.cat(out, dim=1)
+
+
+def serve_lm(args):
+    """LM mode: build the model on ``--device`` with weights drawn from a
+    seeded generator, generate for random prompts, report tok/s."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import resolve_device
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import TransformerLM
+
+    if args.arch is None:
+        raise SystemExit("--arch is required for --mode lm")
+    if args.production_mesh:
+        raise SystemExit(f"--mode lm --production-mesh {NOT_PORTED}")
+    device = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced else \
+        get_config(args.arch)
+    try:
+        model = model_zoo.build_model(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"--mode lm --arch {args.arch}: {e}") from None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lm = TransformerLM(cfg, model.table.init(gen, device))
+    gen.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=device)
+    t0 = time.time()
+    tokens = generate(cfg, model, lm.tree(), prompt,
+                      max_new_tokens=args.new_tokens)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    print(f"arch={cfg.name} ({device}) generated {tuple(tokens.shape)} in "
+          f"{dt:.1f}s ({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    print("sample:", tokens[0, :12].tolist())
+    return tokens
 
 
 def serve_queries(args):
@@ -159,12 +232,22 @@ def serve_queries(args):
 
 
 def main(argv=None):
+    from repro_torch.configs.registry import list_archs
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "query"), default="query",
-                    help="query: the GEPS query service (lm "
-                         f"{NOT_PORTED})")
+                    help="query: the GEPS query service; lm: generation "
+                         "with a dense decoder LM")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the brick store lives and scans run")
+                    help="where the model or the brick store lives and "
+                         "the work runs")
+    # lm mode
+    ap.add_argument("--arch", choices=list_archs())
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true")
+    # query mode
     ap.add_argument("--n-events", type=int, default=1024)
     ap.add_argument("--n-nodes", type=int, default=4)
     ap.add_argument("--tenants", type=int, default=4)
@@ -208,7 +291,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mode == "lm":
-        raise SystemExit(f"--mode lm {NOT_PORTED}")
+        return serve_lm(args)
     for given, name in ((args.fleet > 1, "--fleet > 1"),
                         (args.policy, "--policy"),
                         (args.trace_out, "--trace-out"),

@@ -19,6 +19,9 @@ from repro_torch.kernels.event_filter import ops as ef_ops
 from repro_torch.kernels.event_filter.ref import (calibrate_tracks,
                                                   event_filter_batch_ref,
                                                   event_filter_ref)
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 pytestmark = pytest.mark.cuda
 BAND_RTOL = 1e-5
@@ -147,3 +150,102 @@ def test_spmd_scan_goes_through_the_kernel(cuda):
             (stats.packets if use_pallas else 0)
     for a, b in zip(*out):
         assert merge_lib.results_identical(a, b)
+
+
+# ------------------------------ flash attention -------------------------- #
+# bf16: the kernel keeps q * scale and p in f32, the plain version rounds
+# both to bf16 (as tests/test_kernels.py:22); f32: sums in another order,
+# the plain version's f32 products without TF32
+FA_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+          torch.float32: dict(rtol=2e-4, atol=2e-4)}
+
+
+def _fa_inputs(dev, b, sq, sk, h, kh, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,kw", [
+    (2, 1, 24, 48, 8, 128, {}),                    # decode, full width
+    (1, 300, 300, 48, 8, 128, {}),                 # prefill, ragged tiles
+    (2, 37, 100, 4, 2, 16, {}),                    # sq < sk
+    (1, 96, 96, 8, 2, 64, {"window": 40}),
+    (2, 64, 64, 4, 4, 32, {"logit_cap": 30.0}),
+    (1, 50, 50, 4, 1, 16, {"causal": False, "window": 9}),
+])
+def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, sk, h,
+                                                      kh, d, kw, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, dtype, seed=sq + sk)
+    before = fa_kernel.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.is_contiguous()
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **FA_TOL[dtype])
+    # run to run the kernel gives the same bits
+    assert torch.equal(fa_ops.flash_attention(q, k, v, **kw), out)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """A decode call on the filled prefix of a ring cache: k/v are views
+    with the cache's strides, read without a copy."""
+    q, _, _ = _fa_inputs(cuda, 2, 1, 1, 48, 8, 128, torch.bfloat16, seed=1)
+    cache = torch.randn((2, 2, 256, 8, 128), device=cuda).to(torch.bfloat16)
+    k, v = cache[0, :, :9], cache[1, :, :9]
+    assert not k.is_contiguous()
+    out = fa_kernel.flash_attention_cuda(q, k, v)
+    want = flash_attention_ref(q, k.contiguous(), v.contiguous())
+    torch.testing.assert_close(out.float(), want.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+def test_flash_attention_wrapper_checks_its_operands(cuda):
+    q, k, v = _fa_inputs(cuda, 1, 4, 4, 4, 2, 16, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dim 24"):
+        fa_kernel.flash_attention_cuda(*(x[..., :12].repeat(1, 1, 1, 2)
+                                         for x in (q, k, v)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        fa_kernel.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fa_kernel.flash_attention_cuda(q.transpose(1, 3).contiguous()
+                                       .transpose(1, 3), k, v)
+
+
+def test_dense_lm_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
+    """Reduced qwen3-14b in f32 on the card: forward and decode launch the
+    kernel once per layer and agree with the same model on the plain
+    attention (f32, 1e-4 as tests/test_torch_lm.py)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("qwen3-14b")
+    model = model_zoo.build_model(cfg)
+    params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
+                              cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run():
+        logits, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(2, 8, cuda)
+        steps = []
+        for s in range(toks.shape[1]):
+            step, cache = model.decode_step(params, cache, toks[:, s:s + 1])
+            steps.append(step)
+        return logits, torch.cat(steps, dim=1)
+
+    before = fa_kernel.LAUNCHES["flash_attention"]
+    logits, steps = run()
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] - before == \
+        cfg.num_layers * (1 + toks.shape[1])
+    monkeypatch.setattr(transformer, "flash_attention", flash_attention_ref)
+    plain_logits, plain_steps = run()
+    torch.testing.assert_close(logits, plain_logits, rtol=0, atol=1e-4)
+    torch.testing.assert_close(steps, plain_steps, rtol=0, atol=1e-4)

@@ -20,6 +20,10 @@ from repro_torch.core.jse import spmd_query_batch_step, spmd_query_step
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.event_filter import kernel as ef_kernel
 from repro_torch.kernels.event_filter import ops as ef_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.configs.registry import reduced_config as reduced_config_lm
+from repro_torch.models.params import params_from_reference
 from repro_torch.service import QueryService
 from test_torch_parity import operands, ref_store, stores
 
@@ -57,6 +61,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.service\n"
         "import repro_torch.launch.serve\n"
+        "from repro_torch.kernels.flash_attention import ops as fa_ops\n"
+        "from repro_torch.models import model_zoo, transformer\n"
+        "repro_torch.launch.serve.main(['--mode', 'lm', '--arch', "
+        "'qwen3-14b', '--reduced', '--device', 'cpu', '--new-tokens', '2'])\n"
         "from repro_torch.kernels.event_filter import ops, kernel\n"
         "from repro_torch.configs.geps_events import reduced\n"
         "from repro_torch.core import events as ev\n"
@@ -74,7 +82,7 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().endswith("\nok")
 
 
 def _require_no_cuda():
@@ -98,6 +106,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                   lambda: ev.synthetic_events(torch.Generator(), SCHEMA, 4)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+    with pytest.raises(RuntimeError, match="'cuda'"):
+        params_from_reference(reduced_config_lm("qwen3-14b"), {})
     with pytest.raises(RuntimeError, match="'cuda:1'"):
         resolve_device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -108,6 +118,8 @@ def test_serve_launcher_defaults_to_cuda():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--queries", "4", "--n-events", "32"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mode", "lm", "--arch", "qwen3-14b", "--reduced"])
 
 
 def test_kernel_wrappers_refuse_tensors_they_cannot_serve():
@@ -129,6 +141,21 @@ def test_kernel_wrappers_refuse_tensors_they_cannot_serve():
         ef_ops.event_filter_batch(sc, tr, nt, th, vi.to("meta"),
                                   calib_iters=0)
     assert ef_kernel.LAUNCHES == launches
+
+
+def test_flash_wrapper_refuses_tensors_it_cannot_serve():
+    q = torch.zeros((1, 2, 4, 16))
+    k = v = torch.zeros((1, 2, 2, 16))
+    launches = dict(fa_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fa_kernel.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        fa_ops.flash_attention(q, k.to("meta"), v)
+    with pytest.raises(ValueError, match="do not group"):
+        fa_ops.flash_attention(q[:, :, :3], k, v)
+    assert fa_kernel.LAUNCHES == launches
 
 
 def test_kernel_build_reports_a_missing_nvcc(monkeypatch, tmp_path):

@@ -91,7 +91,9 @@ def test_serve_launcher_query_mode_on_cpu():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--mode", "lm"], "--mode lm"),
+    (["--mode", "lm", "--arch", "grok-1-314b", "--reduced"], "--mode lm"),
+    (["--mode", "lm", "--arch", "qwen3-14b", "--production-mesh"],
+     "--mode lm --production-mesh"),
     (["--fleet", "4"], "--fleet > 1"),
     (["--policy"], "--policy"),
     (["--trace-out", "t.json"], "--trace-out"),
