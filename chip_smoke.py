@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds both CUDA sources, one nvcc each, started together;
+2. build   — nvcc builds the four CUDA sources, one nvcc each, started
+   together; ptxas's registers and spills for every kernel instance;
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -15,10 +16,19 @@ Phases, each printing one JSON line:
    pt or the sum within rtol 1e-5 of its threshold), which are counted.
    flash_attention at qwen3-14b's decode (B 2, Sq 1, Sk in {1, 9, 24,
    256}, 48 q heads over 8 kv heads of 128, bf16) and prefill (B 1,
-   Sq = Sk = 2048, causal, bf16) shapes and small cases (Sq < Sk, a
+   Sq = Sk = 2048, causal, bf16) shapes, at recurrentgemma-9b's decode
+   (Sk in {1, 24, 256}, 16 q heads over 1 kv head of 256) and prefill (B
+   1, Sq = Sk = 4096, window 2048) shapes, and small cases (Sq < Sk, a
    window, a softcap, ragged tiles, f32, head dim 16), within
    |kernel - plain| <= atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with
-   TF32 off (FA_TOL);
+   TF32 off (FA_TOL).  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
+   with and without h0 and a ragged (3, 100, 48), within 1e-5 (SCAN_TOL);
+   mlstm at xlstm-350m's (1, 2048, 4, 512) in bf16 and f32 and small f32
+   cases whose S is no multiple of the tile, against the plain version
+   evaluated in f32 on the same values (the kernel's arithmetic): 2e-2 for
+   a bf16 output, 5e-4 in f32 (MLSTM_TOL); the distance from the plain
+   version in bf16 is reported.  Two launches of every case must give the
+   same bits;
 4. serve   — the paper's event workload (64 scalars, 4096 tracks x 63
    vars, 256 events per brick, replication 2) on 4 nodes, resident on the
    card; the serve workload (64 queries, 4 tenants, window 16, streamed)
@@ -29,25 +39,45 @@ Phases, each printing one JSON line:
    lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
    time by kernel and the card's busy share;
-5. lm      — the query store freed, qwen3-14b at full width (40 layers,
-   d_model 5120, 48 (40 real) q heads x 128 over 8 kv heads, d_ff 17408,
-   vocab 152064 padded, bf16, 30.4 GB of parameters drawn from a seeded
-   generator) serves generate() for a batch of 2 prompts of 8 tokens and
-   16 new tokens: 24 decode steps, each attention call the kernel, so
-   flash_attention must launch 40 x 24 = 960 times (counts zeroed just
-   before, read just after).  The same tokens are replayed teacher-forced
-   through the kernel (its argmax must give generate()'s tokens) and
-   through the plain attention; each step's max |logit difference| over
-   the plain logits' spread must stay within LM_REL_TOL, and the top-1
-   agreement at or above LM_TOP1_MIN.  One more generate() under
-   torch.profiler gives the device time by kernel and the busy share;
-6. prefill — one forward() over 1 x 2048 tokens (40 launches), compared
-   with the plain attention in the same way;
+5. lm      — the query store freed, three LMs at full width, one on the
+   card at a time, each held by ``LanguageModel`` with parameters drawn
+   from a seeded generator: qwen3-14b (40 layers, d_model 5120, 48 (40
+   real) q heads x 128 over 8 kv heads, d_ff 17408, 30.4 GB bf16),
+   recurrentgemma-9b (38 layers = 12 x (rec, rec, attn) + (rec, rec),
+   d_model 4096, lru_width 4096, 16 q heads x 256 over 1 kv head, window
+   2048, 17.2 GB) and xlstm-350m (24 layers = 3 x (7 mLSTM + 1 sLSTM),
+   d_model 1024, 4 heads, 0.66 GB).  Each serves generate() for a batch
+   of 2 prompts of 8 tokens and 16 new tokens: 24 decode steps, each
+   attention call the flash kernel, so flash_attention must launch 40 x
+   24 = 960 times for qwen3-14b, 12 x 24 = 288 for recurrentgemma-9b and
+   0 for xlstm-350m, whose decode runs no kernel (counts of every LM
+   kernel zeroed just before, read just after).  The same tokens are
+   replayed teacher-forced through the kernels (their argmax must give
+   generate()'s tokens) and through the plain versions
+   (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b
+   each step's max |logit difference| over the plain logits' spread must
+   stay within LM_REL_TOL, and the top-1 agreement at or above
+   LM_TOP1_MIN.  One more generate() under torch.profiler gives the
+   device time by kernel and the busy share;
+6. prefill — one forward() for each LM: qwen3-14b over 1 x 2048 tokens
+   (40 flash launches), recurrentgemma-9b over 1 x 4096 (26 rglru_scan
+   and 12 flash launches; the window bites), xlstm-350m over 1 x 2048 (21
+   mlstm launches), each compared with the same forward on the plain
+   versions in the same way; then xlstm-350m's forward logits over 1024
+   tokens against a teacher-forced decode of the same tokens (the
+   recurrent form), which ties the mLSTM kernel to the recurrence.  Every
+   kernel call of these paths is also held against its plain version in
+   f32 on the same inputs (``shadow_kernels()``).  End to end, the
+   recurrent models' logits are reported beside the distance between two
+   plain runs that differ only in rounding, not gated (E2E_GATED);
 7. timing  — each kernel at the shape the main path gave it, beside its
    plain version and its bound: device time (CUDA graph replay) and time
    per call (CUDA events around calls from the host); flash_attention at
-   the decode shape with Sk = 24 and at the 2048 prefill, with
-   scaled_dot_product_attention (enable_gqa) as the library call;
+   the decode shape with Sk = 24 and at the 2048 prefill (qwen3-14b), at
+   recurrentgemma-9b's decode and its 4096 prefill under the window, with
+   scaled_dot_product_attention (enable_gqa; an explicit mask under the
+   window) as the library call; rglru_scan and mlstm with no library call
+   (no PyTorch call computes either function);
 8. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -85,9 +115,37 @@ TIMING_ITERS = 48
 
 # flash attention: (rtol, atol) of |kernel - plain| <= atol + rtol |plain|
 FA_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-4, 2e-4)}
+# RG-LRU scan: |kernel - plain| <= atol + rtol |plain| (f32; the kernel
+# runs the recurrence in order, the plain version as a doubling scan)
+SCAN_TOL = (1e-5, 1e-5)
+# mLSTM: against the plain version evaluated in f32 on the same values (the
+# kernel's and the Pallas kernel's arithmetic), as FA_TOL for a bf16
+# output and as tests/test_kernels.py (5e-4) in f32
+MLSTM_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (5e-4, 5e-4)}
 LM_ARCH = "qwen3-14b"
+RG_ARCH = "recurrentgemma-9b"
+XL_ARCH = "xlstm-350m"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8, 16
 PREFILL_LEN = 2048
+# forward lengths: recurrentgemma's 4096 passes its 2048 attention window
+FORWARD_LEN = {LM_ARCH: PREFILL_LEN, RG_ARCH: 4096, XL_ARCH: 2048}
+# xlstm-350m's forward against its own decode: the decode runs token by
+# token (~50 ms a step, host-bound), so 1024 tokens keep it near a minute
+TIE_LEN = 1024
+# models whose logits through the kernels are held end to end against the
+# plain versions (LM_REL_TOL, LM_TOP1_MIN).  Not the recurrent models: with
+# the reference's initialisation their full-width paths are chaotic, so
+# two plain runs that differ only in rounding (bf16 against f32 plain
+# versions) already disagree far beyond those limits.  recurrentgemma-9b
+# is MQA and draws its key projection at 1/sqrt(1) (C-ref5): attention
+# scores spread over ~1e3, every softmax is an argmax, and a flipped
+# near-tie is carried on by the next layers and the recurrence.
+# xlstm-350m draws the sLSTM's recurrent weights at 1/sqrt(hd), not 0.01
+# (C-ref6), over 2048 steps.  For them every kernel call on the path is
+# held against its plain version in f32 on the same inputs
+# (shadow_kernels), and the end-to-end numbers are reported beside that
+# baseline.
+E2E_GATED = (LM_ARCH,)
 LM_REL_TOL = 5e-2     # max |logit difference| / spread of the plain logits
 LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 
@@ -218,6 +276,19 @@ def device_time_ms(calls, iters=TIMING_ITERS) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def time_pair(kern, plain):
+    """Device ms (graph replay) and ms per call of a kernel and its plain
+    version, each the mean of two runs taken plain, kernel, kernel,
+    plain."""
+    out = {}
+    for key, timer in (("ms", device_time_ms), ("call_ms", call_time_ms)):
+        p1, k1, k2, p2 = (timer(plain), timer(kern), timer(kern),
+                          timer(plain))
+        out[key] = (k1 + k2) / 2
+        out["plain_" + key] = (p1 + p2) / 2
+    return out
+
+
 def bound_ms(scalars, n_tracks, thresholds, var_idx, calib_iters, t):
     """Least time for the function's work on these inputs: the bytes it
     must move (valid tracks' pt, n_tracks, scalars, thresholds, var_idx
@@ -321,27 +392,29 @@ def time_kernel(name, gen, shape, k, calib_iters):
         torch.cuda.synchronize()
         err = max(err, float((m - mp).abs().max()),
                   float((v - vp).abs().max()))
-    out = {}
-    for key, timer in (("ms", device_time_ms), ("call_ms", call_time_ms)):
-        p1, k1, k2, p2 = (timer(plain), timer(kern), timer(kern),
-                          timer(plain))
-        out[key] = (k1 + k2) / 2
-        out["plain_" + key] = (p1 + p2) / 2
     bms = [bound_ms(s, nt, th, vi, calib_iters, shape[1])
            for s, tr, nt, th, vi in sets]
-    return {**out, "bound_ms": float(np.mean([x for x, _ in bms])),
+    return {**time_pair(kern, plain),
+            "bound_ms": float(np.mean([x for x, _ in bms])),
             "bound_by": bms[0][1], "max_abs_err": err}
 
 
 # --------------------------------------------------------------------- #
 # flash attention
 # --------------------------------------------------------------------- #
-# (case, B, Sq, Sk, H, K, D, dtype, flags): qwen3-14b's decode steps and
-# prefill at full width, then the small cases
+# (case, B, Sq, Sk, H, K, D, dtype, flags): qwen3-14b's and
+# recurrentgemma-9b's decode steps and prefill at full width, then the
+# small cases
 FA_CASES = [
     *[("decode", 2, 1, sk, 48, 8, 128, torch.bfloat16, {})
       for sk in (1, 9, 24, 256)],
     ("prefill", 1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128, torch.bfloat16, {}),
+    # recurrentgemma-9b: MQA, 16 q heads over 1 kv head of 256, window 2048
+    *[("rg decode", 2, 1, sk, 16, 1, 256, torch.bfloat16, {})
+      for sk in (1, 24, 256)],
+    ("rg prefill", 1, 4096, 4096, 16, 1, 256, torch.bfloat16,
+     {"window": 2048}),
+    ("d256 ragged", 1, 300, 300, 4, 2, 256, torch.float32, {"window": 200}),
     ("sq<sk", 2, 37, 100, 4, 2, 16, torch.bfloat16, {}),
     ("sq<sk", 2, 37, 100, 4, 2, 16, torch.float32, {}),
     ("window", 1, 96, 96, 8, 2, 64, torch.bfloat16, {"window": 40}),
@@ -395,52 +468,216 @@ def phase_flash_kernels(gen):
     return rows
 
 
-def fa_bound_ms(b, sq, sk, h, kh, d, itemsize):
+def fa_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None):
     """Least time for causal attention on these shapes: q, k, v read and
     the output written once at the HBM rate, against 4 flops per (query,
-    valid key, head, head-dim) pair at the bf16 tensor-core rate; the
-    larger of the two, and which one it is."""
+    valid key, head, head-dim) pair at the bf16 tensor-core rate (a window
+    leaves the last ``window`` keys of each query valid); the larger of
+    the two, and which one it is."""
     nbytes = itemsize * (2 * b * sq * h * d + 2 * b * sk * kh * d)
-    pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+    pairs = sum(min(sk, i + sk - sq + 1, window or sk) for i in range(sq))
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
-def time_flash(gen, b, sq, sk, h, kh, d):
+def time_flash(gen, b, sq, sk, h, kh, d, window=None):
     """flash_attention at one main-path shape (bf16, causal) over
     TIMING_ROTATION operand sets: kernel and plain version as in
     ``time_kernel``, and the library call,
-    ``scaled_dot_product_attention(enable_gqa=True)`` (causal at prefill;
-    at decode every key is valid and SDPA would align a causal mask
-    top-left), timed only."""
+    ``scaled_dot_product_attention(enable_gqa=True)`` (causal at prefill,
+    or an explicit boolean mask under a window; at decode every key is
+    valid and SDPA would align a causal mask top-left), timed only."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sets = [fa_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16)
             for _ in range(TIMING_ROTATION)]
-    kern = [functools.partial(fa_kernel.flash_attention_cuda, *qkv)
-            for qkv in sets]
-    plain = [functools.partial(flash_attention_ref, *qkv) for qkv in sets]
+    kern = [functools.partial(fa_kernel.flash_attention_cuda, *qkv,
+                              window=window) for qkv in sets]
+    plain = [functools.partial(flash_attention_ref, *qkv, window=window)
+             for qkv in sets]
+    lib_kw = {"is_causal": sq > 1}
+    if window is not None:
+        q_pos = torch.arange(sq, device=DEVICE)[:, None] + sk - sq
+        k_pos = torch.arange(sk, device=DEVICE)[None, :]
+        lib_kw = {"attn_mask": (k_pos <= q_pos) & (k_pos > q_pos - window)}
     lib = [functools.partial(sdpa, *(x.transpose(1, 2) for x in qkv),
-                             is_causal=sq > 1, enable_gqa=True)
-           for qkv in sets]
+                             enable_gqa=True, **lib_kw) for qkv in sets]
     err = lib_err = 0.0
     for kc, pc, lc in zip(kern[:4], plain[:4], lib[:4]):
         out, want, lo = kc(), pc(), lc().transpose(1, 2)
         err = max(err, fa_check(out, want, torch.bfloat16, "timing"))
         lib_err = max(lib_err, float((lo.float() - want.float()).abs()
                                      .max()))
-    out = {}
-    for key, timer in (("ms", device_time_ms), ("call_ms", call_time_ms)):
-        p1, k1, k2, p2 = (timer(plain), timer(kern), timer(kern),
-                          timer(plain))
-        out[key] = (k1 + k2) / 2
-        out["plain_" + key] = (p1 + p2) / 2
-    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2)
-    return {**out, "library_ms": device_time_ms(lib),
+    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2, window)
+    return {**time_pair(kern, plain), "library_ms": device_time_ms(lib),
             "library_max_abs_err": lib_err, "bound_ms": bound,
             "bound_by": by, "max_abs_err": err}
+
+
+# --------------------------------------------------------------------- #
+# RG-LRU scan and mLSTM
+# --------------------------------------------------------------------- #
+# (B, S, W, with h0): recurrentgemma-9b's forward shape with and without
+# a carried state, and a ragged case
+SCAN_CASES = [(1, 4096, 4096, False), (1, 4096, 4096, True),
+              (3, 100, 48, True)]
+# (B, S, H, D, dtype): xlstm-350m's forward shape, then small cases whose
+# S is no multiple of the 32-row tile
+MLSTM_CASES = [(1, 2048, 4, 512, torch.bfloat16),
+               (1, 2048, 4, 512, torch.float32),
+               (1, 64, 2, 16, torch.float32), (2, 100, 2, 16, torch.float32),
+               (2, 96, 4, 32, torch.float32), (1, 100, 1, 64, torch.float32),
+               (2, 70, 2, 512, torch.float32),
+               (2, 37, 4, 64, torch.bfloat16)]
+
+
+def scan_operands(gen, b, s, w, with_h0):
+    """a in [0.7, 1) as the RG-LRU's decays, b ~ N(0, 1), h0 ~ N(0, 1)."""
+    a = torch.rand((b, s, w), generator=gen, device=DEVICE) * 0.3 + 0.7
+    x = torch.randn((b, s, w), generator=gen, device=DEVICE)
+    h0 = torch.randn((b, w), generator=gen, device=DEVICE) \
+        if with_h0 else None
+    return a, x, h0
+
+
+def mlstm_operands(gen, b, s, h, d, dtype):
+    """q, k, v ~ N(0, 1) in ``dtype``, log_i ~ N(0, 1), log_f = -|N(0,
+    1)| / 2 (f32), as the reference's kernel tests draw them."""
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEVICE)
+               .to(dtype) for _ in range(3))
+    log_i = torch.randn((b, s, h), generator=gen, device=DEVICE)
+    log_f = -torch.randn((b, s, h), generator=gen, device=DEVICE).abs() * 0.5
+    return q, k, v, log_i, log_f
+
+
+def close_check(out, want, rtol, atol, name) -> float:
+    """Max |kernel - plain|; raises when an element lies outside
+    atol + rtol |plain| or is not finite."""
+    o, w = out.float(), want.float()
+    if o.shape != w.shape or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{name}: shape {o.shape} or non-finite output")
+    err = (o - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements outside rtol {rtol} atol "
+            f"{atol}, max err {float(err.max())}")
+    return float(err.max())
+
+
+def mlstm_plain_f32(q, k, v, log_i, log_f):
+    """The plain version evaluated in f32 on the same values: what the
+    kernel (and the Pallas kernel, which upcasts q, k, v) computes."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+    return mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f)
+
+
+def phase_scan_kernels(gen):
+    """rglru_scan and mlstm against their plain versions; two launches of
+    each case must give the same bits."""
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    rows = []
+    for b, s, w, with_h0 in SCAN_CASES:
+        a, x, h0 = scan_operands(gen, b, s, w, with_h0)
+        out, last = rg_kernel.rglru_scan_cuda(a, x, h0)
+        again, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"rglru_scan {(b, s, w)}: two runs differ")
+        want, want_last = rglru_scan_ref(a, x, h0)
+        err = close_check(out, want, *SCAN_TOL, f"rglru_scan {(b, s, w)}")
+        close_check(last, want_last, *SCAN_TOL, "rglru_scan h_last")
+        rows.append({"kernel": "rglru_scan", "shape": [b, s, w],
+                     "h0": with_h0, "max_abs_err": err})
+    for b, s, h, d, dtype in MLSTM_CASES:
+        ops = mlstm_operands(gen, b, s, h, d, dtype)
+        out = ml_kernel.mlstm_cuda(*ops)
+        again = ml_kernel.mlstm_cuda(*ops)
+        torch.cuda.synchronize()
+        name = f"mlstm {(b, s, h, d)} {dtype}"
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: two runs differ")
+        err = close_check(out, mlstm_plain_f32(*ops), *MLSTM_TOL[dtype], name)
+        row = {"kernel": "mlstm", "shape": [b, s, h, d],
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+        if dtype != torch.float32:
+            # the plain version in the working dtype rounds a to bf16
+            # before a.v, as the reference's mlstm_parallel: reported, and
+            # held end to end by the xlstm forward's logit check
+            plain = mlstm_ref(*ops).float()
+            diff = (out.float() - plain).abs()
+            row["vs_plain_in_dtype"] = {
+                "max_abs_err": float(diff.max()),
+                "share_outside_tol": float(
+                    (diff > 2e-2 + 2e-2 * plain.abs()).float().mean())}
+        rows.append(row)
+    return rows
+
+
+def scan_bound_ms(b, s, w):
+    """Least time for the recurrence without h0, as the forward calls it:
+    a and b read and h written once at the HBM rate, against 2 flops an
+    element at the fp32 rate; the larger, and which one it is."""
+    nbytes = 4 * 3 * b * s * w
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = 2 * b * s * w / FP32_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def mlstm_bound_ms(b, s, h, d, itemsize):
+    """Least time for the chunkwise mLSTM: q, k, v, log_i, log_f read and
+    the output written once at the HBM rate, against 4 flops per (query,
+    causal key, head, head-dim) at the bf16 tensor-core rate; the larger,
+    and which one it is."""
+    nbytes = itemsize * 4 * b * s * h * d + 4 * 2 * b * s * h
+    pairs = s * (s + 1) // 2
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def time_scan(gen, b, s, w):
+    """rglru_scan at recurrentgemma-9b's forward shape (no h0, as the
+    forward calls it) over TIMING_ROTATION operand sets.  No library
+    call: no single PyTorch call computes a first-order linear
+    recurrence."""
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    sets = [scan_operands(gen, b, s, w, False)[:2]
+            for _ in range(TIMING_ROTATION // 4)]
+    kern = [functools.partial(rg_kernel.rglru_scan_cuda, *ab) for ab in sets]
+    plain = [functools.partial(rglru_scan_ref, *ab) for ab in sets]
+    err = 0.0
+    for kc, pc in zip(kern[:2], plain[:2]):
+        err = max(err, close_check(kc()[0], pc()[0], *SCAN_TOL, "timing"))
+    bound, by = scan_bound_ms(b, s, w)
+    return {**time_pair(kern, plain), "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
+def time_mlstm(gen, b, s, h, d):
+    """mlstm at xlstm-350m's forward shape (bf16) over TIMING_ROTATION
+    operand sets; the plain version in bf16, as the model's plain path.
+    No library call: scaled_dot_product_attention cannot apply the gate
+    decay or the max(|den|, exp(-m)) normaliser."""
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+    sets = [mlstm_operands(gen, b, s, h, d, torch.bfloat16)
+            for _ in range(TIMING_ROTATION)]
+    kern = [functools.partial(ml_kernel.mlstm_cuda, *ops) for ops in sets]
+    plain = [functools.partial(mlstm_ref, *ops) for ops in sets]
+    err = 0.0
+    for kc, ops in zip(kern[:4], sets[:4]):
+        err = max(err, close_check(kc(), mlstm_plain_f32(*ops),
+                                   *MLSTM_TOL[torch.bfloat16], "timing"))
+    bound, by = mlstm_bound_ms(b, s, h, d, 2)
+    return {**time_pair(kern, plain), "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
 
 # --------------------------------------------------------------------- #
@@ -465,9 +702,9 @@ def serve_workload(svc, n_queries=64, tenants=4, window=16):
     return tids
 
 
-def profile_run(phase, run):
+def profile_run(phase, run, **extra):
     """Device time by kernel over one ``run()``, from torch.profiler; the
-    profiler's own cost is in ``wall_s``."""
+    profiler's own cost is in ``wall_s``.  ``extra`` goes into the line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -484,7 +721,7 @@ def profile_run(phase, run):
                    if e.device_type != DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(us for us, _, _ in rows) / 1e6
-    emit({"phase": phase, "wall_s": wall, "device_busy_s": busy_s,
+    emit({"phase": phase, **extra, "wall_s": wall, "device_busy_s": busy_s,
           "device_busy_share": busy_s / wall,
           "device_launches": sum(n for _, _, n in rows),
           "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
@@ -657,19 +894,195 @@ def phase_serve(n_events):
 # --------------------------------------------------------------------- #
 # LM serve and prefill
 # --------------------------------------------------------------------- #
+LM_KERNELS = ("flash_attention", "rglru_scan", "mlstm")
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """Inside the block the dense model's attention calls take the plain
-    version on CUDA tensors: the comparison runs only, never the served
-    path, whose calls launch the kernel."""
+def plain_kernels(f32=False):
+    """Inside the block every LM-path kernel call on a CUDA tensor takes
+    the plain version: attention in the dense and hybrid models (both
+    reach it through ``transformer.flash_attention``), the RG-LRU
+    recurrence and the chunkwise mLSTM.  With ``f32`` the plain versions
+    run on the same values upcast to f32 (the kernels' arithmetic) and
+    cast their output back.  The comparison runs only, never the served
+    path, whose calls launch the kernels."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import transformer
-    saved = transformer.flash_attention
-    transformer.flash_attention = flash_attention_ref
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import rglru, transformer, xlstm
+
+    def flash_f32(q, k, v, **kw):
+        return flash_attention_ref(q.float(), k.float(), v.float(),
+                                   **kw).to(q.dtype)
+
+    def mlstm_f32(q, k, v, log_i, log_f):
+        return mlstm_plain_f32(q, k, v, log_i, log_f).to(q.dtype)
+
+    swaps = ((transformer, "flash_attention",
+              flash_f32 if f32 else flash_attention_ref),
+             (rglru, "linear_scan", rglru_scan_ref),
+             (xlstm, "mlstm_scan", mlstm_f32 if f32 else mlstm_ref))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        transformer.flash_attention = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def shadow_kernels():
+    """Inside the block every LM-path kernel call still launches its
+    kernel, whose output the path goes on with, and is then held against
+    its plain version evaluated in f32 on the same inputs (FA_TOL,
+    SCAN_TOL, MLSTM_TOL, elementwise): the per-call check of each kernel
+    at the shapes and on the activations the path gives it.  Yields the
+    per-kernel tally (calls, elements outside the tolerance, max
+    |difference|)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import rglru, transformer, xlstm
+    tally = {name: {"calls": 0, "outside": 0, "elements": 0,
+                    "max_abs_err": 0.0} for name in LM_KERNELS}
+
+    def record(name, out, want, rtol, atol):
+        o, w = out.float(), want.float()
+        err = (o - w).abs()
+        t = tally[name]
+        t["calls"] += 1
+        t["elements"] += err.numel()
+        t["outside"] += int((~(err <= atol + rtol * w.abs())).sum())
+        t["max_abs_err"] = max(t["max_abs_err"], float(err.max()))
+
+    kern_fa, kern_scan, kern_mlstm = (transformer.flash_attention,
+                                      rglru.linear_scan, xlstm.mlstm_scan)
+
+    def flash(q, k, v, **kw):
+        out = kern_fa(q, k, v, **kw)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        record("flash_attention", out, want, *FA_TOL[q.dtype])
+        return out
+
+    def scan(a, b, h0=None):
+        out = kern_scan(a, b, h0)
+        record("rglru_scan", out[0], rglru_scan_ref(a, b, h0)[0], *SCAN_TOL)
+        return out
+
+    def mlstm(q, k, v, log_i, log_f):
+        out = kern_mlstm(q, k, v, log_i, log_f)
+        record("mlstm", out, mlstm_plain_f32(q, k, v, log_i, log_f),
+               *MLSTM_TOL[q.dtype])
+        return out
+
+    swaps = ((transformer, "flash_attention", flash),
+             (rglru, "linear_scan", scan), (xlstm, "mlstm_scan", mlstm))
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield tally
+    finally:
+        transformer.flash_attention = kern_fa
+        rglru.linear_scan = kern_scan
+        xlstm.mlstm_scan = kern_mlstm
+
+
+def check_calls(name, tally):
+    for kernel, t in tally.items():
+        if t["outside"]:
+            raise AssertionError(
+                f"{name}: {t['outside']} of {t['elements']} elements of "
+                f"{t['calls']} {kernel} calls outside the tolerance against "
+                f"the plain version in f32, max err {t['max_abs_err']}")
+
+
+def compare_runs(cfg, kern, run, rows):
+    """``kern``, the kernels' logits of a path, against ``run()`` (the
+    same path) on the plain versions in the working dtype and in f32; the
+    two plain runs against each other, which differ only in rounding (the
+    path's own sensitivity); each as (max relative logit difference, top-1
+    agreement) over ``rows(logits)``.  And the per-call check of the
+    path's kernels."""
+    def cmp(a, b):
+        rel, top1 = compare_logits(rows(a), rows(b), cfg.vocab_size)
+        return {"max_rel_logit_diff": max(rel), "top1_agreement": top1,
+                "rel_logit_diff": rel}
+
+    with plain_kernels():
+        plain = run()
+    with plain_kernels(f32=True):
+        plain_f32 = run()
+    out = {"plain": cmp(kern, plain), "plain_f32": cmp(kern, plain_f32),
+           "plain_vs_plain_f32": cmp(plain, plain_f32)}
+    del plain, plain_f32
+    with shadow_kernels() as tally:
+        run()
+    out["per_call"] = tally
+    return out
+
+
+def summary(cmp):
+    """The comparison without its per-row lists, for the phase line."""
+    return {key: {k: v for k, v in val.items() if k != "rel_logit_diff"}
+            for key, val in cmp.items() if key.startswith("plain")}
+
+
+def check_runs(name, cfg, cmp):
+    """The per-call check always; the end-to-end logits against the plain
+    versions where the model is not chaotic (E2E_GATED)."""
+    check_calls(name, cmp["per_call"])
+    if cfg.name in E2E_GATED:
+        check_logits(name, [cmp["plain"]["max_rel_logit_diff"]],
+                     cmp["plain"]["top1_agreement"])
+
+
+def lm_counted(run):
+    """Run one LM path with the LM kernels' launch counts zeroed just
+    before it and read just after it: (its output, its launches)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    counters = (fa_kernel.LAUNCHES, rg_kernel.LAUNCHES, ml_kernel.LAUNCHES)
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {}
+    for c in counters:
+        launches.update(c)
+    return out, launches
+
+
+def check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name} launched {got}, expected {want}")
+
+
+def path_launches(cfg):
+    """What each path of ``cfg``'s model must launch, counted from its
+    pattern: ``generate`` (every decode step's attention layers) and one
+    ``forward`` (each attention, RG-LRU and mLSTM layer once)."""
+    from repro_torch.models import hybrid, xlstm
+    steps = LM_PROMPT + LM_NEW
+    if cfg.family == "hybrid":
+        unit, n_super, tail = hybrid._pattern(cfg)
+        n_attn = n_super * unit.count("attn")
+        n_rec = n_super * unit.count("rec") + tail.count("rec")
+        return ({"flash_attention": n_attn * steps, "rglru_scan": 0,
+                 "mlstm": 0},
+                {"flash_attention": n_attn, "rglru_scan": n_rec,
+                 "mlstm": 0})
+    if cfg.family == "ssm":
+        unit, n_super = xlstm._pattern(cfg)
+        return ({"flash_attention": 0, "rglru_scan": 0, "mlstm": 0},
+                {"flash_attention": 0, "rglru_scan": 0,
+                 "mlstm": n_super * unit.count("mlstm")})
+    return ({"flash_attention": cfg.num_layers * steps, "rglru_scan": 0,
+             "mlstm": 0},
+            {"flash_attention": cfg.num_layers, "rglru_scan": 0,
+             "mlstm": 0})
 
 
 def compare_logits(kern, plain, vocab):
@@ -690,30 +1103,33 @@ def compare_logits(kern, plain, vocab):
 def check_logits(name, rel, top1):
     if max(rel) > LM_REL_TOL or top1 < LM_TOP1_MIN:
         raise AssertionError(
-            f"{name}: kernel vs plain attention max rel logit difference "
+            f"{name}: kernels vs plain versions max rel logit difference "
             f"{max(rel)} (limit {LM_REL_TOL}), top-1 agreement {top1} "
             f"(at least {LM_TOP1_MIN})")
 
 
-def build_lm():
-    """qwen3-14b at full width on the card, weights from a seeded
-    generator: (cfg, model facade, parameter tree)."""
+def build_lm(arch):
+    """``arch`` at full width on the card, weights from a seeded
+    generator, held by ``LanguageModel``: (cfg, model facade, parameter
+    tree)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model_zoo
-    from repro_torch.models.transformer import TransformerLM
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lm = TransformerLM(cfg, model.table.init(gen, DEVICE))
+    lm = model_zoo.LanguageModel(model, model.table.init(gen, DEVICE))
     torch.cuda.synchronize()
-    emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model,
+    emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
           "q_heads": [cfg.num_heads, cfg.num_heads_padded],
           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
-          "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded,
+          "d_ff": cfg.d_ff, "lru_width": cfg.lru_width,
+          "attention_window": cfg.attention_window,
+          "xlstm_pattern": list(cfg.xlstm_pattern),
+          "vocab_padded": cfg.vocab_padded,
           "dtype": cfg.param_dtype, "params": model.table.num_params(),
           "param_gb": model.table.bytes() / 1e9,
           "resident_gb": torch.cuda.memory_allocated() / 1e9,
@@ -734,9 +1150,8 @@ def replay(cfg, model, params, seq):
 
 @torch.inference_mode()
 def phase_lm(cfg, model, params):
-    """generate() through the kernel, its launch count, tok/s, and the
-    teacher-forced comparison with the plain attention."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    """generate() through the kernels, its launch counts, tok/s, and the
+    teacher-forced comparison with the plain versions."""
     from repro_torch.launch.serve import generate
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
@@ -744,16 +1159,11 @@ def phase_lm(cfg, model, params):
                            generator=gen, device=DEVICE)
     generate(cfg, model, params, prompt, max_new_tokens=2)   # warm-up
     torch.cuda.synchronize()
-    fa_kernel.LAUNCHES["flash_attention"] = 0
     t0 = time.perf_counter()
-    tokens = generate(cfg, model, params, prompt, max_new_tokens=LM_NEW)
-    torch.cuda.synchronize()
+    tokens, launches = lm_counted(lambda: generate(
+        cfg, model, params, prompt, max_new_tokens=LM_NEW))
     wall = time.perf_counter() - t0
-    launches = fa_kernel.LAUNCHES["flash_attention"]
-    want = cfg.num_layers * (LM_PROMPT + LM_NEW)
-    if launches != want:
-        raise AssertionError(f"generate launched flash_attention {launches} "
-                             f"times, expected {want}")
+    check_launches(f"{cfg.name} generate", launches, path_launches(cfg)[0])
     if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
             not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"generate returned {tuple(tokens.shape)} or "
@@ -761,71 +1171,146 @@ def phase_lm(cfg, model, params):
 
     seq = torch.cat([prompt, tokens], dim=1)   # what the 24 steps were fed
     kern = replay(cfg, model, params, seq)
-    with plain_attention():
-        plain = replay(cfg, model, params, seq)
     pred = kern[..., :cfg.vocab_size].argmax(-1)       # (steps, B)
     if not torch.equal(pred[LM_PROMPT - 1:LM_PROMPT - 1 + LM_NEW].T, tokens):
-        raise AssertionError("the kernel's teacher-forced replay does not "
+        raise AssertionError("the kernels' teacher-forced replay does not "
                              "give generate()'s tokens")
-    rel, top1 = compare_logits(kern, plain, cfg.vocab_size)
-    check_logits("lm serve", rel, top1)
+    cmp = compare_runs(cfg, kern, lambda: replay(cfg, model, params, seq),
+                       lambda logits: logits)
+    check_runs(f"{cfg.name} serve", cfg, cmp)
     profile_run("lm_profile", lambda: generate(
-        cfg, model, params, prompt, max_new_tokens=LM_NEW))
-    emit({"phase": "lm", "batch": LM_BATCH, "prompt": LM_PROMPT,
-          "new_tokens": LM_NEW, "decode_steps": LM_PROMPT + LM_NEW,
-          "flash_attention_launches": launches, "wall_s": wall,
+        cfg, model, params, prompt, max_new_tokens=LM_NEW), arch=cfg.name)
+    emit({"phase": "lm", "arch": cfg.name, "batch": LM_BATCH,
+          "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+          "decode_steps": LM_PROMPT + LM_NEW,
+          "flash_attention_launches": launches["flash_attention"],
+          "launches": launches, "wall_s": wall,
           "tok_per_s": LM_BATCH * LM_NEW / wall,
           "ms_per_decode_step": wall / (LM_PROMPT + LM_NEW) * 1e3,
-          "rel_logit_diff_per_step": rel, "top1_agreement": top1,
-          "sample": tokens[0].tolist()})
+          "rel_logit_diff_per_step": cmp["plain"]["rel_logit_diff"],
+          "top1_agreement": cmp["plain"]["top1_agreement"],
+          "end_to_end_gated": cfg.name in E2E_GATED, **summary(cmp),
+          "per_call": cmp["per_call"], "sample": tokens[0].tolist()})
     return launches
 
 
 @torch.inference_mode()
 def phase_prefill(cfg, model, params):
-    """One forward() over 1 x PREFILL_LEN tokens through the kernel
-    (one launch per layer), compared with the plain attention."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    """One forward() over 1 x FORWARD_LEN tokens through the kernels
+    (each attention, RG-LRU and mLSTM layer launches once), compared with
+    the same forward on the plain versions."""
+    length = FORWARD_LEN[cfg.name]
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, (1, length), generator=gen,
                          device=DEVICE)
     torch.cuda.synchronize()
-    fa_kernel.LAUNCHES["flash_attention"] = 0
     t0 = time.perf_counter()
-    logits, _ = model.forward(params, {"tokens": toks})
-    torch.cuda.synchronize()
+    (logits, _), launches = lm_counted(
+        lambda: model.forward(params, {"tokens": toks}))
     wall = time.perf_counter() - t0
-    launches = fa_kernel.LAUNCHES["flash_attention"]
-    if launches != cfg.num_layers:
-        raise AssertionError(f"forward launched flash_attention {launches} "
-                             f"times, expected {cfg.num_layers}")
-    with plain_attention():
-        plain, _ = model.forward(params, {"tokens": toks})
+    check_launches(f"{cfg.name} forward", launches, path_launches(cfg)[1])
     # each position is one row of the comparison
-    rel, top1 = compare_logits(logits[0][:, None], plain[0][:, None],
-                               cfg.vocab_size)
-    check_logits("prefill", rel, top1)
-    emit({"phase": "prefill", "tokens": PREFILL_LEN,
-          "flash_attention_launches": launches, "wall_s": wall,
-          "tok_per_s": PREFILL_LEN / wall, "max_rel_logit_diff": max(rel),
-          "top1_agreement": top1})
+    cmp = compare_runs(cfg, logits,
+                       lambda: model.forward(params, {"tokens": toks})[0],
+                       lambda x: x[0][:, None])
+    del logits
+    check_runs(f"{cfg.name} forward", cfg, cmp)
+    emit({"phase": "prefill", "arch": cfg.name, "tokens": length,
+          "flash_attention_launches": launches["flash_attention"],
+          "launches": launches, "wall_s": wall, "tok_per_s": length / wall,
+          "max_rel_logit_diff": cmp["plain"]["max_rel_logit_diff"],
+          "top1_agreement": cmp["plain"]["top1_agreement"],
+          "end_to_end_gated": cfg.name in E2E_GATED, **summary(cmp),
+          "per_call": cmp["per_call"]})
     return launches
 
 
+@torch.inference_mode()
+def phase_recurrent_tie(cfg, model, params):
+    """The forward's logits through the mLSTM kernel against a
+    teacher-forced decode of the same tokens (the recurrent form, no
+    kernel launch): each position is one row of the comparison.  Beside
+    it the same tie with the plain mLSTM in f32, the path's own
+    sensitivity; reported, not gated (E2E_GATED).  The decode must launch
+    no kernel."""
+    length = min(TIE_LEN, FORWARD_LEN[cfg.name])
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, length), generator=gen,
+                         device=DEVICE)
+    t0 = time.perf_counter()
+    steps, launches = lm_counted(lambda: replay(cfg, model, params, toks))
+    wall = time.perf_counter() - t0
+    check_launches(f"{cfg.name} decode", launches,
+                   {name: 0 for name in LM_KERNELS})
+    ties = {}
+    for key, ctx in (("kernel", contextlib.nullcontext()),
+                     ("plain_f32", plain_kernels(f32=True))):
+        with ctx:
+            logits, _ = model.forward(params, {"tokens": toks})
+        rel, top1 = compare_logits(logits[0][:, None], steps,
+                                   cfg.vocab_size)
+        first = next((i for i, r in enumerate(rel) if r > LM_REL_TOL), None)
+        ties[key] = {"max_rel_logit_diff": max(rel), "top1_agreement": top1,
+                     "first_position_over_tol": first,
+                     "rel_at": {p: rel[p] for p in (0, 15, 63, 255, 1023,
+                                                    length - 1)
+                                if p < length}}
+        del logits
+    emit({"phase": "recurrent_tie", "arch": cfg.name, "tokens": length,
+          "decode_wall_s": wall, "decode_launches": launches, **ties})
+
+
 # --------------------------------------------------------------------- #
+def ptxas_report(source) -> list:
+    """Registers and spill bytes of each kernel instance in ``source``,
+    from the ptxas report its build kept."""
+    import re
+    from repro_torch import kernels
+    rows, name = [], None
+    for line in kernels.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)Li(\d+)E)?E",
+                          m.group(1))
+            name = m.group(1) if t is None else t.group(1) + (
+                f"<{'bf16' if 'bfloat16' in t.group(2) else 'f32'},"
+                f"{t.group(3)}>" if t.group(2) else "")
+            rows.append({"kernel": name})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1]["spill_stores"] = int(m.group(1))
+            rows[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
 def build_all():
     """One nvcc per source, all started together."""
     from repro_torch.kernels.event_filter import kernel as ef_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    modules = (ef_kernel, fa_kernel, rg_kernel, ml_kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        futures = [pool.submit(m.build) for m in (ef_kernel, fa_kernel)]
+        futures = [pool.submit(m.build) for m in modules]
         for f in futures:
             f.result()
-    emit({"phase": "build",
-          "sources": [ef_kernel.SOURCE.name, fa_kernel.SOURCE.name],
-          "build_s": time.perf_counter() - t0})
+    emit({"phase": "build", "sources": [m.SOURCE.name for m in modules],
+          "build_s": time.perf_counter() - t0,
+          "ptxas": {m.SOURCE.name: ptxas_report(m.SOURCE)
+                    for m in modules}})
+
+
+def release():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -863,20 +1348,37 @@ def main(argv=None) -> int:
     emit({"phase": "flash_kernels", "cases": len(fa_rows),
           "tolerance": {str(k).split(".")[-1]: v for k, v in FA_TOL.items()},
           "rows": fa_rows})
+    scan_rows = phase_scan_kernels(gen)
+    emit({"phase": "scan_kernels", "cases": len(scan_rows),
+          "tolerance": {"rglru_scan": SCAN_TOL,
+                        "mlstm": {str(k).split(".")[-1]: v
+                                  for k, v in MLSTM_TOL.items()}},
+          "rows": scan_rows})
 
     # 4. serve and lockstep (the query paths; launch counts read around
     # each)
     launches, widths = phase_serve(args.n_events)
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
-    # 5, 6. LM serve and prefill (launch counts read around each)
-    lm = build_lm()
-    launches["flash_attention"] = phase_lm(*lm)
-    prefill_launches = phase_prefill(*lm)
+    # 5, 6. each LM at full width: serve and one forward (launch counts
+    # read around each path), one model on the card at a time
+    lm = build_lm(LM_ARCH)
+    launches["flash_attention"] = phase_lm(*lm)["flash_attention"]
+    prefill_launches = phase_prefill(*lm)["flash_attention"]
     del lm
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+    lm = build_lm(RG_ARCH)
+    rg_serve = phase_lm(*lm)
+    rg_forward = phase_prefill(*lm)
+    launches["rglru_scan"] = rg_forward["rglru_scan"]
+    del lm
+    release()
+    lm = build_lm(XL_ARCH)
+    phase_lm(*lm)
+    launches["mlstm"] = phase_prefill(*lm)["mlstm"]
+    phase_recurrent_tie(*lm)
+    del lm
+    release()
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -888,8 +1390,13 @@ def main(argv=None) -> int:
                                     BRICK_SHAPE, 1, 0),
         "flash_attention": time_flash(gen, LM_BATCH, 1,
                                       LM_PROMPT + LM_NEW, 48, 8, 128),
+        "rglru_scan": time_scan(gen, 1, FORWARD_LEN[RG_ARCH], 4096),
+        "mlstm": time_mlstm(gen, 1, FORWARD_LEN[XL_ARCH], 4, 512),
     }
     prefill = time_flash(gen, 1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128)
+    rg_len = FORWARD_LEN[RG_ARCH]
+    rg_decode = time_flash(gen, LM_BATCH, 1, LM_PROMPT + LM_NEW, 16, 1, 256)
+    rg_prefill = time_flash(gen, 1, rg_len, rg_len, 16, 1, 256, window=2048)
     emit({"phase": "timing", "smi": smi,
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
                                  **timed["event_filter_batch"]},
@@ -901,7 +1408,21 @@ def main(argv=None) -> int:
               **timed["flash_attention"]},
           "flash_attention_prefill": {
               "shape": [1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128],
-              "launches_prefill": prefill_launches, **prefill}})
+              "launches_prefill": prefill_launches, **prefill},
+          "flash_attention_rg_decode": {
+              "shape": [LM_BATCH, 1, LM_PROMPT + LM_NEW, 16, 1, 256],
+              "launches_serve": rg_serve["flash_attention"], **rg_decode},
+          "flash_attention_rg_prefill": {
+              "shape": [1, rg_len, rg_len, 16, 1, 256], "window": 2048,
+              "launches_forward": rg_forward["flash_attention"],
+              **rg_prefill},
+          "rglru_scan": {"shape": [1, rg_len, 4096],
+                         "launches_forward": launches["rglru_scan"],
+                         **timed["rglru_scan"]},
+          "mlstm": {"shape": [1, FORWARD_LEN[XL_ARCH], 4, 512],
+                    "dtype": "bfloat16",
+                    "launches_forward": launches["mlstm"],
+                    **timed["mlstm"]}})
 
     # 8. kernels line, nvidia-smi line, result line
     ef_src = "src/repro_torch/kernels/event_filter/csrc/event_filter.cu"
@@ -914,6 +1435,11 @@ def main(argv=None) -> int:
                             "flash_attention.cu",
                             "src/repro/kernels/flash_attention/"
                             "kernel.py:81"),
+        "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/"
+                       "rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:42"),
+        "mlstm": ("src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+                  "src/repro/kernels/mlstm_scan/kernel.py:70"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,

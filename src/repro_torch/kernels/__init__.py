@@ -29,9 +29,11 @@ from typing import Union
 import torch
 
 #: nvcc flags for every kernel source: Hopper (``sm_90a``), no fast math
-#: (``--use_fast_math`` would change ``tanhf``, ``rsqrtf`` and division).
+#: (``--use_fast_math`` would change ``tanhf``, ``rsqrtf`` and division),
+#: and ptxas's report of registers, shared memory and spills per kernel,
+#: which the build keeps beside the library (:func:`build_log`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: the toolkit's nvcc when it is not on ``PATH``
 CUDA_HOME_NVCC = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
@@ -67,14 +69,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_cuda_library(source: Path) -> Path:
-    """Compile ``source`` into ``BUILD_DIR`` (skipped when a library for
-    the same source bytes and flags exists) and return its path.  A
-    failed build raises ``RuntimeError`` carrying nvcc's stderr."""
-    source = Path(source)
+def _library_path(source: Path) -> Path:
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}_{digest}.so"
+    return BUILD_DIR / f"{source.stem}_{digest}.so"
+
+
+def build_log(source: Path) -> str:
+    """What nvcc and ptxas reported while building ``source`` (registers,
+    shared memory and spills of each kernel), or "" before the build."""
+    log = _library_path(Path(source)).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build_cuda_library(source: Path) -> Path:
+    """Compile ``source`` into ``BUILD_DIR`` (skipped when a library for
+    the same source bytes and flags exists) and return its path; nvcc's
+    report goes beside it (:func:`build_log`).  A failed build raises
+    ``RuntimeError`` carrying nvcc's stderr."""
+    source = Path(source)
+    out = _library_path(source)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -90,6 +104,7 @@ def build_cuda_library(source: Path) -> Path:
             raise RuntimeError(
                 f"nvcc failed building {source.name} "
                 f"(exit {proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

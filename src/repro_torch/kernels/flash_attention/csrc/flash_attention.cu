@@ -19,11 +19,13 @@
 // with the head dim contiguous, so no transpose copy is made; out is a
 // contiguous (B,Sq,H,D).
 //
-// Layout: one block of 128 threads per (b, q head, tile of 32 query rows).
-// The block stages the scaled Q tile once and then walks tiles of 32 keys:
-// K and V are loaded into shared memory as f32, each lane computes the
-// score of one key against the warp's 8 rows (float4 reads, K rows padded
-// by 4 floats so the lanes hit distinct banks), the softmax statistics of a
+// Layout: one block of 128 threads (256 at head dim 256) per (b, q head,
+// tile of 32 query rows).  The block stages the scaled Q tile once and
+// then walks tiles of 32 keys: K and V are loaded into shared memory as
+// f32, each lane computes the score of one key against the warp's 8 rows,
+// or 4 at head dim 256, which keeps the accumulator at 32 registers a lane
+// (float4 reads, K rows padded by 4 floats so the lanes hit distinct
+// banks; 102.9 KB of shared memory at 256), the softmax statistics of a
 // row are reduced across the warp with butterfly shuffles, and the warp's
 // probabilities go through shared memory to the P.V product, where each
 // lane owns the head-dim columns lane, lane + 32, ...  Tiles that are fully
@@ -48,11 +50,17 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kBlockQ = 32;                       // query rows per block
 constexpr int kBlockK = 32;                       // keys per tile, one a lane
-constexpr int kRowsPerWarp = kBlockQ / kWarps;    // rows warp + kWarps * r
+
+// 4 warps of 8 rows up to head dim 128; 8 warps of 4 rows at 256, so the
+// accumulator stays at 32 registers a lane (4 rows x 8 columns)
+template <int D>
+struct Shape {
+  static constexpr int kWarps = D >= 256 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowsPerWarp = kBlockQ / kWarps;  // warp + kWarps r
+};
 constexpr float kNegInf = -1e30f;
 constexpr float kGuard = 0.1f * kNegInf;          // masked-block guard
 
@@ -101,9 +109,12 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_attention_kernel(const Params p) {
   static_assert(D % 4 == 0, "float4 reads need D % 4 == 0");
+  constexpr int kThreads = Shape<D>::kThreads;
+  constexpr int kWarps = Shape<D>::kWarps;
+  constexpr int kRowsPerWarp = Shape<D>::kRowsPerWarp;
   constexpr int kStrideK = D + 4;                 // pad: distinct banks
   constexpr int kCols = (D + 31) / 32;            // head-dim columns a lane
   extern __shared__ __align__(16) float smem[];
@@ -254,7 +265,7 @@ int launch(const Params& p, long long b, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((p.sq + kBlockQ - 1) / kBlockQ),
                   static_cast<unsigned>(p.h), static_cast<unsigned>(b));
   flash_attention_kernel<T, D>
-      <<<grid, kThreads, smem_bytes<D>(), stream>>>(p);
+      <<<grid, Shape<D>::kThreads, smem_bytes<D>(), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,6 +277,7 @@ int launch_dim(const Params& p, int head_dim, long long b,
     case 32: return launch<T, 32>(p, b, stream);
     case 64: return launch<T, 64>(p, b, stream);
     case 128: return launch<T, 128>(p, b, stream);
+    case 256: return launch<T, 256>(p, b, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -26,7 +26,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LAUNCHES = {"flash_attention": 0}
 
 #: head dims the kernel is instantiated for, and its dtype codes
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,12 +1,15 @@
 """Serving launcher of the port, with two modes.
 
-``--mode lm``: batched prefill -> decode loop over the ring KV cache of a
-dense decoder LM.  ``python -m repro_torch.launch.serve --mode lm --arch
-qwen3-14b`` builds the model at full width with seeded random weights,
-generates ``--new-tokens`` for a ``--batch`` of random prompts, and prints
-tok/s and a sample; ``--reduced`` takes the tiny same-family config.  On a
-CUDA device every attention call launches the hand-written flash-attention
-kernel.
+``--mode lm``: batched prefill -> decode loop over the decode state of a
+dense decoder LM (ring KV cache), the hybrid recurrentgemma (RG-LRU state
+and a local-attention ring) or xLSTM (matrix and scalar memories).
+``python -m repro_torch.launch.serve --mode lm --arch qwen3-14b`` (or
+``recurrentgemma-9b``, ``xlstm-350m``) builds the model at full width with
+seeded random weights, generates ``--new-tokens`` for a ``--batch`` of
+random prompts, and prints tok/s and a sample; ``--reduced`` takes the
+tiny same-family config.  On a CUDA device every attention call launches
+the hand-written flash-attention kernel; the recurrent families' decode
+steps are plain PyTorch, as in the reference.
 
 ``--mode query`` (default): ``python -m repro_torch.launch.serve --mode query --backend spmd
 --use-pallas`` stands up a brick store on the card, replays a
@@ -21,7 +24,7 @@ device-resident bricks; ``--use-pallas`` (spmd) runs in-family plan
 targets through the fused ``event_filter`` CUDA kernel.  ``--device``
 picks where the store lives and the scans run (default ``cuda``).
 
-Not ported yet: the LM families other than dense without experts,
+Not ported yet: the moe, vlm and audio LM families,
 ``--production-mesh``, ``--fleet > 1``, ``--policy``, ``--trace-out``,
 ``--metrics-dump``, ``--flight-out`` and ``--autotune``; each exits with a
 message saying so.
@@ -95,7 +98,6 @@ def serve_lm(args):
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.kernels import resolve_device
     from repro_torch.models import model_zoo
-    from repro_torch.models.transformer import TransformerLM
 
     if args.arch is None:
         raise SystemExit("--arch is required for --mode lm")
@@ -110,7 +112,7 @@ def serve_lm(args):
         raise SystemExit(f"--mode lm --arch {args.arch}: {e}") from None
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    lm = TransformerLM(cfg, model.table.init(gen, device))
+    lm = model_zoo.LanguageModel(model, model.table.init(gen, device))
     gen.manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
@@ -236,7 +238,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "query"), default="query",
                     help="query: the GEPS query service; lm: generation "
-                         "with a dense decoder LM")
+                         "with a dense, hybrid or xLSTM LM")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model or the brick store lives and "
                          "the work runs")

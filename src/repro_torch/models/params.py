@@ -28,7 +28,7 @@ NOT_PORTED = "is not ported to repro_torch yet"
 class ParamDef:
     shape: Tuple[int, ...]
     roles: Tuple[Optional[str], ...]  # sharding roles, one per dim
-    init: str = "normal"  # normal | zeros | ones | fan_in
+    init: str = "normal"  # normal | zeros | ones | fan_in | lru_a
     scale: float = 0.02
     dtype: Optional[str] = None  # override cfg.param_dtype
     zero_pad: Optional[Tuple[int, int]] = None  # (axis, real_size): slots
@@ -81,9 +81,11 @@ class ParamTable:
         reference's rules: ``normal`` (scale 0.02), ``fan_in`` with scale
         ``1/sqrt(shape[-2])`` as the reference reads it (C-ref5: for
         ``wq (L, d, Hp, hd)`` that is Hp), ``zeros``, ``ones``, and
-        ``zero_pad`` zeroing the padded heads (the RG-LRU ``lru_a`` rule
-        comes with its model).  torch's RNG gives other numbers than
-        ``jax.random`` for the same seed."""
+        ``zero_pad`` zeroing the padded heads, and ``lru_a`` (the RG-LRU
+        decay parameter: ``u ~ U(0.9, 0.999)`` in f32, then
+        ``log(exp(-8 log u) - 1)``).  As the reference, ``fan_in`` and
+        ``ones`` ignore ``scale`` (C-ref6).  torch's RNG gives other
+        numbers than ``jax.random`` for the same seed."""
         device = torch.device(device)
         values = {path: self._draw(self.defs[path], generator, device)
                   for path in sorted(self.defs)}
@@ -95,6 +97,12 @@ class ParamTable:
             return torch.zeros(d.shape, dtype=dt, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dt, device=device)
+        if d.init == "lru_a":
+            # softplus^-1 spacing, so that a = exp(-8 softplus(lam) r)
+            # starts in a stable regime
+            u = torch.rand(d.shape, generator=gen, device=device,
+                           dtype=torch.float32).mul_(0.999 - 0.9).add_(0.9)
+            return torch.log(torch.exp(-8.0 * torch.log(u)) - 1.0).to(dt)
         scale = d.scale
         if d.init == "fan_in":
             scale = 1.0 / math.sqrt(max(1, d.shape[-2] if len(d.shape) > 1

@@ -18,11 +18,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.model_zoo import LanguageModel
 from repro_torch.models.params import NOT_PORTED, ParamTable, torch_dtype
 
 
@@ -212,12 +212,12 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
             "t": 0}
 
 
-def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
-    """Decode step for one layer: write the new k/v into ``slot`` of the
-    layer's cache (in place), attend over the filled prefix ``[0, n)``.
-    x:(B,1,d)."""
-    h = L.norm(cfg, x, p["ln1"]["scale"], p["ln1"].get("bias"))
-    q, k_new, v_new = attn_qkv(cfg, p["attn"], h, positions)
+def decode_attention(cfg, p, h, positions, k_i, v_i, slot, n):
+    """The attention sub-block of one decode step (no residual): write the
+    new k/v into ``slot`` of the layer's ring cache ``k_i``/``v_i``
+    (B, W, K, hd) in place, attend over the filled prefix ``[0, n)``.
+    h:(B,1,d) -> (B,1,d)."""
+    q, k_new, v_new = attn_qkv(cfg, p, h, positions)
     k_i[:, slot] = k_new[:, 0].to(k_i.dtype)
     v_i[:, slot] = v_new[:, 0].to(v_i.dtype)
     # every slot of [0, n) holds one of the last n positions <= t, all
@@ -226,7 +226,30 @@ def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
     out = flash_attention(q, k_i[:, :n], v_i[:, :n], causal=True,
                           window=None, scale=cfg.attn_scale_override,
                           logit_cap=cfg.attn_logit_softcap)
-    a = attn_out_proj(cfg, p["attn"], out)
+    return attn_out_proj(cfg, p, out)
+
+
+def ring_slot(cache: dict, window) -> tuple:
+    """``(t, slot, n)`` of a decode step on a ring cache: ``t`` the host
+    int position, ``slot = t % W`` where the new k/v go, and ``n = min(t
+    + 1, W)`` the filled prefix (see ``decode_step``).  Raises for a bad
+    ``t`` or a cache longer than the window."""
+    t = cache["t"]
+    w = cache["k"].shape[2]
+    if not isinstance(t, int) or t < 0:
+        raise ValueError(f"cache['t'] must be a host int >= 0, got {t!r}")
+    if window is not None and w > window:
+        raise ValueError(f"a cache of {w} slots is longer than the window "
+                         f"{window}: its filled slots are not all visible")
+    return t, t % w, min(t + 1, w)
+
+
+def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
+    """Decode step for one layer: write the new k/v into ``slot`` of the
+    layer's cache (in place), attend over the filled prefix ``[0, n)``.
+    x:(B,1,d)."""
+    h = L.norm(cfg, x, p["ln1"]["scale"], p["ln1"].get("bias"))
+    a = decode_attention(cfg, p["attn"], h, positions, k_i, v_i, slot, n)
     if cfg.post_attn_norm:
         a = L.norm(cfg, a, p["ln1_post"]["scale"])
     x = x + a
@@ -248,16 +271,8 @@ def decode_step(cfg, params, cache, tokens):
     the reference finds valid: before the ring wraps ``kpos[j] = j <= t``;
     after it wraps all W slots hold the last W positions; and a windowed
     cache has ``W <= window``, so no filled slot lies outside the window."""
-    t = cache["t"]
-    w = cache["k"].shape[2]
-    window = cfg.sliding_window or cfg.attention_window
-    if not isinstance(t, int) or t < 0:
-        raise ValueError(f"cache['t'] must be a host int >= 0, got {t!r}")
-    if window is not None and w > window:
-        raise ValueError(f"a cache of {w} slots is longer than the window "
-                         f"{window}: its filled slots are not all visible")
-    slot = t % w
-    n = min(t + 1, w)
+    t, slot, n = ring_slot(cache, cfg.sliding_window or
+                           cfg.attention_window)
     positions = torch.full((1,), t, dtype=torch.int64, device=tokens.device)
     cache["kpos"][slot] = t
 
@@ -272,43 +287,10 @@ def decode_step(cfg, params, cache, tokens):
 
 
 # --------------------------------------------------------------------------- #
-class TransformerLM(nn.Module):
-    """The dense LM as an ``nn.Module``: it holds the parameters under the
-    reference's paths (``embed/table``, ``layers/attn/wq``, ...), frozen
-    for serving, and runs the functions above on them."""
+class TransformerLM(LanguageModel):
+    """The dense LM as an ``nn.Module``: ``LanguageModel`` on the dense
+    facade of ``cfg``."""
 
     def __init__(self, cfg, params: dict):
-        super().__init__()
-        self.cfg = cfg
-        flat = {}
-
-        def walk(node, prefix):
-            for key, val in node.items():
-                if isinstance(val, dict):
-                    walk(val, f"{prefix}{key}/")
-                else:
-                    flat[f"{prefix}{key}"] = nn.Parameter(
-                        val, requires_grad=False)
-        walk(params, "")
-        self.weights = nn.ParameterDict(flat)
-
-    def tree(self) -> dict:
-        """The parameters as the reference's nested dict (no copies)."""
-        tree: dict = {}
-        for path, val in self.weights.items():
-            node = tree
-            parts = path.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = val
-        return tree
-
-    def forward(self, tokens):
-        return forward(self.cfg, self.tree(), tokens)
-
-    def decode_step(self, cache, tokens):
-        return decode_step(self.cfg, self.tree(), cache, tokens)
-
-    def init_cache(self, batch: int, seq_len: int) -> dict:
-        device = next(iter(self.weights.values())).device
-        return init_cache(self.cfg, batch, seq_len, device)
+        from repro_torch.models.model_zoo import build_model
+        super().__init__(build_model(cfg), params)

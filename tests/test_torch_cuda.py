@@ -22,6 +22,12 @@ from repro_torch.kernels.event_filter.ref import (calibrate_tracks,
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 pytestmark = pytest.mark.cuda
 BAND_RTOL = 1e-5
@@ -174,6 +180,8 @@ def _fa_inputs(dev, b, sq, sk, h, kh, d, dtype, seed):
     (1, 96, 96, 8, 2, 64, {"window": 40}),
     (2, 64, 64, 4, 4, 32, {"logit_cap": 30.0}),
     (1, 50, 50, 4, 1, 16, {"causal": False, "window": 9}),
+    (2, 1, 24, 16, 1, 256, {}),                    # recurrentgemma decode
+    (1, 300, 300, 16, 1, 256, {"window": 128}),    # MQA, D 256, window
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, sk, h,
                                                       kh, d, kw, dtype):
@@ -249,3 +257,154 @@ def test_dense_lm_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
     plain_logits, plain_steps = run()
     torch.testing.assert_close(logits, plain_logits, rtol=0, atol=1e-4)
     torch.testing.assert_close(steps, plain_steps, rtol=0, atol=1e-4)
+
+
+# ------------------------------ RG-LRU scan ------------------------------ #
+@pytest.mark.parametrize("b,s,w,with_h0", [(1, 4096, 4096, False),
+                                           (1, 4096, 4096, True),
+                                           (3, 100, 48, True),
+                                           (2, 1, 7, True)])
+def test_rglru_scan_kernel_matches_plain_version(cuda, b, s, w, with_h0):
+    """f32 within 1e-5: the kernel runs the recurrence in order, the plain
+    version as a doubling scan."""
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    a = torch.rand((b, s, w), generator=g, device=cuda) * 0.3 + 0.7
+    x = torch.randn((b, s, w), generator=g, device=cuda)
+    h0 = torch.randn((b, w), generator=g, device=cuda) if with_h0 else None
+    before = rg_kernel.LAUNCHES["rglru_scan"]
+    h, last = rg_ops.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg_kernel.LAUNCHES["rglru_scan"] == before + 1
+    want, want_last = rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(last, want_last, rtol=1e-5, atol=1e-5)
+    assert torch.equal(rg_ops.rglru_scan(a, x, h0)[0], h)
+
+
+def test_rglru_scan_wrapper_checks_its_operands(cuda):
+    a = torch.rand((2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        rg_kernel.rglru_scan_cuda(a.double(), a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_kernel.rglru_scan_cuda(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rg_kernel.rglru_scan_cuda(a, a, torch.zeros((2, 16)))
+
+
+# ------------------------------ mLSTM ------------------------------------ #
+def _mlstm_inputs(dev, b, s, h, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    log_i = torch.randn((b, s, h), generator=g, device=dev)
+    log_f = -torch.randn((b, s, h), generator=g, device=dev).abs() * 0.5
+    return q, k, v, log_i, log_f
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (1, 2048, 4, 512, torch.bfloat16),     # xlstm-350m's forward shape
+    (1, 64, 2, 16, torch.float32),
+    (2, 100, 2, 16, torch.float32),        # S no multiple of the tile
+    (2, 96, 4, 32, torch.float32),
+    (1, 100, 1, 64, torch.float32),
+    (2, 70, 2, 512, torch.float32),
+])
+def test_mlstm_kernel_matches_plain_version(cuda, b, s, h, d, dtype):
+    """Against the plain version evaluated in f32 on the same values (the
+    kernel's arithmetic, and the Pallas kernel's): 5e-4 in f32 as
+    tests/test_kernels.py, 2e-2 for a bf16 output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _mlstm_inputs(cuda, b, s, h, d, dtype, seed=s + d)
+    before = ml_kernel.LAUNCHES["mlstm"]
+    out = ml_ops.mlstm(*ops)
+    torch.cuda.synchronize()
+    assert ml_kernel.LAUNCHES["mlstm"] == before + 1
+    assert out.dtype == dtype and out.is_contiguous()
+    q, k, v, log_i, log_f = ops
+    want = mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f)
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-4
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+    assert torch.equal(ml_ops.mlstm(*ops), out)
+
+
+def test_mlstm_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one (B, S, 3, H, D) projection."""
+    qkv = torch.randn((2, 40, 3, 2, 32), device=cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    _, _, _, log_i, log_f = _mlstm_inputs(cuda, 2, 40, 2, 32, torch.float32,
+                                          seed=3)
+    out = ml_kernel.mlstm_cuda(q, k, v, log_i, log_f)
+    want = mlstm_ref(q.contiguous(), k.contiguous(), v.contiguous(), log_i,
+                     log_f)
+    torch.testing.assert_close(out, want, rtol=5e-4, atol=5e-4)
+
+
+def test_mlstm_wrapper_checks_its_operands(cuda):
+    q, k, v, li, lf = _mlstm_inputs(cuda, 1, 8, 2, 16, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dim 24"):
+        ml_kernel.mlstm_cuda(*(torch.zeros((1, 8, 2, 24), device=cuda)
+                               for _ in range(3)), li, lf)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ml_kernel.mlstm_cuda(q.half(), k.half(), v.half(), li, lf)
+    with pytest.raises(ValueError, match="log_i must be float32"):
+        ml_kernel.mlstm_cuda(q, k, v, li.double(), lf)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        ml_kernel.mlstm_cuda(q.transpose(1, 3).contiguous().transpose(1, 3),
+                             k, v, li, lf)
+
+
+# ------------------------------ recurrent LMs ---------------------------- #
+@pytest.mark.parametrize("arch,atol", [("recurrentgemma-9b", 2e-3),
+                                       ("xlstm-350m", 1e-4)])
+def test_recurrent_lm_on_the_card_goes_through_its_kernels(cuda, monkeypatch,
+                                                           arch, atol):
+    """Reduced recurrentgemma-9b / xlstm-350m in f32 on the card: forward
+    launches rglru_scan once per recurrent layer and flash_attention once
+    per attention layer (recurrentgemma), mlstm once per mLSTM layer
+    (xlstm); decode launches flash_attention per attention layer and step
+    and no scan kernel.  Both agree with the same model on the plain
+    versions, within tests/test_torch_recurrent_lm.py's logit tolerance
+    (2e-3 where the attention is nearly hard, 1e-4 without attention)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import hybrid, model_zoo, rglru, transformer
+    from repro_torch.models import xlstm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    model = model_zoo.build_model(cfg)
+    params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
+                              cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run():
+        logits, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(2, 32, cuda)
+        steps = []
+        for s in range(toks.shape[1]):
+            step, cache = model.decode_step(params, cache, toks[:, s:s + 1])
+            steps.append(step)
+        return logits, torch.cat(steps, dim=1)
+
+    counters = (fa_kernel.LAUNCHES, rg_kernel.LAUNCHES, ml_kernel.LAUNCHES)
+    before = [dict(c) for c in counters]
+    logits, steps = run()
+    torch.cuda.synchronize()
+    got = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
+    if cfg.family == "hybrid":
+        unit, n_super, tail = hybrid._pattern(cfg)
+        n_attn = n_super * unit.count("attn")
+        n_rec = n_super * unit.count("rec") + tail.count("rec")
+        want = {"flash_attention": n_attn * (1 + toks.shape[1]),
+                "rglru_scan": n_rec, "mlstm": 0}
+    else:
+        unit, n_super = xlstm._pattern(cfg)
+        want = {"flash_attention": 0, "rglru_scan": 0,
+                "mlstm": n_super * unit.count("mlstm")}
+    assert got == want
+    monkeypatch.setattr(transformer, "flash_attention", flash_attention_ref)
+    monkeypatch.setattr(rglru, "linear_scan", rglru_scan_ref)
+    monkeypatch.setattr(xlstm, "mlstm_scan", mlstm_ref)
+    plain_logits, plain_steps = run()
+    torch.testing.assert_close(logits, plain_logits, rtol=0, atol=atol)
+    torch.testing.assert_close(steps, plain_steps, rtol=0, atol=atol)

@@ -22,6 +22,10 @@ from repro_torch.kernels.event_filter import kernel as ef_kernel
 from repro_torch.kernels.event_filter import ops as ef_ops
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.configs.registry import reduced_config as reduced_config_lm
 from repro_torch.models.params import params_from_reference
 from repro_torch.service import QueryService
@@ -63,8 +67,12 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.serve\n"
         "from repro_torch.kernels.flash_attention import ops as fa_ops\n"
         "from repro_torch.models import model_zoo, transformer\n"
-        "repro_torch.launch.serve.main(['--mode', 'lm', '--arch', "
-        "'qwen3-14b', '--reduced', '--device', 'cpu', '--new-tokens', '2'])\n"
+        "for arch in ('qwen3-14b', 'recurrentgemma-9b', 'xlstm-350m'):\n"
+        "    repro_torch.launch.serve.main(['--mode', 'lm', '--arch', arch, "
+        "'--reduced', '--device', 'cpu', '--new-tokens', '2'])\n"
+        "from repro_torch.kernels.rglru_scan import ops as rg_ops, kernel\n"
+        "from repro_torch.kernels.mlstm_scan import ops as ml_ops, kernel\n"
+        "from repro_torch.models import hybrid, rglru, xlstm\n"
         "from repro_torch.kernels.event_filter import ops, kernel\n"
         "from repro_torch.configs.geps_events import reduced\n"
         "from repro_torch.core import events as ev\n"
@@ -156,6 +164,57 @@ def test_flash_wrapper_refuses_tensors_it_cannot_serve():
     with pytest.raises(ValueError, match="do not group"):
         fa_ops.flash_attention(q[:, :, :3], k, v)
     assert fa_kernel.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_recurrent_families_default_to_cuda_and_raise_without_it(arch):
+    _require_no_cuda()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mode", "lm", "--arch", arch, "--reduced"])
+    with pytest.raises(RuntimeError, match="'cuda'"):
+        params_from_reference(reduced_config_lm(arch), {})
+
+
+def test_rglru_scan_wrapper_refuses_tensors_it_cannot_serve():
+    a = torch.rand((2, 6, 8))
+    b = torch.rand((2, 6, 8))
+    h0 = torch.rand((2, 8))
+    launches = dict(rg_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        rg_kernel.rglru_scan_cuda(a, b, h0)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        rg_kernel.rglru_scan_cuda(a, b)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rg_ops.rglru_scan(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        rg_ops.rglru_scan(a, b.to("meta"), h0)
+    with pytest.raises(ValueError, match="zero-sized"):
+        rg_kernel.rglru_scan_cuda(a[:, :0], b[:, :0])
+    with pytest.raises(ValueError, match="one shape"):
+        rg_kernel.rglru_scan_cuda(a, b[..., :4])
+    with pytest.raises(ValueError, match="h0"):
+        rg_kernel.rglru_scan_cuda(a, b, h0[:1])
+    assert rg_kernel.LAUNCHES == launches
+
+
+def test_mlstm_wrapper_refuses_tensors_it_cannot_serve():
+    q = k = v = torch.zeros((1, 8, 2, 16))
+    li = lf = torch.zeros((1, 8, 2))
+    launches = dict(ml_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        ml_kernel.mlstm_cuda(q, k, v, li, lf)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ml_ops.mlstm(*(x.to("meta") for x in (q, k, v, li, lf)))
+    with pytest.raises(ValueError, match="different devices"):
+        ml_ops.mlstm(q, k, v, li.to("meta"), lf)
+    with pytest.raises(ValueError, match="zero-sized"):
+        ml_kernel.mlstm_cuda(*(x[:, :0] for x in (q, k, v, li, lf)))
+    with pytest.raises(ValueError, match="one shape"):
+        ml_kernel.mlstm_cuda(q, k[:, :4], v, li, lf)
+    with pytest.raises(ValueError, match=r"\(B,S,H\)"):
+        ml_kernel.mlstm_cuda(q, k, v, li[..., :1], lf)
+    assert ml_kernel.LAUNCHES == launches
 
 
 def test_kernel_build_reports_a_missing_nvcc(monkeypatch, tmp_path):

@@ -182,8 +182,7 @@ def test_params_from_reference_rejects_a_wrong_tree():
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "phi3.5-moe-42b-a6.6b",
-                                  "pixtral-12b", "whisper-medium",
-                                  "recurrentgemma-9b", "xlstm-350m"])
+                                  "pixtral-12b", "whisper-medium"])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         model_zoo.build_model(reduced_config(arch))
