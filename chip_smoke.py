@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
 2. build   — nvcc builds the four CUDA sources, one nvcc each, started
-   together; ptxas's registers and spills for every kernel instance;
+   together; ptxas's registers and spills for every kernel instance (a
+   flash_attention instance that spills fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -18,10 +19,14 @@ Phases, each printing one JSON line:
    256}, 48 q heads over 8 kv heads of 128, bf16) and prefill (B 1,
    Sq = Sk = 2048, causal, bf16) shapes, at recurrentgemma-9b's decode
    (Sk in {1, 24, 256}, 16 q heads over 1 kv head of 256) and prefill (B
-   1, Sq = Sk = 4096, window 2048) shapes, and small cases (Sq < Sk, a
-   window, a softcap, ragged tiles, f32, head dim 16), within
-   |kernel - plain| <= atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with
-   TF32 off (FA_TOL).  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
+   1, Sq = Sk = 4096, window 2048) shapes, the tensor-core kernels off
+   those shapes (Sq 300, 64 <= Sq < Sk, head dim 64, window with softcap,
+   non-causal, decode over 2048- and 4096-slot rings, which takes the
+   split-K path and its merge), and small cases (Sq < Sk, a window, a
+   softcap, ragged tiles, f32, head dim 16), within |kernel - plain| <=
+   atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with TF32 off (FA_TOL);
+   bf16 cases also against the plain version in f32 on the same values.
+   Each row names the device kernel the wrapper's plan chose.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
    with and without h0 and a ragged (3, 100, 48), within 1e-5 (SCAN_TOL);
    mlstm at xlstm-350m's (1, 2048, 4, 512) in bf16 and f32 and small f32
    cases whose S is no multiple of the tile, against the plain version
@@ -51,7 +56,8 @@ Phases, each printing one JSON line:
    attention call the flash kernel, so flash_attention must launch 40 x
    24 = 960 times for qwen3-14b, 12 x 24 = 288 for recurrentgemma-9b and
    0 for xlstm-350m, whose decode runs no kernel (counts of every LM
-   kernel zeroed just before, read just after).  The same tokens are
+   kernel zeroed just before, read just after), every flash call on the
+   GQA-packed decode kernel (``flash_attention.decode``).  The same tokens are
    replayed teacher-forced through the kernels (their argmax must give
    generate()'s tokens) and through the plain versions
    (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b
@@ -61,13 +67,18 @@ Phases, each printing one JSON line:
    device time by kernel and the busy share;
 6. prefill — one forward() for each LM: qwen3-14b over 1 x 2048 tokens
    (40 flash launches), recurrentgemma-9b over 1 x 4096 (26 rglru_scan
-   and 12 flash launches; the window bites), xlstm-350m over 1 x 2048 (21
+   and 12 flash launches; the window bites), every flash call on the
+   tensor-core prefill kernel (``flash_attention.wgmma``), xlstm-350m over 1 x 2048 (21
    mlstm launches), each compared with the same forward on the plain
    versions in the same way; then xlstm-350m's forward logits over 1024
    tokens against a teacher-forced decode of the same tokens (the
    recurrent form), which ties the mLSTM kernel to the recurrence.  Every
    kernel call of these paths is also held against its plain version in
-   f32 on the same inputs (``shadow_kernels()``).  End to end, the
+   f32 on the same inputs (``shadow_kernels()``); a flash_attention call
+   on which that plain version is itself outside FA_TOL of the exact
+   (f64) value is held instead to have no more elements outside FA_TOL of
+   the exact value than the plain version has, and both counts are
+   reported.  End to end, the
    recurrent models' logits are reported beside the distance between two
    plain runs that differ only in rounding, not gated (E2E_GATED);
 7. timing  — each kernel at the shape the main path gave it, beside its
@@ -414,6 +425,21 @@ FA_CASES = [
       for sk in (1, 24, 256)],
     ("rg prefill", 1, 4096, 4096, 16, 1, 256, torch.bfloat16,
      {"window": 2048}),
+    # the tensor-core kernels off the models' own shapes: a prefill whose
+    # Sq is no multiple of 64, 64 <= Sq < Sk, head dim 64, window with
+    # softcap, non-causal, and decode over long rings (split K and merge)
+    ("tc ragged", 1, 300, 300, 48, 8, 128, torch.bfloat16, {}),
+    ("tc sq<sk", 2, 100, 300, 8, 2, 128, torch.bfloat16, {}),
+    ("tc d64", 1, 200, 200, 8, 2, 64, torch.bfloat16, {}),
+    ("tc window+cap", 1, 260, 260, 8, 4, 64, torch.bfloat16,
+     {"window": 70, "logit_cap": 30.0}),
+    ("tc not causal", 1, 150, 150, 4, 1, 128, torch.bfloat16,
+     {"causal": False, "window": 33}),
+    ("rg long ring", 2, 1, 2048, 16, 1, 256, torch.bfloat16,
+     {"window": 2048}),
+    ("long ring", 2, 1, 4096, 48, 8, 128, torch.bfloat16, {}),
+    ("decode 2 rows", 1, 2, 300, 12, 2, 64, torch.bfloat16,
+     {"logit_cap": 20.0}),
     ("d256 ragged", 1, 300, 300, 4, 2, 256, torch.float32, {"window": 200}),
     ("sq<sk", 2, 37, 100, 4, 2, 16, torch.bfloat16, {}),
     ("sq<sk", 2, 37, 100, 4, 2, 16, torch.float32, {}),
@@ -456,15 +482,26 @@ def phase_flash_kernels(gen):
     rows = []
     for name, b, sq, sk, h, kh, d, dtype, kw in FA_CASES:
         q, k, v = fa_operands(gen, b, sq, sk, h, kh, d, dtype)
+        pl = fa_kernel.plan(b, sq, sk, h, kh, d, dtype,
+                            kw.get("causal", True), kw.get("window"))
         out = fa_kernel.flash_attention_cuda(q, k, v, **kw)
         again = fa_kernel.flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
             raise AssertionError(f"flash_attention {name}: two runs differ")
         err = fa_check(out, flash_attention_ref(q, k, v, **kw), dtype, name)
-        rows.append({"case": name, "shape": [b, sq, sk, h, kh, d],
-                     "dtype": str(dtype).split(".")[-1], "flags": kw,
-                     "max_abs_err": err})
+        row = {"case": name, "shape": [b, sq, sk, h, kh, d],
+               "dtype": str(dtype).split(".")[-1], "flags": kw,
+               "variant": pl.variant, "splits": len(pl.splits),
+               "max_abs_err": err}
+        if dtype != torch.float32:
+            # and against the plain version in f32 on the same values (the
+            # kernels' arithmetic: q * scale never rounded), as the LM
+            # paths' per-call check holds them
+            row["max_abs_err_vs_f32"] = fa_check(
+                out, flash_attention_ref(q.float(), k.float(), v.float(),
+                                         **kw), dtype, name + " vs f32")
+        rows.append(row)
     return rows
 
 
@@ -511,7 +548,9 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None):
         lib_err = max(lib_err, float((lo.float() - want.float()).abs()
                                      .max()))
     bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2, window)
-    return {**time_pair(kern, plain), "library_ms": device_time_ms(lib),
+    pl = fa_kernel.plan(b, sq, sk, h, kh, d, torch.bfloat16, True, window)
+    return {"variant": pl.variant, "splits": len(pl.splits),
+            **time_pair(kern, plain), "library_ms": device_time_ms(lib),
             "library_max_abs_err": lib_err, "bound_ms": bound,
             "bound_by": by, "max_abs_err": err}
 
@@ -932,6 +971,36 @@ def plain_kernels(f32=False):
             setattr(mod, name, fn)
 
 
+def flash_exact(q, k, v, *, causal=True, window=None, scale=None,
+                logit_cap=None, rows=512):
+    """flash_attention's function evaluated in float64 (to ~1e-15), query
+    rows in chunks: the exact value both the kernel and the plain version
+    in f32 approximate."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kk = k.double().repeat_interleave(h // kh, dim=2)
+    vv = v.double().repeat_interleave(h // kh, dim=2)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    out = torch.empty((b, sq, h, d), dtype=torch.float64, device=q.device)
+    for i0 in range(0, sq, rows):
+        qs = q[:, i0:i0 + rows].double()
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kk) * scale
+        if logit_cap is not None:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        q_pos = torch.arange(i0, i0 + qs.shape[1], device=q.device)[:, None] \
+            + (sk - sq if causal else 0)
+        valid = torch.ones_like(s[0, 0], dtype=torch.bool)
+        if causal:
+            valid &= k_pos <= q_pos
+        if window is not None:
+            valid &= k_pos > q_pos - window
+        s = s.masked_fill(~valid, float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1))   # rows of no key: 0
+        out[:, i0:i0 + rows] = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    return out
+
+
 @contextlib.contextmanager
 def shadow_kernels():
     """Inside the block every LM-path kernel call still launches its
@@ -940,20 +1009,38 @@ def shadow_kernels():
     SCAN_TOL, MLSTM_TOL, elementwise): the per-call check of each kernel
     at the shapes and on the activations the path gives it.  Yields the
     per-kernel tally (calls, elements outside the tolerance, max
-    |difference|)."""
+    |difference|).
+
+    flash_attention is also evaluated exactly (``flash_exact``, f64).  A
+    call whose plain version in f32 is itself outside FA_TOL of the exact
+    value somewhere is ill-conditioned: its scores spread so wide that f32
+    rounding decides near-ties (recurrentgemma-9b's forward, C-ref5), and
+    the plain version is no yardstick there.  Such a call counts as
+    outside only where the kernel has more elements outside FA_TOL of the
+    exact value than the plain version in f32 has; every other call is
+    held against the plain version in f32 as before.  The tally keeps both
+    counts of the ill-conditioned calls."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import rglru, transformer, xlstm
     tally = {name: {"calls": 0, "outside": 0, "elements": 0,
                     "max_abs_err": 0.0} for name in LM_KERNELS}
+    tally["flash_attention"].update(
+        ill_conditioned_calls=0, ill_kernel_outside_exact=0,
+        ill_plain_f32_outside_exact=0, ill_kernel_outside_plain_f32=0)
 
-    def record(name, out, want, rtol, atol):
+    def outside(out, want, rtol, atol):
+        o, w = out.to(want.dtype), want
+        return int((~((o - w).abs() <= atol + rtol * w.abs())).sum())
+
+    def record(name, out, want, rtol, atol, counted=None):
         o, w = out.float(), want.float()
         err = (o - w).abs()
         t = tally[name]
         t["calls"] += 1
         t["elements"] += err.numel()
-        t["outside"] += int((~(err <= atol + rtol * w.abs())).sum())
+        t["outside"] += outside(o, w, rtol, atol) if counted is None \
+            else counted
         t["max_abs_err"] = max(t["max_abs_err"], float(err.max()))
 
     kern_fa, kern_scan, kern_mlstm = (transformer.flash_attention,
@@ -961,8 +1048,21 @@ def shadow_kernels():
 
     def flash(q, k, v, **kw):
         out = kern_fa(q, k, v, **kw)
+        tol = FA_TOL[q.dtype]
         want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-        record("flash_attention", out, want, *FA_TOL[q.dtype])
+        exact = flash_exact(q, k, v, **kw)
+        plain_off = outside(want, exact, *tol)
+        counted = None
+        if plain_off:
+            kern_off = outside(out, exact, *tol)
+            t = tally["flash_attention"]
+            t["ill_conditioned_calls"] += 1
+            t["ill_kernel_outside_exact"] += kern_off
+            t["ill_plain_f32_outside_exact"] += plain_off
+            t["ill_kernel_outside_plain_f32"] += outside(out, want, *tol)
+            counted = max(0, kern_off - plain_off)
+        del exact
+        record("flash_attention", out, want, *tol, counted=counted)
         return out
 
     def scan(a, b, h0=None):
@@ -994,7 +1094,9 @@ def check_calls(name, tally):
             raise AssertionError(
                 f"{name}: {t['outside']} of {t['elements']} elements of "
                 f"{t['calls']} {kernel} calls outside the tolerance against "
-                f"the plain version in f32, max err {t['max_abs_err']}")
+                f"the plain version in f32 (or, on ill-conditioned calls, "
+                f"against the exact value beyond the plain version's own "
+                f"count), max err {t['max_abs_err']}; {t}")
 
 
 def compare_runs(cfg, kern, run, rows):
@@ -1039,12 +1141,14 @@ def check_runs(name, cfg, cmp):
 
 def lm_counted(run):
     """Run one LM path with the LM kernels' launch counts zeroed just
-    before it and read just after it: (its output, its launches)."""
+    before it and read just after it: (its output, its launches), with
+    the flash_attention calls also counted by the device kernel each took
+    (``flash_attention.<variant>``)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     counters = (fa_kernel.LAUNCHES, rg_kernel.LAUNCHES, ml_kernel.LAUNCHES)
-    for c in counters:
+    for c in (*counters, fa_kernel.VARIANT_CALLS):
         for key in c:
             c[key] = 0
     out = run()
@@ -1052,6 +1156,8 @@ def lm_counted(run):
     launches = {}
     for c in counters:
         launches.update(c)
+    launches.update({f"flash_attention.{key}": n
+                     for key, n in fa_kernel.VARIANT_CALLS.items()})
     return out, launches
 
 
@@ -1060,29 +1166,37 @@ def check_launches(name, got, want):
         raise AssertionError(f"{name} launched {got}, expected {want}")
 
 
+def lm_launches(flash=0, variant=None, rglru_scan=0, mlstm=0):
+    """The launch counts of one LM path: ``flash`` flash_attention calls,
+    all taking the device kernel ``variant``."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = {"flash_attention": flash, "rglru_scan": rglru_scan,
+           "mlstm": mlstm}
+    out.update({f"flash_attention.{key}": flash if key == variant else 0
+                for key in fa_kernel.VARIANTS})
+    return out
+
+
 def path_launches(cfg):
     """What each path of ``cfg``'s model must launch, counted from its
-    pattern: ``generate`` (every decode step's attention layers) and one
-    ``forward`` (each attention, RG-LRU and mLSTM layer once)."""
+    pattern: ``generate`` (every decode step's attention layers, each on
+    the GQA-packed decode kernel) and one ``forward`` (each attention,
+    RG-LRU and mLSTM layer once, the attention on the tensor-core prefill
+    kernel)."""
     from repro_torch.models import hybrid, xlstm
     steps = LM_PROMPT + LM_NEW
     if cfg.family == "hybrid":
         unit, n_super, tail = hybrid._pattern(cfg)
         n_attn = n_super * unit.count("attn")
         n_rec = n_super * unit.count("rec") + tail.count("rec")
-        return ({"flash_attention": n_attn * steps, "rglru_scan": 0,
-                 "mlstm": 0},
-                {"flash_attention": n_attn, "rglru_scan": n_rec,
-                 "mlstm": 0})
+        return (lm_launches(n_attn * steps, "decode"),
+                lm_launches(n_attn, "wgmma", rglru_scan=n_rec))
     if cfg.family == "ssm":
         unit, n_super = xlstm._pattern(cfg)
-        return ({"flash_attention": 0, "rglru_scan": 0, "mlstm": 0},
-                {"flash_attention": 0, "rglru_scan": 0,
-                 "mlstm": n_super * unit.count("mlstm")})
-    return ({"flash_attention": cfg.num_layers * steps, "rglru_scan": 0,
-             "mlstm": 0},
-            {"flash_attention": cfg.num_layers, "rglru_scan": 0,
-             "mlstm": 0})
+        return (lm_launches(),
+                lm_launches(mlstm=n_super * unit.count("mlstm")))
+    return (lm_launches(cfg.num_layers * steps, "decode"),
+            lm_launches(cfg.num_layers, "wgmma"))
 
 
 def compare_logits(kern, plain, vocab):
@@ -1242,8 +1356,7 @@ def phase_recurrent_tie(cfg, model, params):
     t0 = time.perf_counter()
     steps, launches = lm_counted(lambda: replay(cfg, model, params, toks))
     wall = time.perf_counter() - t0
-    check_launches(f"{cfg.name} decode", launches,
-                   {name: 0 for name in LM_KERNELS})
+    check_launches(f"{cfg.name} decode", launches, lm_launches())
     ties = {}
     for key, ctx in (("kernel", contextlib.nullcontext()),
                      ("plain_f32", plain_kernels(f32=True))):
@@ -1272,11 +1385,18 @@ def ptxas_report(source) -> list:
     for line in kernels.build_log(source).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d+([a-z_]+_kernel)(?:I(\w+?)Li(\d+)E)?E",
+            t = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)Li(\d+)E)?E",
                           m.group(1))
-            name = m.group(1) if t is None else t.group(1) + (
-                f"<{'bf16' if 'bfloat16' in t.group(2) else 'f32'},"
-                f"{t.group(3)}>" if t.group(2) else "")
+            if t is None:
+                name = m.group(1)
+            elif t.group(3) is None:
+                name = t.group(1)
+            elif t.group(2):
+                name = t.group(1) + (
+                    f"<{'bf16' if 'bfloat16' in t.group(2) else 'f32'},"
+                    f"{t.group(3)}>")
+            else:
+                name = f"{t.group(1)}<{t.group(3)}>"
             rows.append({"kernel": name})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1302,10 +1422,15 @@ def build_all():
         futures = [pool.submit(m.build) for m in modules]
         for f in futures:
             f.result()
+    ptxas = {m.SOURCE.name: ptxas_report(m.SOURCE) for m in modules}
     emit({"phase": "build", "sources": [m.SOURCE.name for m in modules],
-          "build_s": time.perf_counter() - t0,
-          "ptxas": {m.SOURCE.name: ptxas_report(m.SOURCE)
-                    for m in modules}})
+          "build_s": time.perf_counter() - t0, "ptxas": ptxas})
+    # the flash kernels hold their state in registers by design: a spill
+    # is a fault of the build, not a slowdown to report
+    spilled = [row for row in ptxas[fa_kernel.SOURCE.name]
+               if row.get("spill_stores") or row.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"flash_attention instances spill: {spilled}")
 
 
 def release():

@@ -8,7 +8,10 @@
   ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
   and loads it with ``ctypes``.  The build happens at first use, never at
   import, into ``build/repro_torch_kernels/`` at the checkout root, keyed
-  on a hash of the source and the flags.
+  on a hash of the flags, the source and every file it can include: the
+  other files of its ``csrc/`` directory and of the shared header
+  directory ``kernels/common/`` (``INCLUDE_DIRS``), so an edited header
+  never leaves a stale library behind.
 
 Kernel wrappers dispatch on the tensor's device: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel or raises.
@@ -34,6 +37,10 @@ import torch
 #: which the build keeps beside the library (:func:`build_log`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: header directories every source may include (``-I``): the Hopper PTX
+#: helpers (TMA, ``mbarrier``, ``wgmma``) shared by the kernels
+INCLUDE_DIRS = (Path(__file__).resolve().parent / "common",)
 
 #: the toolkit's nvcc when it is not on ``PATH``
 CUDA_HOME_NVCC = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
@@ -69,10 +76,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _build_inputs(source: Path) -> list:
+    """The source, then every file beside it and under ``INCLUDE_DIRS``,
+    in a fixed order: what a build of ``source`` can read."""
+    files = [source]
+    for root in (source.parent, *INCLUDE_DIRS):
+        if root.is_dir():
+            files += sorted(f for f in root.rglob("*")
+                            if f.is_file() and f != source)
+    return files
+
+
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _build_inputs(source):
+        h.update(b"\0" + f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_log(source: Path) -> str:
@@ -84,7 +103,7 @@ def build_log(source: Path) -> str:
 
 def build_cuda_library(source: Path) -> Path:
     """Compile ``source`` into ``BUILD_DIR`` (skipped when a library for
-    the same source bytes and flags exists) and return its path; nvcc's
+    the same flags and input bytes exists) and return its path; nvcc's
     report goes beside it (:func:`build_log`).  A failed build raises
     ``RuntimeError`` carrying nvcc's stderr."""
     source = Path(source)
@@ -98,8 +117,10 @@ def build_cuda_library(source: Path) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
+        includes = [f"-I{d}" for d in INCLUDE_DIRS]
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, *includes, "-o", tmp, str(source)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed building {source.name} "

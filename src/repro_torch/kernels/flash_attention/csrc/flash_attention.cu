@@ -6,47 +6,67 @@
 //
 // What it computes, for q (B,Sq,H,D), k/v (B,Sk,K,D), f32 inside:
 //   q_pos = i + (causal ? Sk - Sq : 0),  k_pos = j
-//   s     = (f32(q_i) * scale) . f32(k_j)            [f32 products and sums]
+//   s     = scale * (q_i . k_j)                      [f32 sums]
 //   s     = cap * tanh(s / cap)                      [when a cap is given]
 //   valid = j < Sk && (!causal || k_pos <= q_pos)
 //                  && (!window || k_pos > q_pos - window)
 //   per key tile: m_new = max(m, max_j s, 0.1 * NEG_INF)   (masked guard)
 //                 p = exp(s - m_new), corr = exp(m - m_new)
-//                 l = l * corr + sum_j p,  acc = acc * corr + p . v  (f32)
+//                 l = l * corr + sum_j p,  acc = acc * corr + p . v
 //   out   = acc / max(l, 1e-30), cast to q's dtype.
 // Query head h reads kv head h / (H / K) directly: K and V are never
 // repeated.  q, k and v are read through their (batch, seq, head) strides
 // with the head dim contiguous, so no transpose copy is made; out is a
 // contiguous (B,Sq,H,D).
 //
-// Layout: one block of 128 threads (256 at head dim 256) per (b, q head,
-// tile of 32 query rows).  The block stages the scaled Q tile once and
-// then walks tiles of 32 keys: K and V are loaded into shared memory as
-// f32, each lane computes the score of one key against the warp's 8 rows,
-// or 4 at head dim 256, which keeps the accumulator at 32 registers a lane
-// (float4 reads, K rows padded by 4 floats so the lanes hit distinct
-// banks; 102.9 KB of shared memory at 256), the softmax statistics of a
+// Three device kernels; the wrapper's plan (kernel.py: plan) picks one a
+// call:
+//
+// 1. prefill, bf16, head dim 64/128/256 (flash_wgmma.cuh): wgmma on the
+//    tensor cores fed by TMA, a producer warp and two consumer
+//    warpgroups; bound by operations (4 * B * H * valid pairs * D flops
+//    against 989 TFLOP/s bf16).
+// 2. decode and short Sq, bf16, head dim 64/128/256, G * Sq <= 16
+//    (flash_decode.cuh): the G query heads of a kv head packed into the
+//    rows of one mma.sync tile, so each K/V tile is read once, and the
+//    keys split over blocks with a fixed-order merge pass when Sk is long;
+//    bound by bytes (q, k, v in, out out at 3.35 TB/s).
+// 3. float32 at every head dim, and bf16 at head dim 16/32: the CUDA-core
+//    kernel below, f32 FMAs (the Pallas kernel's own arithmetic).  f32
+//    stays off the tensor cores: there they would run TF32 (10-bit
+//    mantissa), which cannot hold the 2e-4 tolerance the port keeps for
+//    f32 against its plain version with TF32 off.  No model path calls it.
+//
+// In bf16 the tensor-core kernels round P to bf16 before P.V, as the
+// plain bf16 version does; q * scale is never rounded (the scale is
+// applied to the f32 scores).  They compute exp in base 2 on scores
+// scaled by log2(e).
+//
+// CUDA-core kernel layout: one block of 128 threads (256 at head dim 256)
+// per (b, q head, tile of 32 query rows).  The block stages the scaled Q
+// tile once and then walks tiles of 32 keys: K and V are loaded into
+// shared memory as f32, each lane computes the score of one key against
+// the warp's 8 rows, or 4 at head dim 256 (float4 reads, K rows padded by
+// 4 floats so the lanes hit distinct banks), the softmax statistics of a
 // row are reduced across the warp with butterfly shuffles, and the warp's
 // probabilities go through shared memory to the P.V product, where each
-// lane owns the head-dim columns lane, lane + 32, ...  Tiles that are fully
-// masked for every row of the block (above the causal diagonal, or before
-// the window) are skipped: under the guard they change neither m, l nor
-// acc, so skipping them is exact.
-//
-// Bound on this card: at prefill, operations (4 * B * H * pairs * D flops
-// against 989 TFLOP/s bf16); at decode, bytes (q, k, v in, out out at
-// 3.35 TB/s).  This first design is simple and right, not fast: the
-// products run on the CUDA cores in f32 (the Pallas kernel's own
-// arithmetic), not on the tensor cores, and decode puts one block on each
-// (b, head) with 1 of its 32 query rows in use.  wgmma with TMA-fed tiles
-// and a split-K decode layout are the known next steps.
+// lane owns the head-dim columns lane, lane + 32, ...  Tiles that are
+// fully masked for every row of the block (above the causal diagonal, or
+// before the window) are skipped in all three kernels: under the guard
+// they change neither m, l nor acc, so skipping them is exact.
 //
 // Determinism: every sum has a fixed order (per-lane FMAs in index order,
-// butterfly shuffles), no atomics, so runs repeat bit for bit.
+// butterfly shuffles, tensor-core tiles in order, split merges in split
+// order), no atomics, so runs repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_decode.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -269,24 +289,36 @@ int launch(const Params& p, long long b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 at every head dim; bf16 only where the tensor-core kernels do not
+// reach (head dim 16, 32)
 template <typename T>
 int launch_dim(const Params& p, int head_dim, long long b,
                cudaStream_t stream) {
   switch (head_dim) {
     case 16: return launch<T, 16>(p, b, stream);
     case 32: return launch<T, 32>(p, b, stream);
-    case 64: return launch<T, 64>(p, b, stream);
-    case 128: return launch<T, 128>(p, b, stream);
-    case 256: return launch<T, 256>(p, b, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (head_dim) {
+      case 64: return launch<T, 64>(p, b, stream);
+      case 128: return launch<T, 128>(p, b, stream);
+      case 256: return launch<T, 256>(p, b, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  dtype 0 is float32, 1 is
-// bfloat16; strides are in elements.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() so a refused launch is seen.
+// Plain C entry points (bound with ctypes); strides are in elements.  Each
+// launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (so a refused launch is seen) or a negative hopper::
+// status code when a TMA descriptor cannot be made.
+//
+// The CUDA-core kernel: dtype 0 is float32, 1 is bfloat16 (head dim 16,
+// 32).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int head_dim, long long b, long long sq, long long sk, long long h,
@@ -303,4 +335,99 @@ extern "C" int flash_attention_launch(
   if (dtype == 0) return launch_dim<float>(p, head_dim, b, s);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core prefill kernel: bf16, head dim 64, 128 or 256; base and
+// strides 16-byte aligned (the wrapper checks).
+extern "C" int flash_attention_wgmma_launch(
+    const void* q, const void* k, const void* v, void* o, int head_dim,
+    long long b, long long sq, long long sk, long long h, long long kh,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, float scale, int causal, int has_window, long long window,
+    int has_cap, float cap, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || kh <= 0 || h % kh != 0 ||
+      sq > INT32_MAX || sk > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fa_wgmma::Params p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.sq = static_cast<int>(sq);
+  p.sk = static_cast<int>(sk);
+  p.h = static_cast<int>(h);
+  p.kh = static_cast<int>(kh);
+  p.to_log2 = has_cap ? kLog2e : scale * kLog2e;
+  p.cap = cap;
+  p.scale_over_cap = has_cap ? scale / cap : 0.0f;
+  p.has_cap = has_cap;
+  p.causal = causal;
+  p.has_window = has_window;
+  // a window past both lengths masks nothing more than none
+  p.window = static_cast<int>(window < sq + sk ? window : sq + sk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return fa_wgmma::launch<64>(q, k, v, p, b, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                  k_sh, v_sb, v_ss, v_sh, s);
+    case 128:
+      return fa_wgmma::launch<128>(q, k, v, p, b, q_sb, q_ss, q_sh, k_sb,
+                                   k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    case 256:
+      return fa_wgmma::launch<256>(q, k, v, p, b, q_sb, q_ss, q_sh, k_sb,
+                                   k_ss, k_sh, v_sb, v_ss, v_sh, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The GQA-packed decode kernel: bf16, head dim 64, 128 or 256, (H / K) *
+// Sq <= 16 rows; keys [k_lo, k_hi) in n_splits splits of `chunk` keys
+// (the last one shorter).  With n_splits > 1, ws_acc (B, K, n_splits, 16,
+// D) and ws_ml (B, K, n_splits, 16, 2) are f32 scratch and a merge kernel
+// follows on the same stream.
+extern "C" int flash_attention_decode_launch(
+    const void* q, const void* k, const void* v, void* o, void* ws_acc,
+    void* ws_ml, int head_dim, long long b, long long sq, long long sk,
+    long long h, long long kh, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, float scale, int causal, int has_window,
+    long long window, int has_cap, float cap, long long k_lo, long long k_hi,
+    long long chunk, int n_splits, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || kh <= 0 || h % kh != 0 ||
+      sk > INT32_MAX || chunk <= 0 || k_lo < 0 || k_hi > sk ||
+      k_lo + chunk * (n_splits - 1) >= k_hi ||
+      (n_splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  fa_decode::Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.ws_acc = static_cast<float*>(ws_acc);
+  p.ws_ml = static_cast<float*>(ws_ml);
+  p.sq = static_cast<int>(sq);
+  p.sk = static_cast<int>(sk);
+  p.h = static_cast<int>(h);
+  p.kh = static_cast<int>(kh);
+  p.g = static_cast<int>(h / kh);
+  p.rows = static_cast<int>(h / kh * sq);
+  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.to_log2 = has_cap ? kLog2e : scale * kLog2e;
+  p.cap = cap;
+  p.scale_over_cap = has_cap ? scale / cap : 0.0f;
+  p.has_cap = has_cap;
+  p.causal = causal;
+  p.has_window = has_window;
+  p.window = static_cast<int>(window < sq + sk ? window : sq + sk);
+  p.k_lo = static_cast<int>(k_lo);
+  p.k_hi = static_cast<int>(k_hi);
+  p.chunk = static_cast<int>(chunk);
+  p.n_splits = n_splits;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return fa_decode::launch<64>(p, b, s);
+    case 128: return fa_decode::launch<128>(p, b, s);
+    case 256: return fa_decode::launch<256>(p, b, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

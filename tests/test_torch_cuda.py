@@ -159,9 +159,12 @@ def test_spmd_scan_goes_through_the_kernel(cuda):
 
 
 # ------------------------------ flash attention -------------------------- #
-# bf16: the kernel keeps q * scale and p in f32, the plain version rounds
-# both to bf16 (as tests/test_kernels.py:22); f32: sums in another order,
-# the plain version's f32 products without TF32
+# bf16: the kernels keep q * scale in f32 (the scale is applied to the f32
+# scores) while the plain version rounds it to bf16 (as
+# tests/test_kernels.py:22); the plain version also rounds p to bf16
+# before p.v, while the tensor-core kernels feed p as two bf16 terms (~16
+# bits) and the CUDA-core kernel keeps it in f32.  f32: sums in another
+# order, the plain version's f32 products without TF32
 FA_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
           torch.float32: dict(rtol=2e-4, atol=2e-4)}
 
@@ -223,6 +226,117 @@ def test_flash_attention_wrapper_checks_its_operands(cuda):
     with pytest.raises(ValueError, match="contiguous head dim"):
         fa_kernel.flash_attention_cuda(q.transpose(1, 3).contiguous()
                                        .transpose(1, 3), k, v)
+
+
+# the tensor-core kernels: (b, sq, sk, h, kh, d, flags, variant)
+TC_CASES = [
+    (1, 300, 300, 48, 8, 128, {}, "wgmma"),        # Sq no multiple of 64
+    (2, 100, 300, 8, 2, 128, {}, "wgmma"),         # 64 <= Sq < Sk
+    (1, 200, 200, 8, 2, 64, {}, "wgmma"),          # head dim 64
+    (1, 260, 260, 8, 4, 64, {"window": 70, "logit_cap": 30.0}, "wgmma"),
+    (1, 300, 300, 16, 1, 256, {"window": 128}, "wgmma"),
+    (1, 150, 150, 4, 1, 128, {"causal": False, "window": 33}, "wgmma"),
+    (2, 1, 24, 48, 8, 128, {}, "decode"),          # qwen3-14b generate
+    (2, 1, 24, 16, 1, 256, {}, "decode"),          # recurrentgemma generate
+    (2, 1, 4096, 48, 8, 128, {}, "decode"),        # split K, qwen3 ring
+    (2, 1, 2048, 16, 1, 256, {"window": 2048}, "decode"),   # split K, rg
+    (1, 2, 300, 12, 2, 64, {"logit_cap": 20.0}, "decode"),  # 6 heads x 2
+    (2, 1, 700, 16, 1, 128, {"window": 100}, "decode"),     # masked splits
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,kw,variant", TC_CASES)
+def test_tensor_core_kernels_match_plain_version(cuda, b, sq, sk, h, kh, d,
+                                                 kw, variant):
+    """Each bf16 variant at the shapes chip_smoke.py's FA_CASES give it,
+    against the plain version in f32 on the same values (FA_TOL bf16), one
+    launch count a call, and the same bits twice."""
+    q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, torch.bfloat16,
+                         seed=sq + sk + d)
+    assert fa_kernel.plan(b, sq, sk, h, kh, d, torch.bfloat16,
+                          kw.get("causal", True),
+                          kw.get("window")).variant == variant
+    before = dict(fa_kernel.VARIANT_CALLS)
+    launches = fa_kernel.LAUNCHES["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == launches + 1
+    assert fa_kernel.VARIANT_CALLS[variant] == before[variant] + 1
+    assert out.dtype == torch.bfloat16 and out.is_contiguous()
+    want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), want, **FA_TOL[torch.bfloat16])
+    assert torch.equal(fa_ops.flash_attention(q, k, v, **kw), out)
+
+
+@pytest.mark.parametrize("n,h,kh,d", [(9, 48, 8, 128),      # one split
+                                      (2000, 48, 8, 128),   # split K
+                                      (2048, 16, 1, 256)])
+def test_decode_kernel_reads_the_ring_cache_view(cuda, n, h, kh, d):
+    """The decode call on the filled prefix k_i[:, :n] of a (B, W, K, D)
+    ring cache, read through its strides without a copy, on one split
+    and on the split-K path with its merge."""
+    q, _, _ = _fa_inputs(cuda, 2, 1, 1, h, kh, d, torch.bfloat16, seed=n)
+    cache = torch.randn((2, 2, 2048, kh, d), device=cuda).to(torch.bfloat16)
+    k, v = cache[0, :, :n], cache[1, :, :n]
+    assert not k.is_contiguous() or n == 2048
+    out = fa_kernel.flash_attention_cuda(q, k, v)
+    want = flash_attention_ref(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, **FA_TOL[torch.bfloat16])
+
+
+def test_tensor_core_wrapper_refuses_misaligned_operands(cuda):
+    q, k, v = _fa_inputs(cuda, 1, 128, 128, 4, 2, 64, torch.bfloat16, seed=0)
+    wide = torch.zeros((1, 128, 2, 68), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="misaligned"):   # stride 136 bytes
+        fa_kernel.flash_attention_cuda(q, wide[..., :64], v)
+    flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)                      # base + 2 bytes
+    with pytest.raises(ValueError, match="misaligned"):
+        fa_kernel.flash_attention_cuda(shifted, k, v)
+    with pytest.raises(ValueError, match="misaligned"):   # the decode kernel
+        fa_kernel.flash_attention_cuda(shifted[:, :1], k, v)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "recurrentgemma-9b"])
+def test_bf16_models_take_the_tensor_core_kernels(cuda, monkeypatch, arch):
+    """Reduced dense and recurrent models in bf16 at head dim 128: every
+    attention call of forward takes the wgmma kernel and every call of a
+    decode step the decode kernel, and each agrees with the plain version
+    in f32 on its own inputs (FA_TOL bf16)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo, transformer
+    cfg = reduced_config(arch, head_dim=128, dtype="bfloat16",
+                         param_dtype="bfloat16")
+    model = model_zoo.build_model(cfg)
+    params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
+                              cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    kernel = transformer.flash_attention
+    calls = []
+
+    def checked(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.testing.assert_close(out.float(), want,
+                                   **FA_TOL[torch.bfloat16])
+        calls.append(q.shape[1])
+        return out
+
+    monkeypatch.setattr(transformer, "flash_attention", checked)
+    before = dict(fa_kernel.VARIANT_CALLS)
+    model.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    n_fwd = len(calls)
+    assert n_fwd > 0
+    assert fa_kernel.VARIANT_CALLS["wgmma"] - before["wgmma"] == n_fwd
+    cache = model.init_cache(2, 32, cuda)
+    for s in range(6):
+        _, cache = model.decode_step(params, cache, toks[:, s:s + 1])
+    torch.cuda.synchronize()
+    got = {k: fa_kernel.VARIANT_CALLS[k] - before[k] for k in before}
+    assert got == {"wgmma": n_fwd, "decode": len(calls) - n_fwd, "simt": 0}
+    assert len(calls) - n_fwd == 6 * n_fwd
 
 
 def test_dense_lm_on_the_card_goes_through_the_kernel(cuda, monkeypatch):

@@ -17,6 +17,7 @@ from repro.kernels.flash_attention.kernel import flash_attention as jax_fa
 from repro.models.attention import attention as jax_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_split_ref
 from repro_torch.models.attention import attention
 
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -128,3 +129,134 @@ def test_ops_validates_shapes_on_the_cpu():
     launches = dict(fa_kernel.LAUNCHES)
     flash_attention(q, k, v)
     assert fa_kernel.LAUNCHES == launches   # the CPU takes the plain path
+
+
+# ------------------------------ the variant and split plan --------------- #
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("sq", [1, 300])
+def test_plan_sends_f32_to_the_cuda_core_kernel(sq, d):
+    assert fa_kernel.plan(2, sq, 300, 8, 2, d, F32).variant == "simt"
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("sq", [1, 300])
+def test_plan_sends_small_head_dims_to_the_cuda_core_kernel(sq, d):
+    assert fa_kernel.plan(2, sq, 300, 8, 2, d, BF16).variant == "simt"
+
+
+@pytest.mark.parametrize("args,variant,n_splits", [
+    # qwen3-14b: 48 (padded) q heads over 8 kv heads of 128
+    ((2, 1, 24, 48, 8, 128), "decode", 1),          # generate
+    ((1, 2048, 2048, 48, 8, 128), "wgmma", 1),      # forward
+    ((2, 1, 4096, 48, 8, 128), "decode", 8),        # a long ring
+    # recurrentgemma-9b: 16 q heads over 1 kv head of 256, window 2048
+    ((2, 1, 24, 16, 1, 256), "decode", 1),          # generate
+    ((1, 4096, 4096, 16, 1, 256), "wgmma", 1),      # forward
+    ((2, 1, 2048, 16, 1, 256), "decode", 32),       # the full ring
+    # a short Sq that still packs: 6 heads x 2 queries
+    ((1, 2, 40, 12, 2, 64), "decode", 1),
+    ((1, 3, 40, 12, 2, 64), "wgmma", 1),            # 18 rows do not
+])
+def test_plan_sends_the_model_shapes_to_the_intended_kernels(args, variant,
+                                                             n_splits):
+    window = 2048 if args[3] == 16 else None
+    pl = fa_kernel.plan(*args, BF16, True, window)
+    assert pl.variant == variant
+    assert len(pl.splits) == n_splits
+
+
+@pytest.mark.parametrize("sk", [1, 9, 24, 64, 255, 256, 257, 1000, 2048,
+                                4096, 5000])
+@pytest.mark.parametrize("b,h,kh", [(1, 16, 1), (2, 48, 8), (8, 8, 8)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_plan_splits_tile_the_key_range_exactly(sk, b, h, kh, window):
+    pl = fa_kernel.plan(b, 1, sk, h, kh, 128, BF16, True, window)
+    lo, hi = fa_kernel.key_range(1, sk, True, window)
+    assert pl.splits[0][0] == lo and pl.splits[-1][1] == hi
+    for (a0, a1), (b0, b1) in zip(pl.splits, pl.splits[1:]):
+        assert a1 == b0                       # no gap, no overlap
+    for i, (a0, a1) in enumerate(pl.splits):
+        assert a0 < a1
+        if i < len(pl.splits) - 1:
+            assert a1 - a0 == pl.chunk
+    if len(pl.splits) > 1:
+        assert pl.chunk % fa_kernel.DECODE_TILE == 0
+    assert b * kh * len(pl.splits) <= max(fa_kernel.H100_SMS, b * kh)
+
+
+@pytest.mark.parametrize("sk", [1, 2, 9, 24])
+def test_plan_keeps_short_decode_calls_to_one_split(sk):
+    for h, kh, d in ((48, 8, 128), (16, 1, 256), (8, 2, 64)):
+        assert fa_kernel.plan(2, 1, sk, h, kh, d, BF16).splits == ((0, sk),)
+
+
+def test_plan_key_range_follows_the_window():
+    # the query at position 99 sees keys 60..99 under a window of 40
+    assert fa_kernel.key_range(1, 100, True, 40) == (60, 100)
+    assert fa_kernel.key_range(1, 100, True, None) == (0, 100)
+    assert fa_kernel.key_range(1, 100, True, 500) == (0, 100)
+    # a window that masks every key still leaves one range to mask
+    assert fa_kernel.key_range(1, 100, True, 0) == (99, 100)
+    assert fa_kernel.key_range(4, 100, False, 9) == (0, 100)
+
+
+# ------------------------------ the plain split-K model ------------------ #
+def _splits(lo, hi, n):
+    """n ranges tiling [lo, hi), all but the last of one length."""
+    chunk = -(-(hi - lo) // n)
+    return tuple((lo + i * chunk, min(lo + (i + 1) * chunk, hi))
+                 for i in range(n) if lo + i * chunk < hi)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("n_splits", [1, 2, 7])
+@pytest.mark.parametrize("h,kh,d", [(12, 2, 64),     # GQA 6:1
+                                    (16, 1, 32)])    # MQA 16:1
+def test_split_model_matches_the_jax_kernel(h, kh, d, n_splits, dtype):
+    """The decode kernel's split arithmetic (guard, P in two terms of the
+    working dtype, merge in split order) against the Pallas kernel,
+    interpreted."""
+    q, k, v = _qkv(n_splits + h, 2, 1, 100, h, kh, d)
+    want = jax_fa(*(jnp.asarray(a, dtype) for a in (q, k, v)), causal=True,
+                  block_q=128, block_k=128)
+    got = flash_attention_split_ref(
+        *(torch.from_numpy(a).to(TORCH_DTYPES[dtype]) for a in (q, k, v)),
+        splits=_splits(0, 100, n_splits), causal=True)
+    assert got.dtype == TORCH_DTYPES[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("sq", [1, 2])
+def test_split_model_merges_fully_masked_splits(sq, dtype):
+    """A window of 10 over 70 keys, cut into 7 splits of 10: the first
+    splits hold no valid key for any query, and merge to nothing."""
+    q, k, v = _qkv(sq, 1, sq, 70, 6, 1, 16, scale=2.0)
+    want = jax_fa(*(jnp.asarray(a, dtype) for a in (q, k, v)), causal=True,
+                  window=10, block_q=128, block_k=128)
+    got = flash_attention_split_ref(
+        *(torch.from_numpy(a).to(TORCH_DTYPES[dtype]) for a in (q, k, v)),
+        splits=_splits(0, 70, 7), causal=True, window=10)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("sk,window", [(24, None), (2048, 2048),
+                                       (4096, None), (300, 40)])
+def test_split_model_on_the_plans_splits_matches_the_plain_version(sk,
+                                                                   window):
+    """The splits the plan gives a decode call (one at Sk 24, 32 over
+    recurrentgemma's ring, 8 over qwen3's 4096), in f32 against the plain
+    version at 2e-4."""
+    h, kh, d = (16, 1, 32) if window == 2048 else (12, 2, 16)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(sk, 2, 1, sk, h, kh, d))
+    pl = fa_kernel.plan(2, 1, sk, h, kh, 128, BF16, True, window)
+    got = flash_attention_split_ref(q, k, v, splits=pl.splits, causal=True,
+                                    window=window)
+    want = flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
