@@ -76,11 +76,14 @@ Phases, each printing one JSON line:
    kernel call of these paths is also held against its plain version in
    f32 on the same inputs (``shadow_kernels()``); a flash_attention call
    on which that plain version is itself outside FA_TOL of the exact
-   (f64) value is held instead to have no more elements outside FA_TOL of
-   the exact value than the plain version has, and both counts are
-   reported.  End to end, the
-   recurrent models' logits are reported beside the distance between two
-   plain runs that differ only in rounding, not gated (E2E_GATED);
+   (f64) value (recurrentgemma-9b's forward, C-ref5) is held instead,
+   element by element, within FA_TOL of the exact value plus the
+   element's sensitivity to f32 score rounding (SENS_KAPPA), with its
+   largest and mean error no more than ERR_RATIO times the plain
+   version's, and its counts against both yardsticks are reported.  End
+   to end, the recurrent models' logits are reported beside the distance
+   between two plain runs that differ only in rounding, not gated
+   (E2E_GATED);
 7. timing  — each kernel at the shape the main path gave it, beside its
    plain version and its bound: device time (CUDA graph replay) and time
    per call (CUDA events around calls from the host); flash_attention at
@@ -934,6 +937,16 @@ def phase_serve(n_events):
 # LM serve and prefill
 # --------------------------------------------------------------------- #
 LM_KERNELS = ("flash_attention", "rglru_scan", "mlstm")
+F32_UNIT = 2.0 ** -24         # f32's unit roundoff
+SENS_KEYS = 64                # keys a row for flash_exact's sensitivity
+# on ill-conditioned flash calls (shadow_kernels): each score may be off by
+# SENS_KAPPA u |s|, twice the largest error of the plain version's f32
+# scores (3.4 u |s| in cuBLAS's order, 4.5 u |s| with the head dim
+# reversed; scripts/flash_conditioning.py on recurrentgemma-9b's forward),
+# and the kernel's largest and mean errors against the exact value may be
+# ERR_RATIO times the plain version's in the kernel's output dtype
+SENS_KAPPA = 8.0
+ERR_RATIO = 1.1
 
 
 @contextlib.contextmanager
@@ -972,22 +985,32 @@ def plain_kernels(f32=False):
 
 
 def flash_exact(q, k, v, *, causal=True, window=None, scale=None,
-                logit_cap=None, rows=512):
+                logit_cap=None, rows=256, sensitivity=False):
     """flash_attention's function evaluated in float64 (to ~1e-15), query
     rows in chunks: the exact value both the kernel and the plain version
-    in f32 approximate."""
+    in f32 approximate.
+
+    With ``sensitivity`` also returns, for each output element, how far it
+    moves when every score s_j moves by u |s_j| (u = 2^-24, f32's unit
+    roundoff), to first order: sum_j p_j u |s_j| |v_j - out|, over the
+    SENS_KEYS keys of largest p_j |s_j| of the row, plus the rest's weight
+    times max |v| + |out| as a bound.  A score held in f32 is off by at
+    least its own rounding, u |s_j|, so an element whose sensitivity is
+    comparable to FA_TOL is decided by rounding, not by the arithmetic."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     kk = k.double().repeat_interleave(h // kh, dim=2)
     vv = v.double().repeat_interleave(h // kh, dim=2)
+    v_max = float(vv.abs().max())
     k_pos = torch.arange(sk, device=q.device)[None, :]
     out = torch.empty((b, sq, h, d), dtype=torch.float64, device=q.device)
+    sens = torch.empty_like(out) if sensitivity else None
     for i0 in range(0, sq, rows):
         qs = q[:, i0:i0 + rows].double()
-        s = torch.einsum("bqhd,bkhd->bhqk", qs, kk) * scale
-        if logit_cap is not None:
-            s = logit_cap * torch.tanh(s / logit_cap)
+        raw = torch.einsum("bqhd,bkhd->bhqk", qs, kk) * scale
+        s = raw if logit_cap is None else \
+            logit_cap * torch.tanh(raw / logit_cap)
         q_pos = torch.arange(i0, i0 + qs.shape[1], device=q.device)[:, None] \
             + (sk - sq if causal else 0)
         valid = torch.ones_like(s[0, 0], dtype=torch.bool)
@@ -997,8 +1020,23 @@ def flash_exact(q, k, v, *, causal=True, window=None, scale=None,
             valid &= k_pos > q_pos - window
         s = s.masked_fill(~valid, float("-inf"))
         p = torch.nan_to_num(torch.softmax(s, dim=-1))   # rows of no key: 0
-        out[:, i0:i0 + rows] = torch.einsum("bhqk,bkhd->bqhd", p, vv)
-    return out
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+        out[:, i0:i0 + rows] = o
+        if sensitivity:
+            # a capped score moves no more than the raw one (tanh' <= 1)
+            w = p * raw.abs() * F32_UNIT                  # (B, H, R, Sk)
+            top, idx = w.topk(min(SENS_KEYS, sk), dim=-1)
+            rest = (w.sum(-1) - top.sum(-1)).clamp(min=0)
+            vsel = torch.gather(
+                vv.permute(0, 2, 1, 3)[:, :, None].expand(
+                    -1, -1, qs.shape[1], -1, -1), 3,
+                idx[..., None].expand(-1, -1, -1, -1, d))   # (B,H,R,T,D)
+            ob = o.permute(0, 2, 1, 3)                    # (B, H, R, D)
+            dev = (vsel - ob[:, :, :, None]).abs()
+            e = (top[..., None] * dev).sum(-2) + \
+                rest[..., None] * (v_max + ob.abs())
+            sens[:, i0:i0 + rows] = e.permute(0, 2, 1, 3)
+    return (out, sens) if sensitivity else out
 
 
 @contextlib.contextmanager
@@ -1013,13 +1051,21 @@ def shadow_kernels():
 
     flash_attention is also evaluated exactly (``flash_exact``, f64).  A
     call whose plain version in f32 is itself outside FA_TOL of the exact
-    value somewhere is ill-conditioned: its scores spread so wide that f32
-    rounding decides near-ties (recurrentgemma-9b's forward, C-ref5), and
-    the plain version is no yardstick there.  Such a call counts as
-    outside only where the kernel has more elements outside FA_TOL of the
-    exact value than the plain version in f32 has; every other call is
-    held against the plain version in f32 as before.  The tally keeps both
-    counts of the ill-conditioned calls."""
+    value somewhere is ill-conditioned: its scores spread so wide (C-ref5:
+    recurrentgemma-9b's forward, |s| to ~5e3) that the rounding of each
+    score to f32 decides near-ties, so an evaluation without error fails
+    the comparison with the plain version in f32 there.  On such a call
+    each element of the kernel is held against the exact value instead,
+    within FA_TOL plus SENS_KAPPA times the element's sensitivity to f32
+    score rounding (``flash_exact``), and the kernel's largest and mean
+    error against the exact value may be no more than ERR_RATIO times
+    those of the plain version in f32 rounded to the kernel's output
+    dtype.  Every other call is held against the plain version in f32 as
+    before.  The tally keeps, for the ill-conditioned calls, the elements
+    outside FA_TOL of the exact value (kernel, plain version), those where
+    the kernel is outside it and the plain version inside, the elements
+    of the kernel outside FA_TOL of the plain version in f32, and those of
+    the exact value rounded to the output dtype."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import rglru, transformer, xlstm
@@ -1027,11 +1073,16 @@ def shadow_kernels():
                     "max_abs_err": 0.0} for name in LM_KERNELS}
     tally["flash_attention"].update(
         ill_conditioned_calls=0, ill_kernel_outside_exact=0,
-        ill_plain_f32_outside_exact=0, ill_kernel_outside_plain_f32=0)
+        ill_plain_f32_outside_exact=0, ill_kernel_off_where_plain_on=0,
+        ill_kernel_outside_plain_f32=0, ill_exact_outside_plain_f32=0,
+        ill_max_err_ratio=0.0, ill_mean_err_ratio=0.0)
+
+    def off(out, want, rtol, atol):
+        o, w = out.to(want.dtype), want
+        return ~((o - w).abs() <= atol + rtol * w.abs())
 
     def outside(out, want, rtol, atol):
-        o, w = out.to(want.dtype), want
-        return int((~((o - w).abs() <= atol + rtol * w.abs())).sum())
+        return int(off(out, want, rtol, atol).sum())
 
     def record(name, out, want, rtol, atol, counted=None):
         o, w = out.float(), want.float()
@@ -1048,21 +1099,36 @@ def shadow_kernels():
 
     def flash(q, k, v, **kw):
         out = kern_fa(q, k, v, **kw)
-        tol = FA_TOL[q.dtype]
+        rtol, atol = FA_TOL[q.dtype]
         want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         exact = flash_exact(q, k, v, **kw)
-        plain_off = outside(want, exact, *tol)
+        plain_off = off(want, exact, rtol, atol)
         counted = None
-        if plain_off:
-            kern_off = outside(out, exact, *tol)
+        if bool(plain_off.any()):
+            exact, sens = flash_exact(q, k, v, sensitivity=True, **kw)
+            o = out.double()
+            err = (o - exact).abs()
+            counted = int((err > atol + rtol * exact.abs() +
+                           SENS_KAPPA * sens).sum())
+            kern_off = off(o, exact, rtol, atol)
+            err_p = (want.to(out.dtype).double() - exact).abs()
             t = tally["flash_attention"]
             t["ill_conditioned_calls"] += 1
-            t["ill_kernel_outside_exact"] += kern_off
-            t["ill_plain_f32_outside_exact"] += plain_off
-            t["ill_kernel_outside_plain_f32"] += outside(out, want, *tol)
-            counted = max(0, kern_off - plain_off)
+            t["ill_kernel_outside_exact"] += int(kern_off.sum())
+            t["ill_plain_f32_outside_exact"] += int(plain_off.sum())
+            t["ill_kernel_off_where_plain_on"] += int(
+                (kern_off & ~plain_off).sum())
+            t["ill_kernel_outside_plain_f32"] += outside(out, want, rtol,
+                                                         atol)
+            t["ill_exact_outside_plain_f32"] += outside(
+                exact.to(out.dtype), want, rtol, atol)
+            t["ill_max_err_ratio"] = max(t["ill_max_err_ratio"], float(
+                err.max() / err_p.max()))
+            t["ill_mean_err_ratio"] = max(t["ill_mean_err_ratio"], float(
+                err.mean() / err_p.mean()))
+            del sens, err, err_p
         del exact
-        record("flash_attention", out, want, *tol, counted=counted)
+        record("flash_attention", out, want, rtol, atol, counted=counted)
         return out
 
     def scan(a, b, h0=None):
@@ -1094,9 +1160,15 @@ def check_calls(name, tally):
             raise AssertionError(
                 f"{name}: {t['outside']} of {t['elements']} elements of "
                 f"{t['calls']} {kernel} calls outside the tolerance against "
-                f"the plain version in f32 (or, on ill-conditioned calls, "
-                f"against the exact value beyond the plain version's own "
-                f"count), max err {t['max_abs_err']}; {t}")
+                f"the plain version in f32 (on ill-conditioned flash calls: "
+                f"against the exact value, FA_TOL plus the score-rounding "
+                f"band), max err {t['max_abs_err']}; {t}")
+    t = tally["flash_attention"]
+    if max(t["ill_max_err_ratio"], t["ill_mean_err_ratio"]) > ERR_RATIO:
+        raise AssertionError(
+            f"{name}: on ill-conditioned calls the flash kernel's error "
+            f"against the exact value exceeds {ERR_RATIO} times the plain "
+            f"version's in the same dtype: {t}")
 
 
 def compare_runs(cfg, kern, run, rows):

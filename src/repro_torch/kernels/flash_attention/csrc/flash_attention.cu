@@ -23,9 +23,9 @@
 // call:
 //
 // 1. prefill, bf16, head dim 64/128/256 (flash_wgmma.cuh): wgmma on the
-//    tensor cores fed by TMA, a producer warp and two consumer
-//    warpgroups; bound by operations (4 * B * H * valid pairs * D flops
-//    against 989 TFLOP/s bf16).
+//    tensor cores fed by TMA, two warpgroups of 64 query rows, one thread
+//    of which issues the loads (no producer warp); bound by operations
+//    (4 * B * H * valid pairs * D flops against 989 TFLOP/s bf16).
 // 2. decode and short Sq, bf16, head dim 64/128/256, G * Sq <= 16
 //    (flash_decode.cuh): the G query heads of a kv head packed into the
 //    rows of one mma.sync tile, so each K/V tile is read once, and the
@@ -37,10 +37,11 @@
 //    mantissa), which cannot hold the 2e-4 tolerance the port keeps for
 //    f32 against its plain version with TF32 off.  No model path calls it.
 //
-// In bf16 the tensor-core kernels round P to bf16 before P.V, as the
-// plain bf16 version does; q * scale is never rounded (the scale is
-// applied to the f32 scores).  They compute exp in base 2 on scores
-// scaled by log2(e).
+// In bf16 the tensor-core kernels feed P to P.V as two bf16 terms,
+// bf16(P) and bf16(P - bf16(P)), so P keeps ~16 bits; q * scale is never
+// rounded: the scores stay unscaled in f32 and exp runs in base 2 on
+// s c - m c in one fused multiply-add, c = scale * log2(e).  The details
+// are in flash_wgmma.cuh and flash_decode.cuh.
 //
 // CUDA-core kernel layout: one block of 128 threads (256 at head dim 256)
 // per (b, q head, tile of 32 query rows).  The block stages the scaled Q
@@ -57,7 +58,9 @@
 //
 // Determinism: every sum has a fixed order (per-lane FMAs in index order,
 // butterfly shuffles, tensor-core tiles in order, split merges in split
-// order), no atomics, so runs repeat bit for bit.
+// order), and no data goes through an atomic (the prefill kernel's one
+// atomic counts releases of a shared-memory stage), so runs repeat bit
+// for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -20,7 +20,14 @@
 // from the next batch row or head.
 //
 // Per tile a warpgroup computes S = Q.K^T with wgmma (both operands in
-// shared memory, K-major), then in f32 registers: the softcap, the mask
+// shared memory, K-major), at D = 256 in two accumulators of 128 head
+// dims each, added in f32: a wgmma adds into its accumulator with its
+// terms aligned to the largest and cut towards zero, so one chain of 16
+// over the full head dim ends up to ~8.6 u |s| below |s| (u = 2^-24)
+// where recurrentgemma-9b's scores reach ~5e3, against ~3.4 u |s| for f32
+// FMAs in order; two chains of 8 end within ~5.1 u |s| and halve the
+// bias (scripts/flash_conditioning.py, on an H100).  Then in f32
+// registers: the softcap, the mask
 // (only on tiles that straddle the causal diagonal, the window's edge or
 // Sk) and the online softmax with the 0.1.NEG_INF guard, its running max
 // taken on the unscaled scores and exp run in base 2 on s c - m c in one
@@ -39,7 +46,8 @@
 // Tiles fully masked for a warpgroup's rows are skipped (exact under the
 // guard); the warpgroup still waits for and releases them, so the ring
 // stays in step.  The epilogue divides by max(l, 1e-30) and stores rows
-// < Sq.  No atomics: two launches give the same bits.
+// < Sq.  The one atomic counts a stage's releases and touches no data:
+// every sum keeps a fixed order, so two launches give the same bits.
 //
 // Registers: the largest state, D = 256, is a 64 x 256 f32 accumulator
 // (128 a thread), S (32) and P (2 x 16) live at once; ptxas needs over
@@ -62,6 +70,8 @@ constexpr float kGuard = 0.1f * kNegInf;          // masked-block guard
 template <int D>
 struct Cfg {
   static constexpr int kChunks = D / 64;          // 128-byte boxes a row
+  static constexpr int kSliceK = 128;             // head dims an S accumulator
+  static_assert(D <= 2 * kSliceK, "S takes at most two accumulators");
   static constexpr int kBlockN = D >= 256 ? 64 : 128;   // keys a tile
   static constexpr int kStages = D >= 256 ? 2 : D >= 128 ? 3 : 4;
   static constexpr int kGroups = 2;               // warpgroups of 64 rows
@@ -213,7 +223,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     mbar_wait(&k_full[s], parity);
     if (compute) {
-      float sc[C::kBlockN / 2];
+      // S over head-dim slices of 128: one accumulator each (two at D =
+      // 256), summed in f32 once both are done
+      float sc[C::kBlockN / 2], sc_hi[C::kBlockN / 2];
       const uint8_t* k_tile = k_s + s * C::kTileBytes;
       wgmma_fence();
 #pragma unroll
@@ -221,11 +233,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int c = kk / 4, in = 32 * (kk % 4);
         const uint64_t da = desc_sw128(q_mine + c * C::kBoxQ + in, 16, 1024);
         const uint64_t db = desc_sw128(k_tile + c * C::kBoxKV + in, 16, 1024);
-        Wgmma<C::kBlockN>::template ss<0>(sc, da, db, kk > 0);
+        if (kk < C::kSliceK / 16)
+          Wgmma<C::kBlockN>::template ss<0>(sc, da, db, kk > 0);
+        else
+          Wgmma<C::kBlockN>::template ss<0>(sc_hi, da, db,
+                                            kk > C::kSliceK / 16);
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
+      if constexpr (D > C::kSliceK) {
+        fence_regs(sc_hi);
+#pragma unroll
+        for (int i = 0; i < C::kBlockN / 2; ++i) sc[i] += sc_hi[i];
+      }
 
       // cap and mask in f32; the running max per row, in the units of the
       // scores before the scale (with a cap, after it)
