@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
 2. build   — nvcc builds the four CUDA sources, one nvcc each, started
-   together; ptxas's registers and spills for every kernel instance (a
-   flash_attention instance that spills fails the run);
+   together; ptxas's registers and spills for every kernel instance (an
+   instance of flash_attention or mlstm, whose tensor-core kernels hold
+   their state in registers, that spills fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -28,12 +29,15 @@ Phases, each printing one JSON line:
    bf16 cases also against the plain version in f32 on the same values.
    Each row names the device kernel the wrapper's plan chose.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
    with and without h0 and a ragged (3, 100, 48), within 1e-5 (SCAN_TOL);
-   mlstm at xlstm-350m's (1, 2048, 4, 512) in bf16 and f32 and small f32
-   cases whose S is no multiple of the tile, against the plain version
-   evaluated in f32 on the same values (the kernel's arithmetic): 2e-2 for
-   a bf16 output, 5e-4 in f32 (MLSTM_TOL); the distance from the plain
-   version in bf16 is reported.  Two launches of every case must give the
-   same bits;
+   mlstm at xlstm-350m's (1, 2048, 4, 512) in bf16 (the tensor-core
+   kernel) and f32, small f32 cases whose S is no multiple of the tile,
+   and the tensor-core kernel off the model's shape (S 300 and 37, two
+   batch rows, q, k, v as views of one fused tensor, gates under which
+   exp(-m) wins the normaliser), against the plain version evaluated in
+   f32 on the same values (the kernel's arithmetic): 2e-2 for a bf16
+   output, 5e-4 in f32 (MLSTM_TOL); the distance from the plain version in
+   bf16 is reported, and each row names the device kernel the wrapper's
+   plan chose.  Two launches of every case must give the same bits;
 4. serve   — the paper's event workload (64 scalars, 4096 tracks x 63
    vars, 256 events per brick, replication 2) on 4 nodes, resident on the
    card; the serve workload (64 queries, 4 tenants, window 16, streamed)
@@ -68,8 +72,9 @@ Phases, each printing one JSON line:
 6. prefill — one forward() for each LM: qwen3-14b over 1 x 2048 tokens
    (40 flash launches), recurrentgemma-9b over 1 x 4096 (26 rglru_scan
    and 12 flash launches; the window bites), every flash call on the
-   tensor-core prefill kernel (``flash_attention.wgmma``), xlstm-350m over 1 x 2048 (21
-   mlstm launches), each compared with the same forward on the plain
+   tensor-core prefill kernel (``flash_attention.wgmma``), xlstm-350m
+   over 1 x 2048 (21 mlstm launches, all on the tensor-core kernel,
+   ``mlstm.wgmma``), each compared with the same forward on the plain
    versions in the same way; then xlstm-350m's forward logits over 1024
    tokens against a teacher-forced decode of the same tokens (the
    recurrent form), which ties the mLSTM kernel to the recurrence.  Every
@@ -91,7 +96,9 @@ Phases, each printing one JSON line:
    recurrentgemma-9b's decode and its 4096 prefill under the window, with
    scaled_dot_product_attention (enable_gqa; an explicit mask under the
    window) as the library call; rglru_scan and mlstm with no library call
-   (no PyTorch call computes either function);
+   (no PyTorch call computes either function); every row with its share of
+   the bound, the event filter's also with the sector bound of the store's
+   strided pt, beside the launch floor (a one-element fill);
 8. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -303,6 +310,26 @@ def time_pair(kern, plain):
     return out
 
 
+def with_share(row):
+    """A timing row with the share of its bound that the kernel reaches
+    (bound over device time)."""
+    return {**row, "share_of_bound": row["bound_ms"] / row["ms"]}
+
+
+def launch_floor_ms() -> float:
+    """Device ms of the least kernel, a one-element fill, timed as the
+    kernels are (graph replay): what a launch costs before any work."""
+    one = torch.zeros(1, device=DEVICE)
+    return device_time_ms([one.zero_])
+
+
+def sector_bound_ms(n_tracks, t) -> float:
+    """Least time to read the valid tracks' pt from the store's (N, T, V)
+    layout, where each 4-byte pt costs a 32-byte sector, at the HBM rate."""
+    valid = int(torch.clamp(n_tracks.long(), 0, t).sum())
+    return 32 * valid / HBM_BYTES_PER_S * 1e3
+
+
 def bound_ms(scalars, n_tracks, thresholds, var_idx, calib_iters, t):
     """Least time for the function's work on these inputs: the bytes it
     must move (valid tracks' pt, n_tracks, scalars, thresholds, var_idx
@@ -408,9 +435,12 @@ def time_kernel(name, gen, shape, k, calib_iters):
                   float((v - vp).abs().max()))
     bms = [bound_ms(s, nt, th, vi, calib_iters, shape[1])
            for s, tr, nt, th, vi in sets]
-    return {**time_pair(kern, plain),
-            "bound_ms": float(np.mean([x for x, _ in bms])),
-            "bound_by": bms[0][1], "max_abs_err": err}
+    sectors = [sector_bound_ms(nt, shape[1]) for _, _, nt, _, _ in sets]
+    return with_share({**time_pair(kern, plain),
+                       "bound_ms": float(np.mean([x for x, _ in bms])),
+                       "bound_by": bms[0][1],
+                       "sector_bound_ms": float(np.mean(sectors)),
+                       "max_abs_err": err})
 
 
 # --------------------------------------------------------------------- #
@@ -565,14 +595,25 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None):
 # a carried state, and a ragged case
 SCAN_CASES = [(1, 4096, 4096, False), (1, 4096, 4096, True),
               (3, 100, 48, True)]
-# (B, S, H, D, dtype): xlstm-350m's forward shape, then small cases whose
-# S is no multiple of the 32-row tile
-MLSTM_CASES = [(1, 2048, 4, 512, torch.bfloat16),
-               (1, 2048, 4, 512, torch.float32),
-               (1, 64, 2, 16, torch.float32), (2, 100, 2, 16, torch.float32),
-               (2, 96, 4, 32, torch.float32), (1, 100, 1, 64, torch.float32),
-               (2, 70, 2, 512, torch.float32),
-               (2, 37, 4, 64, torch.bfloat16)]
+# (B, S, H, D, dtype, flags): xlstm-350m's forward shape, then small cases
+# whose S is no multiple of the 32-row tile, then the tensor-core kernel
+# (bf16, D 512) off the model's shape: a ragged S, S under one 64-row
+# tile, two batch rows, q, k and v as strided views of one fused
+# projection, and input gates low enough (log i ~ N(-3, 1)) that exp(-m)
+# wins the normaliser on most rows
+MLSTM_CASES = [(1, 2048, 4, 512, torch.bfloat16, {}),
+               (1, 2048, 4, 512, torch.float32, {}),
+               (1, 64, 2, 16, torch.float32, {}),
+               (2, 100, 2, 16, torch.float32, {}),
+               (2, 96, 4, 32, torch.float32, {}),
+               (1, 100, 1, 64, torch.float32, {}),
+               (2, 70, 2, 512, torch.float32, {}),
+               (2, 37, 4, 64, torch.bfloat16, {}),
+               (1, 300, 4, 512, torch.bfloat16, {}),
+               (1, 37, 4, 512, torch.bfloat16, {}),
+               (2, 512, 4, 512, torch.bfloat16, {}),
+               (2, 200, 4, 512, torch.bfloat16, {"fused": True}),
+               (1, 300, 4, 512, torch.bfloat16, {"i_shift": -3.0})]
 
 
 def scan_operands(gen, b, s, w, with_h0):
@@ -584,14 +625,34 @@ def scan_operands(gen, b, s, w, with_h0):
     return a, x, h0
 
 
-def mlstm_operands(gen, b, s, h, d, dtype):
-    """q, k, v ~ N(0, 1) in ``dtype``, log_i ~ N(0, 1), log_f = -|N(0,
-    1)| / 2 (f32), as the reference's kernel tests draw them."""
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEVICE)
-               .to(dtype) for _ in range(3))
-    log_i = torch.randn((b, s, h), generator=gen, device=DEVICE)
+def mlstm_operands(gen, b, s, h, d, dtype, fused=False, i_shift=0.0):
+    """q, k, v ~ N(0, 1) in ``dtype``, log_i ~ N(i_shift, 1), log_f =
+    -|N(0, 1)| / 2 (f32), as the reference's kernel tests draw them; with
+    ``fused`` q, k and v are views of one (B, S, 3, H, D) tensor."""
+    if fused:
+        qkv = torch.randn((b, s, 3, h, d), generator=gen,
+                          device=DEVICE).to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEVICE)
+                   .to(dtype) for _ in range(3))
+    log_i = torch.randn((b, s, h), generator=gen, device=DEVICE) + i_shift
     log_f = -torch.randn((b, s, h), generator=gen, device=DEVICE).abs() * 0.5
     return q, k, v, log_i, log_f
+
+
+def normaliser_share(q, k, log_i, log_f):
+    """Share of rows whose normaliser max(|den|, exp(-m)) is exp(-m), from
+    the plain function in f32 (m the gate part's row max)."""
+    b, s, h, d = q.shape
+    fcum = torch.cumsum(log_f, dim=1)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logw = fcum[:, :, None] - fcum[:, None, :] + log_i[:, None, :]
+    logw = torch.where(causal[None, :, :, None], logw, -1e30)
+    m = logw.amax(dim=2)
+    sc = torch.einsum("bthd,bshd->btsh", q.float(), k.float()) * d ** -0.5
+    den = (torch.exp(logw - m[:, :, None]) * sc).sum(dim=2)
+    return float((torch.exp(-m) > den.abs()).float().mean())
 
 
 def close_check(out, want, rtol, atol, name) -> float:
@@ -636,17 +697,23 @@ def phase_scan_kernels(gen):
         close_check(last, want_last, *SCAN_TOL, "rglru_scan h_last")
         rows.append({"kernel": "rglru_scan", "shape": [b, s, w],
                      "h0": with_h0, "max_abs_err": err})
-    for b, s, h, d, dtype in MLSTM_CASES:
-        ops = mlstm_operands(gen, b, s, h, d, dtype)
+    for b, s, h, d, dtype, kw in MLSTM_CASES:
+        ops = mlstm_operands(gen, b, s, h, d, dtype, **kw)
+        pl = ml_kernel.plan(b, s, h, d, dtype)
         out = ml_kernel.mlstm_cuda(*ops)
         again = ml_kernel.mlstm_cuda(*ops)
         torch.cuda.synchronize()
-        name = f"mlstm {(b, s, h, d)} {dtype}"
+        name = f"mlstm {(b, s, h, d)} {dtype} {kw}"
         if not torch.equal(out, again):
             raise AssertionError(f"{name}: two runs differ")
         err = close_check(out, mlstm_plain_f32(*ops), *MLSTM_TOL[dtype], name)
         row = {"kernel": "mlstm", "shape": [b, s, h, d],
-               "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+               "dtype": str(dtype).split(".")[-1], "flags": kw,
+               "variant": pl.variant, "blocks": len(pl.items) * b * h,
+               "split_tiles": pl.split_tiles, "max_abs_err": err}
+        if "i_shift" in kw:
+            row["exp_neg_m_share"] = normaliser_share(ops[0], ops[1],
+                                                      ops[3], ops[4])
         if dtype != torch.float32:
             # the plain version in the working dtype rounds a to bf16
             # before a.v, as the reference's mlstm_parallel: reported, and
@@ -718,8 +785,12 @@ def time_mlstm(gen, b, s, h, d):
         err = max(err, close_check(kc(), mlstm_plain_f32(*ops),
                                    *MLSTM_TOL[torch.bfloat16], "timing"))
     bound, by = mlstm_bound_ms(b, s, h, d, 2)
-    return {**time_pair(kern, plain), "library_ms": None,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    pl = ml_kernel.plan(b, s, h, d, torch.bfloat16)
+    return with_share({"variant": pl.variant,
+                       "blocks": len(pl.items) * b * h,
+                       **time_pair(kern, plain), "library_ms": None,
+                       "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err})
 
 
 # --------------------------------------------------------------------- #
@@ -1214,13 +1285,13 @@ def check_runs(name, cfg, cmp):
 def lm_counted(run):
     """Run one LM path with the LM kernels' launch counts zeroed just
     before it and read just after it: (its output, its launches), with
-    the flash_attention calls also counted by the device kernel each took
-    (``flash_attention.<variant>``)."""
+    the flash_attention and mlstm calls also counted by the device kernel
+    each took (``flash_attention.<variant>``, ``mlstm.<variant>``)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     counters = (fa_kernel.LAUNCHES, rg_kernel.LAUNCHES, ml_kernel.LAUNCHES)
-    for c in (*counters, fa_kernel.VARIANT_CALLS):
+    for c in (*counters, fa_kernel.VARIANT_CALLS, ml_kernel.VARIANT_CALLS):
         for key in c:
             c[key] = 0
     out = run()
@@ -1230,6 +1301,8 @@ def lm_counted(run):
         launches.update(c)
     launches.update({f"flash_attention.{key}": n
                      for key, n in fa_kernel.VARIANT_CALLS.items()})
+    launches.update({f"mlstm.{key}": n
+                     for key, n in ml_kernel.VARIANT_CALLS.items()})
     return out, launches
 
 
@@ -1240,12 +1313,16 @@ def check_launches(name, got, want):
 
 def lm_launches(flash=0, variant=None, rglru_scan=0, mlstm=0):
     """The launch counts of one LM path: ``flash`` flash_attention calls,
-    all taking the device kernel ``variant``."""
+    all taking the device kernel ``variant``, and ``mlstm`` calls, all on
+    the tensor-core kernel."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     out = {"flash_attention": flash, "rglru_scan": rglru_scan,
            "mlstm": mlstm}
     out.update({f"flash_attention.{key}": flash if key == variant else 0
                 for key in fa_kernel.VARIANTS})
+    out.update({f"mlstm.{key}": mlstm if key == "wgmma" else 0
+                for key in ml_kernel.VARIANTS})
     return out
 
 
@@ -1253,8 +1330,8 @@ def path_launches(cfg):
     """What each path of ``cfg``'s model must launch, counted from its
     pattern: ``generate`` (every decode step's attention layers, each on
     the GQA-packed decode kernel) and one ``forward`` (each attention,
-    RG-LRU and mLSTM layer once, the attention on the tensor-core prefill
-    kernel)."""
+    RG-LRU and mLSTM layer once, the attention and the mLSTM on their
+    tensor-core kernels)."""
     from repro_torch.models import hybrid, xlstm
     steps = LM_PROMPT + LM_NEW
     if cfg.family == "hybrid":
@@ -1448,28 +1525,40 @@ def phase_recurrent_tie(cfg, model, params):
 
 
 # --------------------------------------------------------------------- #
+def kernel_name(mangled) -> str:
+    """A kernel's readable name from its mangled one: the name and its
+    template arguments (a type as bf16 or f32, an int as itself)."""
+    import re
+    m = re.search(r"\d+([a-z_]+_kernel)(I(.*?)EEv)?", mangled)
+    if m is None:
+        return mangled
+    args, text, i = [], m.group(3) or "", 0
+    while i < len(text):
+        if text.startswith("Li", i):
+            j = text.index("E", i)
+            args.append(text[i + 2:j])
+            i = j + 1
+        elif text.startswith("13__nv_bfloat16", i):
+            args.append("bf16")
+            i += len("13__nv_bfloat16")
+        elif text[i] == "f":
+            args.append("f32")
+            i += 1
+        else:
+            i += 1
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_report(source) -> list:
     """Registers and spill bytes of each kernel instance in ``source``,
     from the ptxas report its build kept."""
     import re
     from repro_torch import kernels
-    rows, name = [], None
+    rows = []
     for line in kernels.build_log(source).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)Li(\d+)E)?E",
-                          m.group(1))
-            if t is None:
-                name = m.group(1)
-            elif t.group(3) is None:
-                name = t.group(1)
-            elif t.group(2):
-                name = t.group(1) + (
-                    f"<{'bf16' if 'bfloat16' in t.group(2) else 'f32'},"
-                    f"{t.group(3)}>")
-            else:
-                name = f"{t.group(1)}<{t.group(3)}>"
-            rows.append({"kernel": name})
+            rows.append({"kernel": kernel_name(m.group(1))})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1497,12 +1586,16 @@ def build_all():
     ptxas = {m.SOURCE.name: ptxas_report(m.SOURCE) for m in modules}
     emit({"phase": "build", "sources": [m.SOURCE.name for m in modules],
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
-    # the flash kernels hold their state in registers by design: a spill
-    # is a fault of the build, not a slowdown to report
-    spilled = [row for row in ptxas[fa_kernel.SOURCE.name]
+    # the tensor-core kernels hold their state in registers by design: a
+    # spill is a fault of the build, not a slowdown to report
+    spilled = [row for m in (fa_kernel, ml_kernel)
+               for row in ptxas[m.SOURCE.name]
                if row.get("spill_stores") or row.get("spill_loads")]
     if spilled:
-        raise AssertionError(f"flash_attention instances spill: {spilled}")
+        raise AssertionError(f"tensor-core kernel instances spill: {spilled}")
+    if not any(row["kernel"].startswith("mlstm_wgmma_kernel")
+               for row in ptxas[ml_kernel.SOURCE.name]):
+        raise AssertionError("no mlstm_wgmma_kernel in the ptxas report")
 
 
 def release():
@@ -1595,6 +1688,7 @@ def main(argv=None) -> int:
     rg_decode = time_flash(gen, LM_BATCH, 1, LM_PROMPT + LM_NEW, 16, 1, 256)
     rg_prefill = time_flash(gen, 1, rg_len, rg_len, 16, 1, 256, window=2048)
     emit({"phase": "timing", "smi": smi,
+          "launch_floor_ms": launch_floor_ms(),
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
                                  **timed["event_filter_batch"]},
           "event_filter": {"shape": list(BRICK_SHAPE), "k": 1,

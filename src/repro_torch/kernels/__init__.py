@@ -65,6 +65,33 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+#: streaming multiprocessors of an H100 SXM, the default of the kernels'
+#: launch plans
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_tma_aligned(what: str, **tensors) -> None:
+    """TMA (and 16-byte cp.async) reads need each base address and each
+    stride of a dimension longer than 1, other than the innermost, to be a
+    multiple of 16 bytes.  Raises ``ValueError`` naming ``what`` and the
+    tensor; a wrapper never copies an operand to make it so."""
+    for name, x in tensors.items():
+        nbytes = x.element_size()
+        bad = [i for i in range(x.dim() - 1)
+               if x.shape[i] > 1 and (x.stride(i) * nbytes) % 16]
+        if x.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{name} is misaligned for {what}: base {x.data_ptr():#x}, "
+                f"strides {x.stride()} (base and strides must be multiples "
+                f"of 16 bytes)")
+
+
 def find_nvcc() -> str:
     """Path of ``nvcc``: ``PATH`` first, then the CUDA toolkit's own."""
     nvcc = shutil.which("nvcc")

@@ -28,24 +28,51 @@
 // one add (plus ~10 flops per calibration round), far below the H100's
 // 67 TFLOP/s fp32; the bytes that must move are the valid tracks' pt
 // (4 B each), n_tracks, scalars and the outputs, read or written once, at
-// 3.35 TB/s.  This first design is simple and right, not fast: the pt load is
-// strided by V floats, so each 4-byte pt costs a 32-byte sector, and one
-// block per event puts only N blocks on 132 SMs.  A contiguous pt plane and
-// several events per block are the known next steps.
+// 3.35 TB/s.  The pt load is strided by V floats, so each 4-byte pt costs a
+// 32-byte sector (the store's layout; a contiguous pt plane beside each
+// brick would cut that by 8).
 //
-// Determinism: counts are int32 (warp ballot + popc, then shared-memory
-// integer atomics), the sum is a fixed-shape tree (a fixed per-thread order,
-// warp shuffles, then shared memory) with no float atomics, so results are
-// identical from run to run.  Offsets are 64-bit: a full-width slab of 8192
-// events holds ~2.1e9 track elements, more than INT32_MAX.
+// Design for latency: one block of 512 threads per event.  Each thread
+// issues all its loads of pt for up to kPer tracks (tid, tid + 512, ...;
+// 8, or 16 when T passes 4096) before it uses any of them, so an event
+// costs one round trip to device memory, not one per block-wide row of
+// tracks; the loads of the query operands of the final compare
+// (thresholds, var_idx, the selected scalar) are issued at the start too.
+// Each pt is a 128-byte line of its own to the SM's L1, which takes lines
+// one at a time: 512 threads (more warps with lines in flight) beat 256,
+// and the loads allocate no line in L1.  Calibration, the sum and the K
+// counts then run on registers: each thread counts its own hits of query
+// k, the warp adds them (__reduce_add_sync) and lane 0 adds the warp's
+// count to shared memory.
+// Spreading an event over two or four blocks (a cluster whose block 0 adds
+// the others' counts and sums through distributed shared memory) measured
+// no faster on an H100 at the query path's 64 events: the combine cost
+// what the spread saved.
+//
+// Determinism: counts are int32 (per-thread counts, integer warp sums and
+// shared-memory integer atomics), the sum is a fixed-shape tree (each
+// thread in track order, warp shuffles, then shared memory) with no float
+// atomics, so results are identical from run to run.  Offsets are 64-bit:
+// a full-width slab of 8192 events holds ~2.1e9 track elements, more than
+// INT32_MAX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+
+// a read-only load that leaves no line in L1: no pt is read twice, and
+// the SM's L1 takes each pt's line on its own
+__device__ __forceinline__ float load_no_allocate(const float* p) {
+  float x;
+  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];"
+               : "=f"(x)
+               : "l"(p));
+  return x;
+}
 
 __device__ __forceinline__ float calibrate_pt(float pt, int iters) {
   for (int i = 0; i < iters; ++i) {
@@ -58,6 +85,19 @@ __device__ __forceinline__ float calibrate_pt(float pt, int iters) {
   return pt;
 }
 
+// the final compare of query j: sc[var_idx_j] > A_j, with an index outside
+// the event's scalars selecting nothing (the kernel never reads past the
+// row; the host builds var_idx in range)
+__device__ __forceinline__ bool scalar_pass(const float* sc,
+                                            const float* thresholds,
+                                            const int32_t* var_idx,
+                                            int64_t n_scalars, int j) {
+  const int vi = var_idx[j];
+  return vi >= 0 && vi < n_scalars && sc[vi] > thresholds[j];
+}
+
+// kPer: tracks a thread loads before it uses any
+template <int kPer>
 __global__ void __launch_bounds__(kThreads)
 event_filter_batch_kernel(const float* __restrict__ scalars,
                           const float* __restrict__ tracks,
@@ -77,29 +117,52 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-
-  for (int j = tid; j < k; j += kThreads) {
-    pt_thr[j] = thresholds[k + j];
-    cnt[j] = 0;
-  }
-  __syncthreads();
+  const float* sc = scalars + e * n_scalars;
 
   int64_t nt = n_tracks[e];
   nt = nt < 0 ? 0 : (nt > max_tracks ? max_tracks : nt);
   const float* trk = tracks + e * max_tracks * track_vars;
+  for (int j = tid; j < k; j += kThreads) {
+    pt_thr[j] = thresholds[k + j];
+    cnt[j] = 0;
+  }
+  // the operands of query tid's final compare, loaded now
+  bool pass = false;
+  float c_min = 0.0f, d_cap = 0.0f;
+  if (tid < k) {
+    pass = scalar_pass(sc, thresholds, var_idx, n_scalars, tid);
+    c_min = thresholds[2 * k + tid];
+    d_cap = thresholds[3 * k + tid];
+  }
 
-  // nt is uniform over the block, so every warp runs the same iterations
-  // and the full-mask ballots below are well defined
+  // nt is uniform over the block, so every warp runs the same rounds and
+  // the full-mask warp sums below are well defined
   float sum = 0.0f;
-  for (int64_t base = 0; base < nt; base += kThreads) {
-    const int64_t t = base + tid;
-    const bool valid = t < nt;
-    const float pt = valid ? calibrate_pt(trk[t * track_vars], calib_iters)
-                           : 0.0f;
-    if (valid) sum += pt;
+  for (int64_t base = 0; base < nt; base += kPer * kThreads) {
+    float pt[kPer];
+    int n_mine = 0;                   // this thread's valid tracks: u < it
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int64_t t = base + u * kThreads + tid;
+      pt[u] = 0.0f;
+      if (t < nt) pt[u] = load_no_allocate(trk + t * track_vars);
+      n_mine += t < nt ? 1 : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      if (u < n_mine) {
+        pt[u] = calibrate_pt(pt[u], calib_iters);
+        sum += pt[u];
+      }
+    }
+    __syncthreads();  // the thresholds are in shared memory
     for (int j = 0; j < k; ++j) {
-      const unsigned hits = __ballot_sync(0xffffffffu, valid && pt > pt_thr[j]);
-      if (lane == 0 && hits != 0u) atomicAdd(&cnt[j], __popc(hits));
+      const float b = pt_thr[j];
+      int c = 0;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) c += (u < n_mine && pt[u] > b) ? 1 : 0;
+      c = __reduce_add_sync(0xffffffffu, c);
+      if (lane == 0 && c != 0) atomicAdd(&cnt[j], c);
     }
   }
 
@@ -117,17 +180,14 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   __syncthreads();
   const float total = warp_sums[0];
 
-  const float* sc = scalars + e * n_scalars;
   for (int j = tid; j < k; j += kThreads) {
-    const float a = thresholds[j];
-    const float c = thresholds[2 * k + j];
-    const float d = thresholds[3 * k + j];
-    // an index outside the event's scalars selects nothing: the kernel
-    // never reads past the row (the host builds var_idx in range)
-    const int vi = var_idx[j];
-    const bool m = vi >= 0 && vi < n_scalars && sc[vi] > a &&
-                   static_cast<float>(cnt[j]) >= c &&
-                   (!(d > 0.0f) || total < d);
+    if (j >= kThreads) {
+      pass = scalar_pass(sc, thresholds, var_idx, n_scalars, j);
+      c_min = thresholds[2 * k + j];
+      d_cap = thresholds[3 * k + j];
+    }
+    const bool m = pass && static_cast<float>(cnt[j]) >= c_min &&
+                   (!(d_cap > 0.0f) || total < d_cap);
     mask[e * k + j] = m ? 1.0f : 0.0f;
   }
   if (tid == 0) var[e] = sc[0];
@@ -143,8 +203,11 @@ extern "C" int event_filter_batch_launch(
     long long n, long long n_scalars, long long max_tracks,
     long long track_vars, int k, int calib_iters, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
-  event_filter_batch_kernel<<<static_cast<unsigned>(n), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  // 8 tracks a thread cover T <= 4096 in one round; longer events take 16
+  auto* kernel = max_tracks <= 8 * kThreads ? event_filter_batch_kernel<8>
+                                            : event_filter_batch_kernel<16>;
+  kernel<<<static_cast<unsigned>(n), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scalars), static_cast<const float*>(tracks),
       static_cast<const int32_t*>(n_tracks),
       static_cast<const float*>(thresholds),

@@ -32,7 +32,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import load_cuda_library
+from repro_torch.kernels import (H100_SMS, check_tma_aligned,
+                                 load_cuda_library, sm_count)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -57,8 +58,6 @@ DECODE_TILE = 64
 #: below this many key tiles a decode call runs as one split: a second
 #: launch costs more than the split saves
 SPLIT_MIN_TILES = 4
-#: streaming multiprocessors of an H100 SXM, the plan's default
-H100_SMS = 132
 
 
 @dataclass(frozen=True)
@@ -159,11 +158,6 @@ def build() -> None:
     _launchers()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_operands(q, k, v) -> None:
     dev = q.device
     if dev.type != "cuda":
@@ -192,22 +186,6 @@ def _check_operands(q, k, v) -> None:
                          f"got q {tuple(q.shape)}")
 
 
-def check_aligned(q, k, v) -> None:
-    """The tensor-core kernels read q, k and v with TMA or 16-byte
-    cp.async: each base address and each stride of a dimension longer
-    than 1 must be a multiple of 16 bytes.  Raises ``ValueError``; the
-    wrapper never copies an operand to make it so."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        nbytes = x.element_size()
-        bad = [i for i in range(3)
-               if x.shape[i] > 1 and (x.stride(i) * nbytes) % 16]
-        if x.data_ptr() % 16 or bad:
-            raise ValueError(
-                f"{name} is misaligned for the tensor-core kernels: base "
-                f"{x.data_ptr():#x}, strides {x.stride()} (base and strides "
-                f"must be multiples of 16 bytes)")
-
-
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
@@ -222,9 +200,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     sk, kh = k.shape[1], k.shape[2]
     dev = q.device
     pl = plan(b, sq, sk, h, kh, d, q.dtype, causal, window,
-              _sm_count(dev.index))
+              sm_count(dev.index))
     if pl.variant != "simt":
-        check_aligned(q, k, v)
+        check_tma_aligned("the tensor-core kernels", q=q, k=k, v=v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     scale = float(scale if scale is not None else d ** -0.5)
     flags = (scale, int(causal), int(window is not None), int(window or 0),

@@ -1,3 +1,4 @@
-"""Chunkwise mLSTM: the hand-written CUDA kernel (``kernel.py``,
-``csrc/mlstm_scan.cu``), its plain PyTorch version (``ref.py``) and the
-device dispatch (``ops.py``)."""
+"""Chunkwise mLSTM: the hand-written CUDA kernels (``kernel.py``,
+``csrc/mlstm_scan.cu`` and ``csrc/mlstm_wgmma.cuh``), its plain PyTorch
+version and the tensor-core kernel's arithmetic in plain PyTorch
+(``ref.py``), and the device dispatch (``ops.py``)."""

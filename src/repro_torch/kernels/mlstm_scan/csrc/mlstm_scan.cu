@@ -2,7 +2,12 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel of the JAX package,
-// src/repro/kernels/mlstm_scan/kernel.py: mlstm_pallas (_kernel).
+// src/repro/kernels/mlstm_scan/kernel.py: mlstm_pallas (_kernel), with two
+// device kernels; kernel.py's plan picks one per call:
+//   - mlstm_wgmma.cuh: bf16 at head dim 512 (xlstm-350m), on the tensor
+//     cores, its own notes there;
+//   - mlstm_kernel below: f32, and bf16 at the other head dims, on the
+//     CUDA cores.  The rest of this note is about it.
 //
 // What it computes, for q, k, v (B,S,H,D) and F = cumsum(log f), log_i
 // (B,S,H) f32 (the wrapper forms F, as the Pallas wrapper does), f32
@@ -43,10 +48,9 @@
 // Bound on this card: operations.  4 flops per valid (query, key, head,
 // dim): 17.2 GFLOP at xlstm-350m's (1, 2048, 4, 512), 0.0174 ms at 989
 // TFLOP/s bf16, against 33.6 MB of q, k, v, out and gates (0.010 ms at
-// 3.35 TB/s).  This first design is simple and right, not fast: the
-// products run on the CUDA cores in f32 (the Pallas kernel's own
-// arithmetic), not on the tensor cores.  wgmma on bf16 tiles is the known
-// next step.
+// 3.35 TB/s).  This kernel is simple and right, not fast: the products
+// run on the CUDA cores in f32 (the Pallas kernel's own arithmetic); the
+// bf16 calls at head dim 512 take the tensor-core kernel.
 //
 // Determinism: every sum has a fixed order (per-lane FMAs in index order,
 // butterfly shuffles), no atomics, so runs repeat bit for bit.
@@ -55,7 +59,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <initializer_list>
+
+#include "mlstm_wgmma.cuh"
 
 namespace {
 
@@ -385,4 +392,55 @@ extern "C" int mlstm_launch(
   if (dtype == 0) return launch_dim<float>(p, head_dim, b, st);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core kernel: bf16 q, k, v at head dim 512 (base and strides
+// 16-byte aligned, which the wrapper checks), keys split into chunks of
+// `chunk_tiles` tiles of 32 (kernel.py's plan).  lf and li are log f and
+// log i (B, S, H) f32 with the strides f_sb, f_ss and a contiguous head
+// axis (the kernel forms F itself); gates is f32 scratch (3, B * H, S
+// rounded up to 64); scale is D^-1/2.  `items`, `split_tiles` and
+// `split_items` are the plan's counts, checked against the kernel's own;
+// with split tiles, ws
+// (split_items * B * H, 64, 512) and ws_den (split_items * B * H, 256, 2)
+// are f32 scratch and done (split_tiles * B * H) int32 scratch.  Two
+// launches on `stream`: the gate planes, then the product.
+extern "C" int mlstm_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* lf,
+    const void* li, void* o, void* gates, void* ws, void* ws_den,
+    void* done, int head_dim, long long b, long long s, long long h,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long f_sb, long long f_ss, float scale,
+    int chunk_tiles, long long items, long long split_tiles,
+    long long split_items, void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0 || s > 64LL * 65535 ||
+      b * h > INT32_MAX || chunk_tiles <= 0 || head_dim != 512 ||
+      gates == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long n_items, n_split_tiles, n_split_items;
+  mlstm_wgmma::count_items(static_cast<int>(s), chunk_tiles, &n_items,
+                           &n_split_tiles, &n_split_items);
+  if (n_items != items || n_split_tiles != split_tiles ||
+      n_split_items != split_items || n_items * b * h > INT32_MAX ||
+      (n_split_tiles > 0 &&
+       (ws == nullptr || ws_den == nullptr || done == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mlstm_wgmma::Params p;
+  p.gates = static_cast<const float*>(gates);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.ws = static_cast<float*>(ws);
+  p.ws_den = static_cast<float*>(ws_den);
+  p.done = static_cast<int*>(done);
+  p.s = static_cast<int>(s);
+  p.h = static_cast<int>(h);
+  p.bh = static_cast<int>(b * h);
+  p.sp = static_cast<int>((s + 63) / 64 * 64);
+  p.chunk_tiles = chunk_tiles;
+  return mlstm_wgmma::launch<512>(
+      q, k, v, static_cast<const float*>(lf), static_cast<const float*>(li),
+      f_sb, f_ss, std::log2(scale), static_cast<float*>(gates), p, b, q_sb,
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, n_items,
+      static_cast<int>(n_split_tiles * b * h),
+      static_cast<cudaStream_t>(stream));
 }

@@ -73,3 +73,69 @@ def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024):
         normalizer = torch.maximum(den.abs(), torch.exp(-m))
         outs.append((num / normalizer[..., None]).to(q.dtype))
     return torch.cat(outs, dim=1)[:, :s]
+
+
+def mlstm_split_ref(q, k, v, log_i, log_f, *, chunk: int,
+                    rows: int = 64, slice_k: int = 128):
+    """The tensor-core kernel's arithmetic (``csrc/mlstm_wgmma.cuh``) in
+    plain PyTorch, for query tiles of ``rows`` rows whose keys ``[0,
+    min(rows * (i + 1), S))`` are cut into splits of ``chunk`` keys:
+
+    - the row max from prefix scans of the gates alone: ``m_t = max(F_t +
+      M_t, 0.1 * NEG)``, ``M_t = max_{s<=t} (i_s - F_s)``;
+    - the weight with the scale folded in, ``2^(c_t + g_s)``, ``c_t =
+      log2(D^-1/2) - M_t log2(e)``, ``g_s = (i_s - F_s) log2(e)``, 0 above
+      the diagonal;
+    - S in f32 chains of ``slice_k`` head dims, each half of the head dim
+      summing its chains in order, then the halves added;
+    - ``a = 2^(c_t + g_s) S``; a.v with a as two bf16 terms (its rounding
+      and the rounding of the rest), as the kernel feeds the tensor cores;
+      den the f32 sum of a;
+    - each split's (num, den) over its keys, added in split order;
+    - ``num / max(|den|, exp(-m))`` in q's dtype.
+
+    q, k, v (B,S,H,D) (the kernel's are bf16; f32 operands holding bf16
+    values give its arithmetic before the output's rounding); log_i/log_f
+    (B,S,H) f32 -> (B,S,H,D) in q's dtype."""
+    b, s, h, d = q.shape
+    log2e = 1.0 / math.log(2.0)
+    fcum = torch.cumsum(log_f, dim=1)                       # (B,S,H)
+    dif = log_i - fcum
+    big_m = torch.cummax(dif, dim=1).values
+    m = torch.clamp(fcum + big_m, min=0.1 * NEG)
+    g = dif * log2e
+    c = math.log2(d ** -0.5) - big_m * log2e
+    pos = torch.arange(s, device=q.device)
+    causal = pos[None, :] <= pos[:, None]                   # (t, s)
+    w = torch.where(causal[None, :, :, None],
+                    torch.exp2(c[:, :, None, :] + g[:, None, :, :]), 0.0)
+    half = d // 2
+    step = min(slice_k, half)
+    qf, kf = q.float(), k.float()
+    halves = []
+    for h0 in (0, half):
+        part = None
+        for c0 in range(h0, h0 + half, step):
+            chain = torch.einsum("bthd,bshd->btsh", qf[..., c0:c0 + step],
+                                 kf[..., c0:c0 + step])
+            part = chain if part is None else part + chain
+        halves.append(part)
+    a = w * (halves[0] + halves[1])                          # (B,t,s,H)
+    big = a.to(torch.bfloat16).float()
+    small = (a - big).to(torch.bfloat16).float()
+    vf = v.float()
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    for r0 in range(0, s, rows):
+        r1 = min(r0 + rows, s)
+        num = den = None
+        for lo in range(0, r1, chunk):
+            hi = min(lo + chunk, r1)
+            sl = (slice(None), slice(r0, r1), slice(lo, hi))
+            n = torch.einsum("btsh,bshd->bthd", big[sl], vf[:, lo:hi]) + \
+                torch.einsum("btsh,bshd->bthd", small[sl], vf[:, lo:hi])
+            dn = a[sl].sum(dim=2)
+            num = n if num is None else num + n
+            den = dn if den is None else den + dn
+        norm = torch.maximum(den.abs(), torch.exp(-m[:, r0:r1]))
+        out[:, r0:r1] = (num / norm[..., None]).to(q.dtype)
+    return out

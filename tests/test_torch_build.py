@@ -5,6 +5,7 @@ build of the source can read: the ``.cu`` itself, the other files of its
 ``csrc/`` directory and the shared header directory (``INCLUDE_DIRS``).
 Editing only a header must therefore give another library path, or the
 card would keep running a stale library."""
+import sys
 from pathlib import Path
 
 import pytest
@@ -58,3 +59,28 @@ def test_the_shared_header_directory_is_the_packages():
     (common,) = kernels.INCLUDE_DIRS
     assert common == Path(kernels.__file__).resolve().parent / "common"
     assert (common / "hopper.cuh").is_file()
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN11mlstm_wgmma18mlstm_wgmma_kernelILi512EEEv14CUtensorMap_stS1_S1_"
+     "NS_6ParamsE", "mlstm_wgmma_kernel<512>"),
+    ("_ZN11mlstm_wgmma18mlstm_gates_kernelEPKfS1_xxiiiifPfPii",
+     "mlstm_gates_kernel"),
+    ("_ZN46_GLOBAL__N__cdd7eb3f_13_mlstm_scan_cu_71d1d95612mlstm_kernelI13"
+     "__nv_bfloat16Li512EEEvNS_6ParamsE", "mlstm_kernel<bf16,512>"),
+    ("_ZN46_GLOBAL__N__cdd7eb3f_13_mlstm_scan_cu_71d1d95612mlstm_kernelIfLi64"
+     "EEEvNS_6ParamsE", "mlstm_kernel<f32,64>"),
+    ("_ZN8fa_wgmma18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_NS_6"
+     "ParamsE", "flash_wgmma_kernel<128>"),
+    ("_ZN12_GLOBAL__N_125event_filter_batch_kernelILi16EEEvPKfS2_PKiS2_S4_"
+     "PfS5_lllii", "event_filter_batch_kernel<16>"),
+])
+def test_ptxas_report_names_each_kernel_instance(mangled, name):
+    """chip_smoke.py reads registers and spills per kernel instance from
+    ptxas's report and fails a run whose tensor-core instances spill: the
+    instance must be named by its template arguments."""
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    assert chip_smoke.kernel_name(mangled) == name

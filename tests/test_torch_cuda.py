@@ -70,7 +70,11 @@ def _band(tr, nt, th, calib):
 @pytest.mark.parametrize("cap", [False, True])
 @pytest.mark.parametrize("calib", [0, 4])
 @pytest.mark.parametrize("n,t,v,k", [(64, 4096, 63, 17), (37, 1000, 63, 4),
-                                     (300, 70, 5, 1), (1, 1, 1, 3)])
+                                     (300, 70, 5, 1), (1, 1, 1, 3),
+                                     # T past one round of 8 or 16 loads a
+                                     # thread, and no multiple of either
+                                     (16, 4097, 7, 17), (8, 8193, 3, 6),
+                                     (5, 9000, 2, 17)])
 def test_batch_kernel_matches_plain_version(cuda, n, t, v, k, calib, cap):
     sc, tr, nt, th, vi = _operands(cuda, n, t, v, k, cap, seed=n + k + calib)
     before = ef_kernel.LAUNCHES["event_filter_batch"]
@@ -108,6 +112,36 @@ def test_single_kernel_matches_plain_version(cuda, calib):
     assert torch.equal(var, want_var)
     diff = mask != want
     if calib:
+        diff &= ~_band(tr, nt, th, calib)
+    assert not bool(diff.any())
+
+
+@pytest.mark.parametrize("cap", [False, True])
+@pytest.mark.parametrize("calib", [0, 4])
+@pytest.mark.parametrize("n,t,v", [(256, 4096, 63), (9, 2049, 5),
+                                   (3, 4097, 2)])
+def test_single_kernel_edge_cases_repeat_their_bits(cuda, n, t, v, calib,
+                                                    cap):
+    """B2, the K = 1 form: n_tracks 0 and past T (``_operands``), T no
+    multiple of the load batch, with and without a cap; two launches give
+    the same bits."""
+    sc, tr, nt, th, vi = _operands(cuda, n, t, v, 1, cap, seed=n + t + calib)
+    nt[0], nt[-1] = 0, t + 2
+    mask, var = ef_kernel.event_filter_cuda(sc, tr, nt, th[:, 0].contiguous(),
+                                            vi, calib_iters=calib)
+    again, var2 = ef_kernel.event_filter_cuda(sc, tr, nt,
+                                              th[:, 0].contiguous(), vi,
+                                              calib_iters=calib)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, again) and torch.equal(var, var2)
+    a, b, c, d = th[:, 0].tolist()
+    want, want_var = event_filter_ref(sc, tr, nt, var_idx=int(vi[0]),
+                                      scalar_thresh=a, pt_thresh=b,
+                                      min_count=c, sum_cap=d,
+                                      calib_iters=calib)
+    assert torch.equal(var, want_var)
+    diff = mask != want
+    if calib or cap:
         diff &= ~_band(tr, nt, th, calib)
     assert not bool(diff.any())
 
@@ -406,11 +440,11 @@ def test_rglru_scan_wrapper_checks_its_operands(cuda):
 
 
 # ------------------------------ mLSTM ------------------------------------ #
-def _mlstm_inputs(dev, b, s, h, d, dtype, seed):
+def _mlstm_inputs(dev, b, s, h, d, dtype, seed, i_shift=0.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
                for _ in range(3))
-    log_i = torch.randn((b, s, h), generator=g, device=dev)
+    log_i = torch.randn((b, s, h), generator=g, device=dev) + i_shift
     log_f = -torch.randn((b, s, h), generator=g, device=dev).abs() * 0.5
     return q, k, v, log_i, log_f
 
@@ -439,6 +473,59 @@ def test_mlstm_kernel_matches_plain_version(cuda, b, s, h, d, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 5e-4
     torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
     assert torch.equal(ml_ops.mlstm(*ops), out)
+
+
+# the tensor-core kernel (bf16, head dim 512) off xlstm-350m's shape: a
+# ragged S, S under one 64-row tile, two batch rows, and input gates low
+# enough that exp(-m) wins the normaliser
+@pytest.mark.parametrize("b,s,h,i_shift", [(1, 300, 4, 0.0), (1, 37, 4, 0.0),
+                                           (2, 512, 4, 0.0),
+                                           (1, 300, 4, -3.0),
+                                           # one tile exactly, one row past
+                                           # it, a long call of no split
+                                           (1, 64, 1, 0.0), (3, 65, 2, 0.0),
+                                           (1, 4096, 4, 0.0)])
+def test_mlstm_tensor_core_kernel_matches_plain_version(cuda, b, s, h,
+                                                        i_shift):
+    """Against the plain version in f32 on the same values within 2e-2
+    (chip_smoke.py's MLSTM_TOL for a bf16 output); one call a launch on
+    the tensor-core kernel; two launches give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _mlstm_inputs(cuda, b, s, h, 512, torch.bfloat16, seed=s + b,
+                        i_shift=i_shift)
+    before = dict(ml_kernel.VARIANT_CALLS)
+    out = ml_ops.mlstm(*ops)
+    torch.cuda.synchronize()
+    assert ml_kernel.plan(b, s, h, 512, torch.bfloat16).variant == "wgmma"
+    assert ml_kernel.VARIANT_CALLS["wgmma"] == before["wgmma"] + 1
+    q, k, v, log_i, log_f = ops
+    want = mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f)
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    assert torch.equal(ml_ops.mlstm(*ops), out)
+
+
+def test_mlstm_tensor_core_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one (B, S, 3, H, 512) bf16 projection."""
+    qkv = torch.randn((2, 200, 3, 4, 512), device=cuda).bfloat16()
+    q, k, v = qkv.unbind(2)
+    _, _, _, log_i, log_f = _mlstm_inputs(cuda, 2, 200, 4, 512,
+                                          torch.bfloat16, seed=5)
+    out = ml_kernel.mlstm_cuda(q, k, v, log_i, log_f)
+    want = mlstm_ref(q.float(), k.float(), v.float(), log_i, log_f)
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    assert torch.equal(ml_kernel.mlstm_cuda(q, k, v, log_i, log_f), out)
+
+
+def test_mlstm_tensor_core_wrapper_refuses_misaligned_operands(cuda):
+    """TMA needs 16-byte aligned bases and strides: the wrapper raises
+    rather than copying."""
+    big = torch.randn((1, 64, 4, 520), device=cuda).bfloat16()
+    q = big[..., 1:513]                     # base 2 bytes off
+    k = v = big[..., 8:520]
+    _, _, _, log_i, log_f = _mlstm_inputs(cuda, 1, 64, 4, 512,
+                                          torch.bfloat16, seed=6)
+    with pytest.raises(ValueError, match="misaligned"):
+        ml_kernel.mlstm_cuda(q, k, v, log_i, log_f)
 
 
 def test_mlstm_kernel_reads_strided_views(cuda):

@@ -13,7 +13,16 @@ PyTorch sum in other orders: 2e-2, as the bf16 attention tests.  The
 blocks take parameters carried across from the reference's reduced
 xlstm-350m and hold 1e-4 (float32).  Chunkwise against recurrent decode
 inside the port holds 2e-3, as the reference's own test of the two
-formulations."""
+formulations.
+
+The tensor-core kernel's plan is plain Python and is tested here; its
+arithmetic (``ref.mlstm_split_ref``: m from the gates, S in f32 chains of
+128 head dims, ``a`` as two bf16 terms, splits added in order) is held
+against the Pallas kernel and, at one full-width head, against the plain
+version in f32 within the tolerance ``chip_smoke.py`` holds the kernel to
+(MLSTM_TOL, 2e-2 for a bf16 output)."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +39,7 @@ from repro.parallel.sharding import Sharder
 from repro_torch.configs.registry import reduced_config
 from repro_torch.kernels.mlstm_scan import kernel as mlstm_kernel
 from repro_torch.kernels.mlstm_scan.ops import mlstm
-from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+from repro_torch.kernels.mlstm_scan.ref import mlstm_ref, mlstm_split_ref
 from repro_torch.models import xlstm
 
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -109,6 +118,110 @@ def test_ops_validates_its_operands_on_the_cpu(bad):
     with pytest.raises(ValueError):
         mlstm(q, k, v, li, lf)
     assert mlstm_kernel.LAUNCHES["mlstm"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the tensor-core kernel's plan and arithmetic
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 512])
+def test_plan_picks_the_tensor_core_kernel_for_bf16_at_head_dim_512(d,
+                                                                    dtype):
+    pl = mlstm_kernel.plan(1, 300, 4, d, dtype)
+    want = "wgmma" if dtype == torch.bfloat16 and d == 512 else "simt"
+    assert pl.variant == want
+    assert pl.rows == (64 if want == "wgmma" else 32)
+    if want == "simt":      # one block sees all of a query tile's keys
+        assert all(len(pl.splits(i)) == 1 for i in range(pl.query_tiles))
+
+
+@pytest.mark.parametrize("s", [1, 31, 37, 64, 65, 100, 300, 512, 1000,
+                               2048, 4096])
+@pytest.mark.parametrize("b,h", [(1, 4), (2, 4), (1, 1), (8, 16)])
+def test_plan_splits_cover_each_query_tiles_keys_once_in_order(s, b, h):
+    pl = mlstm_kernel.plan(b, s, h, 512, torch.bfloat16)
+    assert pl.chunk % mlstm_kernel.KEY_TILE == 0
+    assert pl.chunk >= mlstm_kernel.MIN_SPLIT_TILES * mlstm_kernel.KEY_TILE
+    assert pl.query_tiles == math.ceil(s / 64)
+    for i in range(pl.query_tiles):
+        sp = pl.splits(i)
+        hi = min(64 * (i + 1), s)
+        # contiguous, in key order, from 0 to the tile's last row: each key
+        # once, none above the diagonal
+        assert sp[0][0] == 0 and sp[-1][1] == hi
+        assert all(a[1] == b_[0] for a, b_ in zip(sp, sp[1:]))
+        assert all(lo < hi_ and hi_ - lo <= pl.chunk for lo, hi_ in sp)
+        assert all(lo % mlstm_kernel.KEY_TILE == 0 for lo, _ in sp)
+    # the last query tile's splits cover [0, S) once
+    assert pl.splits(pl.query_tiles - 1)[-1][1] == s
+    # the kernel's block order: query tiles from the last down, splits in
+    # order; the tiles of several splits come first
+    items = pl.items
+    tiles = [i for i, _, _ in items]
+    assert tiles == sorted(tiles, reverse=True)
+    assert len(items) == sum(len(pl.splits(i))
+                             for i in range(pl.query_tiles))
+    split = [len(pl.splits(i)) > 1 for i, _, _ in items]
+    assert split == sorted(split, reverse=True)
+    assert pl.split_items == sum(split)
+    assert pl.split_tiles == sum(len(pl.splits(i)) > 1
+                                 for i in range(pl.query_tiles))
+
+
+def test_plan_balances_the_xlstm_forward_over_the_card():
+    """(1, 2048, 4, 512): 4224 (query tile, key tile) pairs over 132 SMs
+    give splits of 32 key tiles, so the 16 longest query tiles of a head
+    run as two blocks and no block has more than 32 key tiles."""
+    pl = mlstm_kernel.plan(1, 2048, 4, 512, torch.bfloat16)
+    assert (pl.variant, pl.chunk) == ("wgmma", 1024)
+    assert (len(pl.items), pl.split_tiles, pl.split_items) == (48, 16, 32)
+    assert max(hi - lo for _, lo, hi in pl.items) == 1024
+    # fewer SMs, longer splits
+    assert mlstm_kernel.plan(1, 2048, 4, 512, torch.bfloat16,
+                             sms=66).chunk == 2048
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 4096])
+@pytest.mark.parametrize("b,s,h,d,bq,bk", [
+    (1, 64, 2, 16, 16, 16),
+    (2, 96, 4, 32, 32, 16),
+    (1, 128, 1, 64, 64, 64),
+])
+def test_split_arithmetic_matches_the_pallas_kernel(b, s, h, d, bq, bk,
+                                                    chunk):
+    """The tensor-core kernel's arithmetic on values a bf16 tensor holds,
+    with its outputs in f32, against the Pallas kernel on the same values
+    (interpreted): the tolerance of the f32 comparisons above."""
+    arrays = list(_inputs(7 * s + d, b, s, h, d))
+    for i in range(3):
+        arrays[i] = torch.from_numpy(arrays[i]).bfloat16().float().numpy()
+    want = mlstm_pallas(*(jnp.asarray(a) for a in arrays), block_q=bq,
+                        block_k=bk, interpret=True)
+    got = mlstm_split_ref(*(torch.from_numpy(a) for a in arrays),
+                          chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_split_arithmetic_holds_the_plain_version_at_a_full_width_head():
+    """(1, 512, 1, 512) bf16 on the plan's splits (four splits of 128 keys
+    for the last query tile): within 2e-2 + 2e-2 |plain| of the plain
+    version in f32 at every element, as ``chip_smoke.py`` holds the
+    kernel (MLSTM_TOL).  The plain version in bf16, which rounds ``a`` to
+    one bf16 term, is not: its ``a.v`` is off by up to 2^-9 |a| |v|, and
+    den cancels."""
+    b, s, h, d = 1, 512, 1, 512
+    q, k, v, li, lf = (torch.from_numpy(a) for a in _inputs(21, b, s, h, d))
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    pl = mlstm_kernel.plan(b, s, h, d, torch.bfloat16)
+    assert pl.variant == "wgmma" and len(pl.splits(pl.query_tiles - 1)) == 4
+    got = mlstm_split_ref(q, k, v, li, lf, chunk=pl.chunk, rows=pl.rows)
+    assert got.dtype == torch.bfloat16
+    want = mlstm_ref(q.float(), k.float(), v.float(), li, lf)
+    bound = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()
+    assert int(((got.float() - want).abs() > bound).sum()) == 0
+    one_term = mlstm_ref(q, k, v, li, lf).float()
+    assert int(((one_term - want).abs() > bound).sum()) > 0
 
 
 # --------------------------------------------------------------------------- #
