@@ -33,11 +33,12 @@
 // brick would cut that by 8).
 //
 // Design for latency: one block of 512 threads per event.  Each thread
-// issues all its loads of pt for up to kPer tracks (tid, tid + 512, ...;
-// 8, or 16 when T passes 4096) before it uses any of them, so an event
-// costs one round trip to device memory, not one per block-wide row of
-// tracks; the loads of the query operands of the final compare
-// (thresholds, var_idx, the selected scalar) are issued at the start too.
+// issues all its loads of pt for up to kPer = 8 tracks (tid, tid + 512,
+// ...) before it uses any of them, so an event of up to 4096 tracks (the
+// store's width) costs one round trip to device memory, not one per
+// block-wide row of tracks, and a longer one a round trip per 4096; the
+// loads of the query operands of the final compare (thresholds, var_idx,
+// the selected scalar) are issued at the start too.
 // Each pt is a 128-byte line of its own to the SM's L1, which takes lines
 // one at a time: 512 threads (more warps with lines in flight) beat 256,
 // and the loads allocate no line in L1.  Calibration, the sum and the K
@@ -63,6 +64,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 8;  // tracks a thread loads before it uses any
 
 // a read-only load that leaves no line in L1: no pt is read twice, and
 // the SM's L1 takes each pt's line on its own
@@ -96,8 +98,6 @@ __device__ __forceinline__ bool scalar_pass(const float* sc,
   return vi >= 0 && vi < n_scalars && sc[vi] > thresholds[j];
 }
 
-// kPer: tracks a thread loads before it uses any
-template <int kPer>
 __global__ void __launch_bounds__(kThreads)
 event_filter_batch_kernel(const float* __restrict__ scalars,
                           const float* __restrict__ tracks,
@@ -203,11 +203,8 @@ extern "C" int event_filter_batch_launch(
     long long n, long long n_scalars, long long max_tracks,
     long long track_vars, int k, int calib_iters, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
-  // 8 tracks a thread cover T <= 4096 in one round; longer events take 16
-  auto* kernel = max_tracks <= 8 * kThreads ? event_filter_batch_kernel<8>
-                                            : event_filter_batch_kernel<16>;
-  kernel<<<static_cast<unsigned>(n), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  event_filter_batch_kernel<<<static_cast<unsigned>(n), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scalars), static_cast<const float*>(tracks),
       static_cast<const int32_t*>(n_tracks),
       static_cast<const float*>(thresholds),

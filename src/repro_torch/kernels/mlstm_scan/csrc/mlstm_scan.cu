@@ -50,7 +50,8 @@
 // TFLOP/s bf16, against 33.6 MB of q, k, v, out and gates (0.010 ms at
 // 3.35 TB/s).  This kernel is simple and right, not fast: the products
 // run on the CUDA cores in f32 (the Pallas kernel's own arithmetic); the
-// bf16 calls at head dim 512 take the tensor-core kernel.
+// bf16 calls at head dim 512 take the tensor-core kernel, so bf16 has no
+// instance of this kernel at 512.
 //
 // Determinism: every sum has a fixed order (per-lane FMAs in index order,
 // butterfly shuffles), no atomics, so runs repeat bit for bit.
@@ -61,6 +62,7 @@
 
 #include <cmath>
 #include <initializer_list>
+#include <type_traits>
 
 #include "mlstm_wgmma.cuh"
 
@@ -355,7 +357,11 @@ int launch_dim(const Params& p, int head_dim, long long b,
     case 16: return launch<T, 16>(p, b, stream);
     case 32: return launch<T, 32>(p, b, stream);
     case 64: return launch<T, 64>(p, b, stream);
-    case 512: return launch<T, 512>(p, b, stream);
+    case 512:
+      // bf16 at 512 is the tensor-core kernel's (kernel.py's plan)
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 512>(p, b, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -399,12 +405,12 @@ extern "C" int mlstm_launch(
 // `chunk_tiles` tiles of 32 (kernel.py's plan).  lf and li are log f and
 // log i (B, S, H) f32 with the strides f_sb, f_ss and a contiguous head
 // axis (the kernel forms F itself); gates is f32 scratch (3, B * H, S
-// rounded up to 64); scale is D^-1/2.  `items`, `split_tiles` and
-// `split_items` are the plan's counts, checked against the kernel's own;
-// with split tiles, ws
-// (split_items * B * H, 64, 512) and ws_den (split_items * B * H, 256, 2)
-// are f32 scratch and done (split_tiles * B * H) int32 scratch.  Two
-// launches on `stream`: the gate planes, then the product.
+// rounded up to 64); scale is D^-1/2.  `items` (the blocks per (b, h))
+// and `split_tiles` are the plan's counts, which size the grid and the
+// split counters; with split tiles, ws (split_items * B * H, 64, 512) and
+// ws_den (split_items * B * H, 256, 2) are f32 scratch and done
+// (split_tiles * B * H) int32 scratch, sized by the plan.  Two launches on
+// `stream`: the gate planes, then the product.
 extern "C" int mlstm_wgmma_launch(
     const void* q, const void* k, const void* v, const void* lf,
     const void* li, void* o, void* gates, void* ws, void* ws_den,
@@ -412,18 +418,13 @@ extern "C" int mlstm_wgmma_launch(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long f_sb, long long f_ss, float scale,
-    int chunk_tiles, long long items, long long split_tiles,
-    long long split_items, void* stream) {
+    int chunk_tiles, long long items, long long split_tiles, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0 || s > 64LL * 65535 ||
       b * h > INT32_MAX || chunk_tiles <= 0 || head_dim != 512 ||
       gates == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  long long n_items, n_split_tiles, n_split_items;
-  mlstm_wgmma::count_items(static_cast<int>(s), chunk_tiles, &n_items,
-                           &n_split_tiles, &n_split_items);
-  if (n_items != items || n_split_tiles != split_tiles ||
-      n_split_items != split_items || n_items * b * h > INT32_MAX ||
-      (n_split_tiles > 0 &&
+  if (items <= 0 || split_tiles < 0 || items * b * h > INT32_MAX ||
+      (split_tiles > 0 &&
        (ws == nullptr || ws_den == nullptr || done == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   mlstm_wgmma::Params p;
@@ -440,7 +441,7 @@ extern "C" int mlstm_wgmma_launch(
   return mlstm_wgmma::launch<512>(
       q, k, v, static_cast<const float*>(lf), static_cast<const float*>(li),
       f_sb, f_ss, std::log2(scale), static_cast<float*>(gates), p, b, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, n_items,
-      static_cast<int>(n_split_tiles * b * h),
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, items,
+      static_cast<int>(split_tiles * b * h),
       static_cast<cudaStream_t>(stream));
 }

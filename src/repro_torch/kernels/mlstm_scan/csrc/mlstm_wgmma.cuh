@@ -503,21 +503,6 @@ mlstm_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Work items per (b, h) of a call: every query tile's splits, and those of
-// the query tiles split more than once (the last ones, which come first).
-inline void count_items(int s, int chunk, long long* items,
-                        long long* split_tiles, long long* split_items) {
-  *items = *split_tiles = *split_items = 0;
-  for (int qt = (s + 63) / 64 - 1; qt >= 0; --qt) {
-    const int ns = n_splits(qt, s, chunk);
-    *items += ns;
-    if (ns > 1) {
-      ++*split_tiles;
-      *split_items += ns;
-    }
-  }
-}
-
 // Encodes the three tensor maps on the host (they travel by value as
 // __grid_constant__ parameters, so the launch can be captured into a CUDA
 // graph) and launches.  Returns 0, a cudaError_t, or a hopper:: status

@@ -146,7 +146,7 @@ def _launchers():
     simt = lib.mlstm_launch
     simt.argtypes = [p, p, p, p, p, p, i, i] + [ll] * 14 + [f, p]
     wgmma = lib.mlstm_wgmma_launch
-    wgmma.argtypes = [p] * 10 + [i] + [ll] * 14 + [f, i, ll, ll, ll, p]
+    wgmma.argtypes = [p] * 10 + [i] + [ll] * 14 + [f, i, ll, ll, p]
     for fn in (simt, wgmma):
         fn.restype = ctypes.c_int
     return {"simt": simt, "wgmma": wgmma}
@@ -237,8 +237,7 @@ def mlstm_cuda(q, k, v, log_i, log_f):
                           for x in (ws, ws_den, done)),
                         d, b, s, h, *strides, lf.stride(0), lf.stride(1),
                         float(d ** -0.5), pl.chunk // KEY_TILE,
-                        len(pl.items), pl.split_tiles, pl.split_items,
-                        stream)
+                        len(pl.items), pl.split_tiles, stream)
     if rc != 0:
         what = (f"TMA descriptor encoding failed (code {rc})" if rc < 0
                 else f"CUDA error {rc}")

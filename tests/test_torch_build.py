@@ -67,13 +67,13 @@ def test_the_shared_header_directory_is_the_packages():
     ("_ZN11mlstm_wgmma18mlstm_gates_kernelEPKfS1_xxiiiifPfPii",
      "mlstm_gates_kernel"),
     ("_ZN46_GLOBAL__N__cdd7eb3f_13_mlstm_scan_cu_71d1d95612mlstm_kernelI13"
-     "__nv_bfloat16Li512EEEvNS_6ParamsE", "mlstm_kernel<bf16,512>"),
+     "__nv_bfloat16Li64EEEvNS_6ParamsE", "mlstm_kernel<bf16,64>"),
     ("_ZN46_GLOBAL__N__cdd7eb3f_13_mlstm_scan_cu_71d1d95612mlstm_kernelIfLi64"
      "EEEvNS_6ParamsE", "mlstm_kernel<f32,64>"),
     ("_ZN8fa_wgmma18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_NS_6"
      "ParamsE", "flash_wgmma_kernel<128>"),
-    ("_ZN12_GLOBAL__N_125event_filter_batch_kernelILi16EEEvPKfS2_PKiS2_S4_"
-     "PfS5_lllii", "event_filter_batch_kernel<16>"),
+    ("_ZN12_GLOBAL__N_125event_filter_batch_kernelEPKfS1_PKiS1_S3_PfS4_"
+     "lllii", "event_filter_batch_kernel"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from

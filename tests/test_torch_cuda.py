@@ -71,8 +71,9 @@ def _band(tr, nt, th, calib):
 @pytest.mark.parametrize("calib", [0, 4])
 @pytest.mark.parametrize("n,t,v,k", [(64, 4096, 63, 17), (37, 1000, 63, 4),
                                      (300, 70, 5, 1), (1, 1, 1, 3),
-                                     # T past one round of 8 or 16 loads a
-                                     # thread, and no multiple of either
+                                     # T past one or two rounds of 4096
+                                     # tracks (8 loads a thread), and no
+                                     # multiple of a round
                                      (16, 4097, 7, 17), (8, 8193, 3, 6),
                                      (5, 9000, 2, 17)])
 def test_batch_kernel_matches_plain_version(cuda, n, t, v, k, calib, cap):
