@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
 1. device  — torch's device name, nvidia-smi's name and power limit;
 2. build   — nvcc builds the four CUDA sources, one nvcc each, started
    together; ptxas's registers and spills for every kernel instance (an
-   instance of flash_attention or mlstm, whose tensor-core kernels hold
-   their state in registers, that spills fails the run);
+   instance of flash_attention, mlstm or rglru_scan that spills fails the
+   run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -28,7 +28,13 @@ Phases, each printing one JSON line:
    atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with TF32 off (FA_TOL);
    bf16 cases also against the plain version in f32 on the same values.
    Each row names the device kernel the wrapper's plan chose.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
-   with and without h0 and a ragged (3, 100, 48), within 1e-5 (SCAN_TOL);
+   with and without h0, a ragged (3, 100, 48), S under one chunk (2, 8,
+   4096), W no multiple of 4 (2, 77, 50, the cp.async load path) and 141
+   chunks (1, 9000, 128),
+   within 1e-5 (SCAN_TOL) of the plain version and equal bit for bit to
+   the chunked kernel's order of operations in plain PyTorch
+   (rglru_scan_chunked_ref at the plan's chunk), each row with its plan
+   (chunk, tile, blocks, load path);
    mlstm at xlstm-350m's (1, 2048, 4, 512) in bf16 (the tensor-core
    kernel) and f32, small f32 cases whose S is no multiple of the tile,
    and the tensor-core kernel off the model's shape (S 300 and 37, two
@@ -592,9 +598,12 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None):
 # RG-LRU scan and mLSTM
 # --------------------------------------------------------------------- #
 # (B, S, W, with h0): recurrentgemma-9b's forward shape with and without
-# a carried state, and a ragged case
+# a carried state, a ragged case, S under one chunk, W no multiple of 4
+# (the kernel's cp.async load path), and more than 16 groups of chunks
+# (the carry reads group aggregates in two batches)
 SCAN_CASES = [(1, 4096, 4096, False), (1, 4096, 4096, True),
-              (3, 100, 48, True)]
+              (3, 100, 48, True), (2, 8, 4096, True), (2, 77, 50, True),
+              (1, 9000, 128, True)]
 # (B, S, H, D, dtype, flags): xlstm-350m's forward shape, then small cases
 # whose S is no multiple of the 32-row tile, then the tensor-core kernel
 # (bf16, D 512) off the model's shape: a ragged S, S under one 64-row
@@ -679,24 +688,38 @@ def mlstm_plain_f32(q, k, v, log_i, log_f):
 
 def phase_scan_kernels(gen):
     """rglru_scan and mlstm against their plain versions; two launches of
-    each case must give the same bits."""
+    each case must give the same bits, and rglru_scan must equal its
+    order of operations in plain PyTorch (rglru_scan_chunked_ref) bit for
+    bit."""
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_chunked_ref,
+                                                    rglru_scan_ref)
     rows = []
     for b, s, w, with_h0 in SCAN_CASES:
         a, x, h0 = scan_operands(gen, b, s, w, with_h0)
+        pl = rg_kernel.plan(b, s, w)
         out, last = rg_kernel.rglru_scan_cuda(a, x, h0)
         again, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
         torch.cuda.synchronize()
+        name = f"rglru_scan {(b, s, w)}"
         if not torch.equal(out, again):
-            raise AssertionError(f"rglru_scan {(b, s, w)}: two runs differ")
+            raise AssertionError(f"{name}: two runs differ")
+        emul, emul_last = rglru_scan_chunked_ref(a, x, h0, pl.chunk)
+        if not (torch.equal(out, emul) and torch.equal(last, emul_last)):
+            raise AssertionError(
+                f"{name}: not bit-equal to rglru_scan_chunked_ref at chunk "
+                f"{pl.chunk}: {int((out != emul).sum())} elements differ, "
+                f"max {float((out - emul).abs().max())}")
         want, want_last = rglru_scan_ref(a, x, h0)
-        err = close_check(out, want, *SCAN_TOL, f"rglru_scan {(b, s, w)}")
+        err = close_check(out, want, *SCAN_TOL, name)
         close_check(last, want_last, *SCAN_TOL, "rglru_scan h_last")
         rows.append({"kernel": "rglru_scan", "shape": [b, s, w],
-                     "h0": with_h0, "max_abs_err": err})
+                     "h0": with_h0, "chunk": pl.chunk,
+                     "tile": rg_kernel.TILE, "blocks": pl.blocks,
+                     "load": pl.load, "bit_equal_chunked_ref": True,
+                     "max_abs_err": err})
     for b, s, h, d, dtype, kw in MLSTM_CASES:
         ops = mlstm_operands(gen, b, s, h, d, dtype, **kw)
         pl = ml_kernel.plan(b, s, h, d, dtype)
@@ -765,8 +788,11 @@ def time_scan(gen, b, s, w):
     for kc, pc in zip(kern[:2], plain[:2]):
         err = max(err, close_check(kc()[0], pc()[0], *SCAN_TOL, "timing"))
     bound, by = scan_bound_ms(b, s, w)
-    return {**time_pair(kern, plain), "library_ms": None,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    pl = rg_kernel.plan(b, s, w)
+    return with_share({"chunk": pl.chunk, "blocks": pl.blocks,
+                       "load": pl.load, **time_pair(kern, plain),
+                       "library_ms": None, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err})
 
 
 def time_mlstm(gen, b, s, h, d):
@@ -1586,16 +1612,19 @@ def build_all():
     ptxas = {m.SOURCE.name: ptxas_report(m.SOURCE) for m in modules}
     emit({"phase": "build", "sources": [m.SOURCE.name for m in modules],
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
-    # the tensor-core kernels hold their state in registers by design: a
-    # spill is a fault of the build, not a slowdown to report
-    spilled = [row for m in (fa_kernel, ml_kernel)
+    # the tensor-core kernels hold their state in registers by design, and
+    # the chunked scan holds a few floats a thread: a spill is a fault of
+    # the build, not a slowdown to report
+    spilled = [row for m in (fa_kernel, ml_kernel, rg_kernel)
                for row in ptxas[m.SOURCE.name]
                if row.get("spill_stores") or row.get("spill_loads")]
     if spilled:
-        raise AssertionError(f"tensor-core kernel instances spill: {spilled}")
-    if not any(row["kernel"].startswith("mlstm_wgmma_kernel")
-               for row in ptxas[ml_kernel.SOURCE.name]):
-        raise AssertionError("no mlstm_wgmma_kernel in the ptxas report")
+        raise AssertionError(f"kernel instances spill: {spilled}")
+    for m, name in ((ml_kernel, "mlstm_wgmma_kernel"),
+                    (rg_kernel, "rglru_chunked_kernel")):
+        if not any(row["kernel"].startswith(name)
+                   for row in ptxas[m.SOURCE.name]):
+            raise AssertionError(f"no {name} in the ptxas report")
 
 
 def release():

@@ -92,6 +92,24 @@ def check_tma_aligned(what: str, **tensors) -> None:
                 f"of 16 bytes)")
 
 
+def refuse_autograd(kernel: str, *operands) -> None:
+    """Raises ``RuntimeError`` when grad mode is on and a CUDA operand
+    requires grad.  The CUDA kernels write their outputs through ctypes,
+    so an output would carry no ``grad_fn`` and every gradient upstream of
+    the call would be lost without a word; their backward kernels come
+    with the training stack (ROADMAP.md, queue A, item 10).  Under
+    ``torch.no_grad()`` or ``torch.inference_mode()`` the kernel runs.
+    Not called for CPU operands: the plain versions are differentiable."""
+    if not torch.is_grad_enabled():
+        return
+    if any(x is not None and x.requires_grad for x in operands):
+        raise RuntimeError(
+            f"the {kernel} CUDA kernel has no backward yet (it comes with "
+            f"the training stack, ROADMAP.md queue A item 10): call it "
+            f"under torch.no_grad() or torch.inference_mode(), or on CPU "
+            f"tensors, whose plain version is differentiable")
+
+
 def find_nvcc() -> str:
     """Path of ``nvcc``: ``PATH`` first, then the CUDA toolkit's own."""
     nvcc = shutil.which("nvcc")

@@ -89,6 +89,26 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ------------------------------------------- values passed between blocks
+// Naturally aligned 64-bit relaxed accesses at gpu scope are single-copy
+// atomic: a reader sees the old 8 bytes or the new 8 bytes, never a mix.
+// A producer can thus publish a value with one store, and a consumer poll
+// the value itself until it differs from a sentinel, with no flag and no
+// fence between them.
+__device__ __forceinline__ void st_relaxed_gpu(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t ld_relaxed_gpu(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
 // ----------------------------------------------------------------------- TMA
 // a 4-D tiled load into shared memory that completes on `bar`; the
 // coordinates are in elements, innermost first, and may run past the
@@ -499,6 +519,16 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile(
       "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(valid ? 16 : 0)
+      : "memory");
+}
+
+// 4 bytes from global to shared memory (both 4-byte aligned); with
+// `valid` false the 4 bytes are zeros and nothing is read
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile(
+      "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(valid ? 4 : 0)
       : "memory");
 }
 

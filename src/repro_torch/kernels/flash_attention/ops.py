@@ -1,11 +1,14 @@
 """Device dispatch of flash attention: a CUDA tensor launches the
 hand-written kernel (``kernel.py``), a CPU tensor takes the plain version
 (``ref.py``), and any other device raises.  There is no switch that sends
-a CUDA tensor to the plain version."""
+a CUDA tensor to the plain version.  The kernel has no backward yet: on
+CUDA operands that require grad, with grad mode on, the call raises
+(``repro_torch.kernels.refuse_autograd``)."""
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -20,6 +23,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("flash_attention operands are on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
     if dev.type == "cuda":      # the wrapper validates
+        refuse_autograd("flash_attention", q, k, v)
         return fa_kernel.flash_attention_cuda(
             q, k, v, causal=causal, window=window, scale=scale,
             logit_cap=logit_cap)

@@ -28,3 +28,62 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0=None):
         a, b = a_next, b_next
         shift *= 2
     return b, b[:, -1]
+
+
+def rglru_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor, h0=None,
+                           chunk: int = 64, fold: int = 8):
+    """The CUDA kernel's order of operations in plain PyTorch: a, b (B, S,
+    W) f32, h0 (B, W) or None.  Returns (h, h_last) as
+    :func:`rglru_scan_ref`; on the card the kernel equals it bit for bit.
+
+    S is cut into chunks of ``chunk`` steps, and the chunks into groups of
+    ``fold``.  Each chunk's aggregate runs its steps from h = 0 (``B_c``)
+    and multiplies ``A_c = 1 * a_0 * a_1 ...`` in step order; each group's
+    aggregate folds its chunks' the same way (``GA = 1 * A_0 * A_1 ...``,
+    ``GB = A_j * GB + B_j`` from 0).  The carry into chunk c is h0 (or 0)
+    composed with ``carry = GA * carry + GB`` for each earlier group, then
+    ``carry = A * carry + B`` for each earlier chunk of its group, in that
+    order; then each chunk runs its steps again from its carry.  Every
+    product and sum is its own rounded op.  A ragged last chunk is padded
+    with a = 1, b = 0: its aggregate is never read and its padded steps
+    are cut off.  Used by the tests and ``chip_smoke.py``; the wrapper's
+    CPU path is :func:`rglru_scan_ref`."""
+    bsz, s, w = a.shape
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        a = torch.cat([a, a.new_ones((bsz, pad, w))], dim=1)
+        b = torch.cat([b, b.new_zeros((bsz, pad, w))], dim=1)
+    a4 = a.reshape(bsz, n, chunk, w)
+    b4 = b.reshape(bsz, n, chunk, w)
+    prod = a.new_ones((bsz, n, w))
+    agg = a.new_zeros((bsz, n, w))
+    for t in range(chunk):
+        prod = prod * a4[:, :, t]
+        agg = a4[:, :, t] * agg + b4[:, :, t]
+    # the groups whose aggregate a later chunk reads: all but the last
+    groups = (n - 1) // fold
+    gprod = a.new_ones((bsz, groups, w))
+    gagg = a.new_zeros((bsz, groups, w))
+    for j in range(fold):
+        cp = prod[:, j:groups * fold:fold]
+        gprod = gprod * cp
+        gagg = cp * gagg + agg[:, j:groups * fold:fold]
+    carry = h0 if h0 is not None else a.new_zeros((bsz, w))
+    group_carry = [carry]
+    for g in range(groups):
+        carry = gprod[:, g] * carry + gagg[:, g]
+        group_carry.append(carry)
+    carries = []
+    for c in range(n):
+        if c % fold == 0:
+            carry = group_carry[c // fold]
+        carries.append(carry)
+        carry = prod[:, c] * carry + agg[:, c]
+    h = torch.stack(carries, dim=1)
+    out = torch.empty_like(a4)
+    for t in range(chunk):
+        h = a4[:, :, t] * h + b4[:, :, t]
+        out[:, :, t] = h
+    out = out.view(bsz, n * chunk, w)[:, :s]
+    return out, out[:, -1]

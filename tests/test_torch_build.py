@@ -74,11 +74,14 @@ def test_the_shared_header_directory_is_the_packages():
      "ParamsE", "flash_wgmma_kernel<128>"),
     ("_ZN12_GLOBAL__N_125event_filter_batch_kernelEPKfS1_PKiS1_S3_PfS4_"
      "lllii", "event_filter_batch_kernel"),
+    ("_ZN46_GLOBAL__N__3f0a9c21_13_rglru_scan_cu_5e1b2c7a20rglru_chunked_"
+     "kernelENS_6ParamsE", "rglru_chunked_kernel"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from
-    ptxas's report and fails a run whose tensor-core instances spill: the
-    instance must be named by its template arguments."""
+    ptxas's report and fails a run whose flash, mlstm or rglru_scan
+    instances spill: the instance must be named by its template
+    arguments."""
     root = str(Path(__file__).resolve().parent.parent)
     if root not in sys.path:
         sys.path.insert(0, root)

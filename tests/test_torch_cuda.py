@@ -27,7 +27,8 @@ from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
 from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rglru_scan import ops as rg_ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_chunked_ref,
+                                                rglru_scan_ref)
 
 pytestmark = pytest.mark.cuda
 BAND_RTOL = 1e-5
@@ -409,17 +410,30 @@ def test_dense_lm_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
 
 
 # ------------------------------ RG-LRU scan ------------------------------ #
-@pytest.mark.parametrize("b,s,w,with_h0", [(1, 4096, 4096, False),
-                                           (1, 4096, 4096, True),
-                                           (3, 100, 48, True),
-                                           (2, 1, 7, True)])
+# (b, s, w, with h0): recurrentgemma-9b's forward with and without h0, a
+# ragged S, one step, S under one chunk, W no multiple of 4 (the cp.async
+# load path), a ragged S over a partial last tile of the bulk path, two
+# batch rows whose chunks form groups on the cp.async path, and more than
+# 16 groups (the carry reads group aggregates in two batches)
+SCAN_SHAPES = [(1, 4096, 4096, False), (1, 4096, 4096, True),
+               (3, 100, 48, True), (2, 1, 7, True), (2, 8, 4096, True),
+               (2, 77, 50, True), (2, 200, 4100, False),
+               (2, 1500, 300, True), (1, 9000, 128, True)]
+
+
+def _scan_inputs(dev, b, s, w, with_h0):
+    g = torch.Generator(device=dev).manual_seed(s + w)
+    a = torch.rand((b, s, w), generator=g, device=dev) * 0.3 + 0.7
+    x = torch.randn((b, s, w), generator=g, device=dev)
+    h0 = torch.randn((b, w), generator=g, device=dev) if with_h0 else None
+    return a, x, h0
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", SCAN_SHAPES)
 def test_rglru_scan_kernel_matches_plain_version(cuda, b, s, w, with_h0):
-    """f32 within 1e-5: the kernel runs the recurrence in order, the plain
-    version as a doubling scan."""
-    g = torch.Generator(device=cuda).manual_seed(s + w)
-    a = torch.rand((b, s, w), generator=g, device=cuda) * 0.3 + 0.7
-    x = torch.randn((b, s, w), generator=g, device=cuda)
-    h0 = torch.randn((b, w), generator=g, device=cuda) if with_h0 else None
+    """f32 within 1e-5: the kernel composes chunk aggregates and runs each
+    chunk in order, the plain version is a doubling scan."""
+    a, x, h0 = _scan_inputs(cuda, b, s, w, with_h0)
     before = rg_kernel.LAUNCHES["rglru_scan"]
     h, last = rg_ops.rglru_scan(a, x, h0)
     torch.cuda.synchronize()
@@ -428,6 +442,66 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, b, s, w, with_h0):
     torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(last, want_last, rtol=1e-5, atol=1e-5)
     assert torch.equal(rg_ops.rglru_scan(a, x, h0)[0], h)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", SCAN_SHAPES)
+def test_rglru_scan_kernel_equals_its_chunked_order(cuda, b, s, w, with_h0):
+    """The kernel equals rglru_scan_chunked_ref at its plan's chunk (the
+    same rounded operations in the same order, as torch ops on the card)
+    bit for bit, and two launches give the same bits."""
+    a, x, h0 = _scan_inputs(cuda, b, s, w, with_h0)
+    pl = rg_kernel.plan(b, s, w)
+    h, last = rg_kernel.rglru_scan_cuda(a, x, h0)
+    again, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
+    want, want_last = rglru_scan_chunked_ref(a, x, h0, pl.chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want) and torch.equal(last, want_last)
+    assert torch.equal(again, h)
+
+
+def test_rglru_scan_misaligned_base_takes_the_cp_async_path(cuda):
+    """a and b one float past a 16-byte boundary: no bulk copies, the same
+    bits as the chunked order."""
+    b, s, w = 1, 300, 256
+    a0, x0, h0 = _scan_inputs(cuda, b, s * w + 1, 1, True)
+    a = a0.flatten()[1:].view(b, s, w)
+    x = x0.flatten()[1:].view(b, s, w)
+    h0 = h0.expand(b, w).contiguous()
+    assert rg_kernel.plan(b, s, w, aligned=a.data_ptr() % 16 == 0).load \
+        == "cp_async"
+    h, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
+    want, _ = rglru_scan_chunked_ref(a, x, h0, rg_kernel.plan(b, s, w).chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want)
+
+
+def test_rglru_scan_kernel_under_cuda_graph_replay(cuda):
+    """Two scans captured in one CUDA graph and replayed on new inputs:
+    every replay starts from a zeroed ticket and flags and gives the
+    chunked order's bits."""
+    shapes = [(1, 1000, 512, True), (2, 300, 260, False)]
+    static = [_scan_inputs(cuda, *sh) for sh in shapes]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a, x, h0 in static:
+            rg_kernel.rglru_scan_cuda(a, x, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [rg_kernel.rglru_scan_cuda(a, x, h0)[0]
+                for a, x, h0 in static]
+    for seed in range(3):
+        g = torch.Generator(device=cuda).manual_seed(100 + seed)
+        for a, x, h0 in static:
+            a.copy_(torch.rand(a.shape, generator=g, device=cuda) * 0.3 + 0.7)
+            x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for (a, x, h0), out in zip(static, outs):
+            want, _ = rglru_scan_chunked_ref(
+                a, x, h0, rg_kernel.plan(*a.shape).chunk)
+            assert torch.equal(out, want)
 
 
 def test_rglru_scan_wrapper_checks_its_operands(cuda):
@@ -610,3 +684,44 @@ def test_recurrent_lm_on_the_card_goes_through_its_kernels(cuda, monkeypatch,
     plain_logits, plain_steps = run()
     torch.testing.assert_close(logits, plain_logits, rtol=0, atol=atol)
     torch.testing.assert_close(steps, plain_steps, rtol=0, atol=atol)
+
+
+# ------------------------- no backward on the card ------------------------ #
+def _lm_kernel_call(name, dev):
+    """(dispatcher call, its LAUNCHES dict and key) on small operands."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    if name == "flash_attention":
+        q, k, v = (t(1, 8, 2, 64).bfloat16() for _ in range(3))
+        return (lambda: fa_ops.flash_attention(q, k, v)), (q, k, v), \
+            fa_kernel.LAUNCHES
+    if name == "rglru_scan":
+        a, x = torch.rand((1, 70, 16), generator=g, device=dev), t(1, 70, 16)
+        return (lambda: rg_ops.rglru_scan(a, x)), (a, x), rg_kernel.LAUNCHES
+    q, k, v = (t(1, 40, 2, 16) for _ in range(3))
+    li, lf = t(1, 40, 2), -t(1, 40, 2).abs()
+    return (lambda: ml_ops.mlstm(q, k, v, li, lf)), (q, k, v, li, lf), \
+        ml_kernel.LAUNCHES
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "mlstm"])
+def test_lm_kernels_refuse_autograd_on_the_card(cuda, name):
+    """With grad mode on, a CUDA operand that requires grad raises (the
+    kernel's output would carry no grad_fn); under inference_mode the same
+    call launches the kernel once."""
+    call, operands, launches = _lm_kernel_call(name, cuda)
+    operands[0].requires_grad_(True)
+    before = launches[name]
+    with pytest.raises(RuntimeError, match=f"{name} CUDA kernel has no "
+                                           f"backward"):
+        call()
+    assert launches[name] == before
+    with torch.inference_mode():
+        out = call()
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    out = out[0] if isinstance(out, tuple) else out
+    assert bool(torch.isfinite(out.float()).all())

@@ -10,7 +10,15 @@ three compute the recurrence in different orders (sequential, the JAX
 tree, the doubling scan).  The model-level functions (gates, scan, step,
 causal conv, the recurrent block) take parameters carried across from the
 reference's reduced recurrentgemma and hold 1e-4 (the gates add block-
-diagonal products, summed in another order by XLA and PyTorch)."""
+diagonal products, summed in another order by XLA and PyTorch).
+
+``rglru_scan_chunked_ref`` is the CUDA kernel's order of operations in
+plain PyTorch (the kernel equals it bit for bit on the card); it is held
+here against the same JAX functions at 1e-5, and ``plan`` (the kernel's
+launch shape) is checked on the shapes the models and chip_smoke.py give
+it."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +36,8 @@ from repro.launch.mesh import make_mesh_of
 from repro_torch.configs.registry import reduced_config
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_chunked_ref,
+                                                rglru_scan_ref)
 from repro_torch.models import rglru
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -102,6 +111,114 @@ def test_ops_validates_its_operands_on_the_cpu(bad):
     with pytest.raises(ValueError):
         rglru_scan(a, b, h0)
     assert scan_kernel.LAUNCHES["rglru_scan"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernel's order of operations (rglru_scan_chunked_ref) and plan
+# --------------------------------------------------------------------------- #
+# (b, s, w, with h0): the reference's partial-block case, a ragged S, no
+# h0, and S under every chunk but 1
+CHUNKED_SHAPES = [(2, 64, 32, True), (3, 100, 48, True), (2, 37, 24, False),
+                  (1, 5, 16, True)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_and_oracle(b, s, w, with_h0):
+    """Inputs, the Pallas kernel's h (interpreted) and the JAX oracle's."""
+    a, x, h0 = _scan_inputs(b * s + w + 11, b, s, w)
+    h0 = h0 if with_h0 else None
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    want, _ = rglru_scan_pallas(jnp.asarray(a), jnp.asarray(x), jh0,
+                                block_b=2, block_s=16, block_w=16,
+                                interpret=True)
+    oracle, _ = jax_scan_ref(jnp.asarray(a), jnp.asarray(x), jh0)
+    return a, x, h0, np.asarray(want), np.asarray(oracle)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32, 64])
+@pytest.mark.parametrize("b,s,w,with_h0", CHUNKED_SHAPES)
+def test_chunked_ref_matches_the_pallas_kernel(b, s, w, with_h0, chunk):
+    """The kernel's order (chunk aggregates, the carry composed in chunk
+    order, each chunk again from its carry) within 1e-5 of the Pallas
+    kernel and of the JAX oracle: the products of up to 64 decays and the
+    composition round differently from both."""
+    a, x, h0, want, oracle = _pallas_and_oracle(b, s, w, with_h0)
+    got, got_last = rglru_scan_chunked_ref(
+        torch.from_numpy(a), torch.from_numpy(x),
+        None if h0 is None else torch.from_numpy(h0), chunk)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, w)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), oracle, **TOL)
+    np.testing.assert_array_equal(got_last.numpy(), got[:, -1].numpy())
+
+
+@pytest.mark.parametrize("s,chunk", [(1, 1), (5, 5), (5, 64), (64, 64)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_chunked_ref_with_one_chunk_is_the_sequential_recurrence(
+        s, chunk, with_h0):
+    """With chunk >= S there is one chunk: its carry is h0 (or 0) and its
+    steps are the recurrence in order, each op rounded, bit for bit."""
+    a, x, h0 = (torch.from_numpy(v) for v in _scan_inputs(s + 3, 2, s, 8))
+    h0 = h0 if with_h0 else None
+    h = h0 if h0 is not None else torch.zeros((2, 8))
+    want = []
+    for t in range(s):
+        h = a[:, t] * h + x[:, t]
+        want.append(h)
+    got, got_last = rglru_scan_chunked_ref(a, x, h0, chunk)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    assert torch.equal(got_last, want[-1])
+
+
+@pytest.mark.parametrize("shape,aligned,want", [
+    # recurrentgemma-9b's forward: 64 chunks x 32 tiles, 63 chunk slots
+    # and 7 group slots
+    ((1, 4096, 4096), True, (64, 64, 32, 2048, "bulk", 70)),
+    # S under one chunk: one chunk of S steps, no workspace but the ticket
+    ((2, 8, 4096), True, (8, 1, 32, 64, "bulk", 0)),
+    # W % TILE != 0 and a ragged S: one partial tile
+    ((3, 100, 48), True, (64, 2, 1, 6, "bulk", 1)),
+    # W % 4 != 0: rows are not 16-byte aligned, so no bulk copies
+    ((2, 77, 50), True, (64, 2, 1, 4, "cp_async", 1)),
+    # a misaligned base takes the cp.async path too
+    ((1, 4096, 4096), False, (64, 64, 32, 2048, "cp_async", 70)),
+    ((1, 1, 7), True, (1, 1, 1, 1, "cp_async", 0)),
+    # 17 chunks: 16 chunk slots and 2 group slots (groups 0 and 1)
+    ((1, 17 * 64, 128), True, (64, 17, 1, 17, "bulk", 18)),
+])
+def test_plan_picks_the_launch_shape(shape, aligned, want):
+    pl = scan_kernel.plan(*shape, aligned=aligned)
+    assert (pl.chunk, pl.chunks, pl.tiles, pl.blocks, pl.load,
+            pl.slots) == want
+    b, s, w = shape
+    assert pl.chunk <= scan_kernel.CHUNK
+    assert (pl.chunks - 1) * pl.chunk < s <= pl.chunks * pl.chunk
+    assert pl.tiles * scan_kernel.TILE >= w
+    assert pl.ws_words == 1 + b * pl.slots * w
+
+
+def test_plan_takes_a_probes_chunk():
+    """Probes time shorter chunks: the chunk caps at S and at CHUNK."""
+    assert scan_kernel.plan(1, 4096, 4096, chunk=32).chunks == 128
+    assert scan_kernel.plan(1, 20, 64, chunk=32).chunk == 20
+    with pytest.raises(ValueError, match="chunk"):
+        scan_kernel.plan(1, 4096, 4096, chunk=scan_kernel.CHUNK + 1)
+
+
+def test_chunked_ref_folds_groups_as_the_kernel_does():
+    """With fold >= chunks there is one group and the carry composes every
+    earlier chunk in order; with fold 8 it composes group aggregates
+    first.  The two orders round differently, and both stay within 1e-5
+    of the sequential recurrence in float64."""
+    a, x, h0 = (torch.from_numpy(v) for v in _scan_inputs(21, 2, 700, 16))
+    exact, _ = rglru_scan_ref(a.double(), x.double(), h0.double())
+    two, _ = rglru_scan_chunked_ref(a, x, h0, 16)
+    one, _ = rglru_scan_chunked_ref(a, x, h0, 16, fold=64)
+    for got in (two, one):
+        np.testing.assert_allclose(got.double().numpy(), exact.numpy(),
+                                   **TOL)
+    assert torch.equal(two[:, :16 * 8], one[:, :16 * 8])
+    assert not torch.equal(two, one)
 
 
 # --------------------------------------------------------------------------- #
