@@ -54,6 +54,26 @@ Phases, each printing one JSON line:
    lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
    time by kernel and the card's busy share;
+   fleet   — on the same resident store, a Fleet of 4 front-ends on the
+   spmd backend with the kernel, the observability plane and
+   single-flight leases on, runs the launcher's fleet workload (64
+   streamed queries round-robin, 4 tenants, a step every 16, a dataset
+   bump at half way, a drain): building it must allocate less than one
+   brick on the card; event_filter_batch must launch once per chunk of
+   the windows with kernel targets (counts zeroed just before the run,
+   read just after), kernel_events must equal events_scanned, every
+   final must be identical to the same fleet's on the plain path, and
+   the fleet's trace must validate; then one more dataset bump must
+   reach every front-end within the gossip bound;
+   failover — Fleets of 4 on the sim backend on the card, with the
+   failure policy, gossip repair and a bus that drops 5 % of its
+   messages (seed 0); node 1 leaves after a third of the queries.  The
+   run as the launcher makes it is recorded by the flight recorder:
+   every ticket SERVED over every event, and its log replayed through
+   replay_run on the same resident bricks must be identical.  The same
+   run on fixed packets must give finals identical to a run with no node
+   leaving (adaptive packets follow the nodes' virtual times, so their
+   float sums differ in the last bits there, in the JAX package too);
 5. lm      — the query store freed, three LMs at full width, one on the
    card at a time, each held by ``LanguageModel`` with parameters drawn
    from a seeded generator: qwen3-14b (40 layers, d_model 5120, 48 (40
@@ -115,6 +135,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -822,14 +843,16 @@ def time_mlstm(gen, b, s, h, d):
 # --------------------------------------------------------------------- #
 # serve
 # --------------------------------------------------------------------- #
+HOT_QUERIES = ["e_total > 40 && count(pt > 15) >= 2",
+               "e_t_miss > 30", "pt_lead > 60 || n_tracks >= 8"]
+
+
 def serve_workload(svc, n_queries=64, tenants=4, window=16):
     """The serve launcher's multi-tenant workload (streamed)."""
-    hot = ["e_total > 40 && count(pt > 15) >= 2",
-           "e_t_miss > 30", "pt_lead > 60 || n_tracks >= 8"]
     tids = []
     for i in range(n_queries):
         if i % 3 != 2:
-            expr = hot[i % len(hot)]
+            expr = HOT_QUERIES[i % len(HOT_QUERIES)]
         else:
             expr = (f"e_total > {20 + (i % 7) * 10} && "
                     f"count(pt > 15) >= {1 + i % 4}")
@@ -875,61 +898,82 @@ def profile_serve(make_service):
     svc.close()
 
 
-def phase_serve(n_events):
+def build_store(n_events):
+    """The paper's event workload resident on the card: 64 scalars, 4096
+    tracks x 63 vars, 256 events a brick, replication 2, on 4 nodes."""
     from repro_torch.configs.geps_events import EventWorkloadConfig
     from repro_torch.core import events as ev
-    from repro_torch.core import merge as merge_lib
-    from repro_torch.core.backend import SpmdBackend
     from repro_torch.core.brick import create_store
-    from repro_torch.core.catalog import MetadataCatalog
-    from repro_torch.core.jse import spmd_query_batch_step, spmd_query_step
-    from repro_torch.kernels.event_filter import kernel as ef_kernel
-    from repro_torch.service import QueryScheduler, QueryService
-
-    class RecordingBackend(SpmdBackend):
-        """The spmd backend, keeping each window's JobStats and the
-        kernel sub-batch width K it ran with."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.window_stats, self.kernel_widths = [], []
-
-        def _split_plan(self, plan):
-            split = super()._split_plan(plan)
-            self.kernel_widths.append(len(split.kernel_cols))
-            return split
-
-        def run_batch(self, *a, **kw):
-            merged, stats = super().run_batch(*a, **kw)
-            self.window_stats.append(stats)
-            return merged, stats
-
     cfg = EventWorkloadConfig()
-    schema = ev.EventSchema.from_config(cfg)
     t0 = time.perf_counter()
-    store = create_store(schema, n_events=n_events, n_nodes=4,
-                         events_per_brick=cfg.events_per_brick,
+    store = create_store(ev.EventSchema.from_config(cfg), n_events=n_events,
+                         n_nodes=4, events_per_brick=cfg.events_per_brick,
                          replication=cfg.replication_factor, seed=0,
                          device="cuda")
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    resident = torch.cuda.memory_allocated()
     emit({"phase": "store", "n_events": store.n_events,
-          "bricks": len(store.bricks), "resident_gb": resident / 1e9,
-          "build_s": build_s})
+          "bricks": len(store.bricks),
+          "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "build_s": time.perf_counter() - t0})
+    return store
 
-    def counted(run):
-        """Run one path with the launch counts zeroed just before it and
-        read just after it: (its output, its launches)."""
-        for key in ef_kernel.LAUNCHES:
-            ef_kernel.LAUNCHES[key] = 0
-        out = run()
-        torch.cuda.synchronize()
-        return out, dict(ef_kernel.LAUNCHES)
 
+def counted(run):
+    """Run one path with the event filter's launch counts zeroed just
+    before it and read just after it: (its output, its launches)."""
+    from repro_torch.kernels.event_filter import kernel as ef_kernel
+    for key in ef_kernel.LAUNCHES:
+        ef_kernel.LAUNCHES[key] = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(ef_kernel.LAUNCHES)
+
+
+def record_windows(backend):
+    """Make a spmd backend keep each window's JobStats
+    (``backend.window_stats``) and the kernel sub-batch width K it ran
+    with (``backend.kernel_widths``)."""
+    backend.window_stats, backend.kernel_widths = [], []
+    split_plan, run_batch = backend._split_plan, backend.run_batch
+
+    def _split_plan(plan):
+        split = split_plan(plan)
+        backend.kernel_widths.append(len(split.kernel_cols))
+        return split
+
+    def _run_batch(*a, **kw):
+        merged, stats = run_batch(*a, **kw)
+        backend.window_stats.append(stats)
+        return merged, stats
+
+    backend._split_plan, backend.run_batch = _split_plan, _run_batch
+    return backend
+
+
+def kernel_chunks(backends):
+    """(events scanned, kernel events, chunks of windows with kernel
+    targets) over the windows the recording backends ran."""
+    scanned = kernel_events = chunks = 0
+    for b in backends:
+        for stats, k in zip(b.window_stats, b.kernel_widths):
+            scanned += stats.events_scanned
+            kernel_events += stats.kernel_events
+            chunks += stats.packets if k else 0
+    return scanned, kernel_events, chunks
+
+
+def phase_serve(store):
+    from repro_torch.core import merge as merge_lib
+    from repro_torch.core.backend import SpmdBackend
+    from repro_torch.core.catalog import MetadataCatalog
+    from repro_torch.core.jse import spmd_query_batch_step, spmd_query_step
+    from repro_torch.service import QueryScheduler, QueryService
+
+    schema = store.schema
     # ---- the serve path ----
-    backend = RecordingBackend(MetadataCatalog(store.n_nodes), store,
-                               use_pallas=True, device="cuda")
+    backend = record_windows(SpmdBackend(MetadataCatalog(store.n_nodes),
+                                         store, use_pallas=True,
+                                         device="cuda"))
     svc = QueryService(store, backend=backend,
                        scheduler=QueryScheduler(max_batch=16),
                        device="cuda")
@@ -938,16 +982,12 @@ def phase_serve(n_events):
     tids, launches = counted(lambda: serve_workload(svc))
     wall = time.perf_counter() - t0
 
-    scanned = sum(s.events_scanned for s in backend.window_stats)
-    kernel_events = sum(s.kernel_events for s in backend.window_stats)
-    kernel_chunks = sum(s.packets for s, k in zip(backend.window_stats,
-                                                  backend.kernel_widths)
-                        if k)
+    scanned, kernel_events, n_chunks = kernel_chunks([backend])
     if launches["event_filter_batch"] <= 0 \
-            or launches["event_filter_batch"] != kernel_chunks:
+            or launches["event_filter_batch"] != n_chunks:
         raise AssertionError(
             f"the serve run launched event_filter_batch "
-            f"{launches['event_filter_batch']} times for {kernel_chunks} "
+            f"{launches['event_filter_batch']} times for {n_chunks} "
             f"chunks of windows with kernel targets")
     if launches["event_filter"] != 0:
         raise AssertionError("the serve run launched the single-query "
@@ -1015,7 +1055,7 @@ def phase_serve(n_events):
           "windows": len(backend.window_stats),
           "kernel_widths": backend.kernel_widths,
           "events_scanned": scanned, "kernel_events": kernel_events,
-          "kernel_chunks": kernel_chunks, "launches": launches,
+          "kernel_chunks": n_chunks, "launches": launches,
           "wall_s": wall, "events_per_s": scanned / wall,
           "track_gb_per_s": scanned * t * v * 4 / wall / 1e9,
           "results_identical_to_plain": True})
@@ -1028,6 +1068,225 @@ def phase_serve(n_events):
     return ({"event_filter_batch": launches["event_filter_batch"],
              "event_filter": step_launches["event_filter"]},
             backend.kernel_widths)
+
+
+# --------------------------------------------------------------------- #
+# fleet and failover
+# --------------------------------------------------------------------- #
+FLEET_WIDTH = 4
+FLEET_QUERIES = 64
+FAILOVER_DROP_RATE = 0.05
+FAILOVER_NODE = 1
+
+
+def store_view(store):
+    """The same resident bricks under a fresh copy of their placement: a
+    node leaving rewrites the specs of the store it runs on, so each fleet
+    run starts from the placement as built.  No brick is copied."""
+    return dataclasses.replace(store, specs={
+        bid: dataclasses.replace(sp) for bid, sp in store.specs.items()})
+
+
+def fleet_workload(fleet, n_queries=FLEET_QUERIES, tenants=4, window=16,
+                   kill_node=None):
+    """The serve launcher's fleet workload: the three hot queries plus
+    the long tail, streamed, round-robin over the fleet, a step every
+    window, a node leaving after a third (``kill_node``), a dataset bump
+    at half way, and a drain; returns the global ticket ids."""
+    gtids = []
+    for i in range(n_queries):
+        if i % 3 != 2:
+            expr = HOT_QUERIES[(i // 3) % len(HOT_QUERIES)]
+        else:
+            expr = (f"e_total > {20 + (i % 7) * 10} && "
+                    f"count(pt > 15) >= {1 + i % 4}")
+        gtids.append(fleet.submit(expr, tenant=f"tenant{i % tenants}",
+                                  stream=True))
+        if (i + 1) % window == 0:
+            fleet.step()
+        if kill_node is not None and i == n_queries // 3:
+            fleet.node_leave(kill_node)
+        if i == n_queries // 2:
+            fleet.bump_dataset_version(0)
+    fleet.drain()
+    return gtids
+
+
+def check_finals(name, fleet, gtids, other, other_gtids, n_events):
+    """Every ticket SERVED over every event, its stream's final equal to
+    its result, and its final identical to the other run's."""
+    from repro_torch.core import merge as merge_lib
+    if len(gtids) != len(other_gtids):
+        raise AssertionError(f"{name}: {len(gtids)} tickets against "
+                             f"{len(other_gtids)}")
+    for a, b in zip(gtids, other_gtids):
+        ta, tb = fleet.result(a), other.result(b)
+        if ta.status != "SERVED" or tb.status != "SERVED":
+            raise AssertionError(f"{name} ticket {a}: {ta.status}/"
+                                 f"{tb.status}")
+        if ta.result.n_processed != n_events:
+            raise AssertionError(f"{name} ticket {a} processed "
+                                 f"{ta.result.n_processed} events")
+        if not merge_lib.results_identical(ta.result, tb.result):
+            raise AssertionError(f"{name} ticket {a} ({ta.expr}): final "
+                                 "differs from the comparison run")
+        if not merge_lib.results_identical(
+                fleet.stream(a).latest().result, ta.result):
+            raise AssertionError(f"{name} ticket {a}: stream final != "
+                                 "result")
+
+
+def phase_fleet(store):
+    """A fleet of front-ends on the spmd backend with the kernel, obs and
+    single-flight on, over the one resident store, against the same fleet
+    on the plain path."""
+    t_phase = time.perf_counter()
+    from repro_torch.fabric import Fleet, FragmentRegistry
+    from repro_torch.obs.trace import validate_records
+
+    def build(use_pallas):
+        return Fleet(store, FLEET_WIDTH, registry=FragmentRegistry(),
+                     backend="spmd",
+                     backend_kwargs={"use_pallas": use_pallas}, obs=True,
+                     single_flight=True, device="cuda")
+
+    brick_bytes = sum(t.numel() * t.element_size()
+                      for t in store.bricks[0].values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fleet = build(True)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    if added >= brick_bytes:
+        raise AssertionError(f"building the fleet allocated {added} bytes, "
+                             f"one brick is {brick_bytes}")
+    backends = [record_windows(fe.service.backend)
+                for fe in fleet.frontends]
+    t0 = time.perf_counter()
+    gtids, launches = counted(lambda: fleet_workload(fleet))
+    wall = time.perf_counter() - t0
+    scanned, kernel_events, n_chunks = kernel_chunks(backends)
+    if launches["event_filter_batch"] <= 0 \
+            or launches["event_filter_batch"] != n_chunks:
+        raise AssertionError(
+            f"the fleet launched event_filter_batch "
+            f"{launches['event_filter_batch']} times for {n_chunks} chunks "
+            f"of windows with kernel targets")
+    if launches["event_filter"] != 0:
+        raise AssertionError("the fleet launched the single-query "
+                             "event_filter")
+    if kernel_events != scanned or scanned == 0:
+        raise AssertionError(f"fleet kernel_events {kernel_events} != "
+                             f"events_scanned {scanned}")
+    stats = fleet.fleet_stats()
+    if stats["events_scanned"] != scanned:
+        raise AssertionError(f"fleet_stats events_scanned "
+                             f"{stats['events_scanned']} != {scanned}")
+    records = fleet.trace_records()
+    problems = validate_records(records)
+    if problems:
+        raise AssertionError(f"fleet trace: {problems[:3]}")
+    plain = build(False)
+    plain_gtids = fleet_workload(plain)
+    check_finals("fleet", fleet, gtids, plain, plain_gtids, store.n_events)
+    # one more dataset bump on a quiet fleet: the rounds until every
+    # catalogue holds its epoch, against the documented bound
+    bus_rounds = fleet.bus.round
+    fleet.bump_dataset_version(0)
+    gossip_rounds = 0
+    while len({fe.catalog.dataset_epoch for fe in fleet.frontends}) > 1 \
+            and gossip_rounds <= fleet.rounds_bound:
+        fleet.pump()
+        gossip_rounds += 1
+    if gossip_rounds > fleet.rounds_bound:
+        raise AssertionError(f"a dataset bump took more than "
+                             f"{fleet.rounds_bound} gossip rounds")
+    emit({"phase": "fleet", "phase_s": time.perf_counter() - t_phase,
+          "frontends": FLEET_WIDTH,
+          "tickets": len(gtids), "memory_added_bytes": added,
+          "brick_bytes": brick_bytes, "launches": launches,
+          "kernel_chunks": n_chunks, "events_scanned": scanned,
+          "kernel_events": kernel_events, "wall_s": wall,
+          "events_per_s": scanned / wall,
+          "cache_hits": stats["cache_hits"], "l1_hits":
+              stats["cache_hits"] - stats["l2_hits"],
+          "l2_hits": stats["l2_hits"], "adopted": stats["adopted"],
+          "lease_fallbacks": stats["lease_fallbacks"],
+          "bus_rounds": bus_rounds, "gossip_rounds": gossip_rounds,
+          "rounds_bound": fleet.rounds_bound,
+          "trace_records": len(records),
+          "results_identical_to_plain": True})
+    fleet.close()
+    plain.close()
+
+
+def phase_failover(store):
+    """Fleets of front-ends on the sim backend on the card, with the
+    failure policy, gossip repair and a lossy seeded bus; a node leaves
+    after a third of the queries.  The run as the launcher makes it
+    (adaptive packets) is recorded and its log replayed; the same run on
+    fixed packets is held against a run with no node leaving.  Only fixed
+    packets partition the sweep the same way whichever nodes are alive,
+    so only they give float merges equal to the last bit (adaptive
+    packets follow the nodes' virtual times, and a float sum over other
+    packets differs in its last bits, in the JAX package as here)."""
+    t_phase = time.perf_counter()
+    from repro_torch.fabric import Fleet, FragmentRegistry, MessageBus
+    from repro_torch.obs.replay import replay_run
+
+    def build(fixed_packets=False, flight=False):
+        return Fleet(store_view(store), FLEET_WIDTH,
+                     bus=MessageBus(drop_rate=FAILOVER_DROP_RATE, seed=0),
+                     registry=FragmentRegistry(), backend="sim",
+                     backend_kwargs=({"adaptive_packets": False}
+                                     if fixed_packets else None),
+                     obs=True, policy=True, gossip_repair=True,
+                     flight=flight, device="cuda")
+
+    fleet = build(flight=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gtids = fleet_workload(fleet, kill_node=FAILOVER_NODE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for g in gtids:
+        t = fleet.result(g)
+        if t.status != "SERVED" or t.result.n_processed != store.n_events:
+            raise AssertionError(f"failover ticket {g}: {t.status}, "
+                                 f"{t.result and t.result.n_processed} "
+                                 "events")
+    fleet._flight_finalize()
+    records = list(fleet.flight.records)
+    t0 = time.perf_counter()
+    report = replay_run(records, store=store_view(store), device="cuda")
+    replay_s = time.perf_counter() - t0
+    if not report.identical:
+        raise AssertionError(f"replay diverged: {report.mismatches[:3]} "
+                             f"{report.bus_divergences[:3]}")
+    fixed = build(fixed_packets=True)
+    fixed_gtids = fleet_workload(fixed, kill_node=FAILOVER_NODE)
+    calm = build(fixed_packets=True)
+    calm_gtids = fleet_workload(calm)
+    check_finals("failover", fixed, fixed_gtids, calm, calm_gtids,
+                 store.n_events)
+    states = fleet.policy_states()
+    emit({"phase": "failover", "phase_s": time.perf_counter() - t_phase,
+          "frontends": FLEET_WIDTH,
+          "tickets": len(gtids), "node_left": FAILOVER_NODE,
+          "drop_rate": FAILOVER_DROP_RATE, "bus_seed": 0,
+          "policy_states": {fe: {str(n): s for n, s in st.items()}
+                            for fe, st in states.items()},
+          "rereplications": sum(1 for r in records
+                                if r["kind"] == "rereplicate"),
+          "served": len(gtids),
+          "events_scanned": fleet.fleet_stats()["events_scanned"],
+          "wall_s": wall, "replay_s": replay_s,
+          "flight_records": len(records),
+          "replay_finals": report.n_finals,
+          "replay_snapshots": report.n_snapshots, "replay_identical": True,
+          "fixed_packets_identical_to_calm_run": True})
+    for f in (fleet, fixed, calm):
+        f.close()
 
 
 # --------------------------------------------------------------------- #
@@ -1675,8 +1934,12 @@ def main(argv=None) -> int:
           "rows": scan_rows})
 
     # 4. serve and lockstep (the query paths; launch counts read around
-    # each)
-    launches, widths = phase_serve(args.n_events)
+    # each), then the fleet and failover paths on the same resident store
+    store = build_store(args.n_events)
+    launches, widths = phase_serve(store)
+    phase_fleet(store)
+    phase_failover(store)
+    del store
     release()
 
     # 5, 6. each LM at full width: serve and one forward (launch counts

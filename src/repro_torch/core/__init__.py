@@ -9,6 +9,7 @@
 - backend: the ExecutionBackend contract — SimulatedBackend (virtual-time
   grid) and SpmdBackend (chunked streaming scan over device-resident
   bricks) behind one ``run_batch`` surface
+- elastic: node join/leave, re-mesh, migration plans
 """
 from repro_torch.core.backend import (ExecutionBackend,  # noqa: F401
                                       SimulatedBackend, SpmdBackend,

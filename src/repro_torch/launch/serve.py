@@ -24,14 +24,31 @@ device-resident bricks; ``--use-pallas`` (spmd) runs in-family plan
 targets through the fused ``event_filter`` CUDA kernel.  ``--device``
 picks where the store lives and the scans run (default ``cuda``).
 
+``--fleet N`` replaces the single QueryService with a coherence-fabric
+:class:`~repro_torch.fabric.fleet.Fleet` of N front-ends over the one
+store: submissions round-robin across the fleet, a shared L2 cache tier
+and a fragment registry turn repeats into zero-I/O hits on any
+front-end, a mid-run dataset bump shows the gossip invalidation bound,
+and with ``--stream`` one sample ticket is read cross-front-end through
+the bus fan-out.  ``--single-flight`` adds scan-intent leases and stream
+adoption, ``--drop-rate`` and ``--bus-seed`` make the bus lossy and
+seeded, ``--kill-node`` kills a grid node a third of the way in, and
+``--flight-out`` writes the causal decision log that
+``python -m repro_torch.obs.replay`` replays.
+
+``--policy`` arms the failure-policy engine (``service/policy.py``) on
+each front-end (with ``--fleet`` also gossip ack/repair);
+``--trace-out`` and ``--metrics-dump`` turn the observability plane on
+and write its span trace and metrics snapshot.
+
 Not ported yet: the moe, vlm and audio LM families,
-``--production-mesh``, ``--fleet > 1``, ``--policy``, ``--trace-out``,
-``--metrics-dump``, ``--flight-out`` and ``--autotune``; each exits with a
-message saying so.
+``--production-mesh`` and ``--autotune``; each exits with a message
+saying so.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
@@ -65,6 +82,149 @@ def _backend_kwargs(args):
     if args.mesh_devices is not None:
         kw["mesh_devices"] = args.mesh_devices
     return kw or None
+
+
+def _dump_trace(records, path):
+    """Write trace records to ``path``: JSONL for ``.jsonl``, Chrome-trace
+    JSON (Perfetto-loadable) otherwise."""
+    from repro_torch.obs import trace as trace_lib
+    if str(path).endswith(".jsonl"):
+        trace_lib.save_jsonl(records, path)
+    else:
+        trace_lib.save_chrome(records, path)
+    print(f"  trace: {len(records)} records -> {path}")
+
+
+def _dump_metrics(snapshot, path):
+    """Write a metrics snapshot: Prometheus text exposition format for
+    ``.prom`` paths, JSON otherwise."""
+    with open(path, "w") as f:
+        if str(path).endswith(".prom"):
+            f.write(snapshot.to_prom_text())
+        else:
+            json.dump(snapshot.to_dict(), f, indent=2, sort_keys=True)
+    print(f"  metrics: {len(snapshot.metrics)} series -> {path}")
+
+
+def _query_store(args):
+    """The reduced event schema's brick store on ``--device``."""
+    from repro_torch.configs.geps_events import reduced as geps_reduced
+    from repro_torch.core import events as ev
+    from repro_torch.core.brick import create_store
+    cfg = geps_reduced()
+    store = create_store(ev.EventSchema.from_config(cfg),
+                         n_events=args.n_events, n_nodes=args.n_nodes,
+                         events_per_brick=cfg.events_per_brick,
+                         replication=cfg.replication_factor, seed=0,
+                         device=args.device)
+    return cfg, store
+
+
+def serve_fleet(args):
+    """Fleet serving mode: the multi-tenant workload of ``serve_queries``
+    replayed round-robin over ``--fleet N`` coherence-fabric front-ends.
+    Reports fleet-aggregate hit rates (incl. the shared-L2 contribution),
+    the gossip propagation bound, registry pre-warming, and — with
+    ``--stream`` — a cross-frontend proxy read of one sample ticket."""
+    from repro_torch.fabric import Fleet, FragmentRegistry, MessageBus
+    from repro_torch.obs import flight as flight_lib
+
+    cfg, store = _query_store(args)
+    want_obs = bool(args.trace_out or args.metrics_dump or args.policy)
+    bus = MessageBus(drop_rate=args.drop_rate, seed=args.bus_seed)
+    recorder = None
+    if args.flight_out:
+        # the store_config record makes the log self-contained: replay
+        # (python -m repro_torch.obs.replay) rebuilds an equal store from it
+        recorder = flight_lib.FlightRecorder()
+        recorder.record("store_config", origin="serve",
+                        schema_name="geps_reduced", n_events=args.n_events,
+                        n_nodes=args.n_nodes,
+                        events_per_brick=cfg.events_per_brick,
+                        replication=cfg.replication_factor, seed=0)
+    fleet = Fleet(store, args.fleet, bus=bus, registry=FragmentRegistry(),
+                  backend=args.backend, backend_kwargs=_backend_kwargs(args),
+                  obs=want_obs,
+                  policy=args.policy, gossip_repair=args.policy,
+                  single_flight=args.single_flight,
+                  flight=recorder if recorder is not None else False,
+                  device=args.device)
+    hot = ["e_total > 40 && count(pt > 15) >= 2",
+           "e_t_miss > 30", "pt_lead > 60 || n_tracks >= 8"]
+    t0 = time.time()
+    sample = None
+    for i in range(args.queries):
+        tenant = f"tenant{i % args.tenants}"
+        if i % 3 != 2:
+            # hot index advances slower than the submit round-robin, so
+            # consecutive submissions of the same hot query land on
+            # DIFFERENT front-ends in the same window — the same-window
+            # duplicate-scan race single-flight leases exist to close
+            expr = hot[(i // 3) % len(hot)]
+        else:
+            expr = (f"e_total > {20 + (i % 7) * 10} && "
+                    f"count(pt > 15) >= {1 + i % 4}")
+        gtid = fleet.submit(expr, tenant=tenant, stream=args.stream)
+        if sample is None:
+            sample = gtid
+        if (i + 1) % args.window == 0:
+            fleet.step()
+        if args.kill_node is not None and i == args.queries // 3:
+            # mid-run grid-node death: failover + liveness gossip (and,
+            # when recording, the event the replay must reproduce)
+            fleet.node_leave(args.kill_node)
+        if args.queries > 2 and i == args.queries // 2:
+            # mid-run dataset bump on one member: gossip invalidates the
+            # whole fleet within the documented bound
+            fleet.bump_dataset_version(0)
+    fleet.drain()
+    dt = time.time() - t0
+    s = fleet.fleet_stats()
+    print(f"fleet ({args.device}): {args.fleet} front-ends, "
+          f"{s['served']}/{s['submitted']} served in {dt:.2f}s "
+          f"({s['served'] / max(dt, 1e-9):.1f} q/s)")
+    print(f"  hit_rate={s['hit_rate']:.3f} (cache_hits={s['cache_hits']}, "
+          f"of which l2_hits={s['l2_hits']}), "
+          f"events_scanned={s['events_scanned']}")
+    if args.single_flight:
+        print(f"  single-flight: adopted={s['adopted']} tickets rode a "
+              f"remote lease owner's stream "
+              f"(fallbacks={s['lease_fallbacks']})")
+    print(f"  gossip: bound={fleet.rounds_bound} rounds "
+          f"(fanout={fleet.gossip_fanout}), epochs="
+          f"{[fe.catalog.dataset_epoch for fe in fleet.frontends]}")
+    if fleet.l2 is not None:
+        print(f"  shared L2: {len(fleet.l2)} entries, "
+              f"{fleet.l2.stats.hits} hits, "
+              f"{fleet.l2.stats.fragment_puts} fragment installs")
+    if fleet.registry is not None:
+        print(f"  registry: {len(fleet.registry)} fragments tracked, "
+              f"hot={fleet.registry.hot(4)}")
+    if args.policy:
+        # one line is enough: the front-ends' views converge via gossip
+        fe_id, states = next(iter(fleet.policy_states().items()))
+        bad = {n: st for n, st in states.items() if st != "ok"}
+        print(f"  policy[{fe_id}]: {bad if bad else 'all nodes ok'} "
+              f"(gossip repair: "
+              f"{fleet.frontends[0].gossip.stats.repairs} repairs)")
+    if args.stream and sample is not None:
+        owner_idx = fleet.owner_of(sample)
+        reader = (owner_idx + 1) % args.fleet
+        proxy = fleet.stream(sample, frontend=reader)
+        fleet.drain()
+        print(f"  cross-frontend stream: ticket {sample} (owner fe"
+              f"{owner_idx}) read from fe{reader}: {proxy.published} "
+              f"snapshots, state={proxy.state}")
+    if args.trace_out:
+        _dump_trace(fleet.trace_records(), args.trace_out)
+    if args.metrics_dump:
+        _dump_metrics(fleet.metrics_snapshot(), args.metrics_dump)
+    if args.flight_out:
+        n = fleet.save_flight(args.flight_out)
+        print(f"  flight: {n} records -> {args.flight_out} (replay: "
+              f"python -m repro_torch.obs.replay {args.flight_out} "
+              f"--device {args.device})")
+    fleet.close()
 
 
 def prefill_into_cache(cfg, model, params, cache, tokens):
@@ -136,19 +296,10 @@ def serve_queries(args):
     dispatch window against measured scan latency, instead of stepping
     every fixed ``--window`` submissions.  ``--cost-budget`` enables
     per-tenant cost-budgeted admission (planner cost units)."""
-    from repro_torch.configs.geps_events import reduced as geps_reduced
-    from repro_torch.core import events as ev
-    from repro_torch.core.brick import create_store
     from repro_torch.service import (QueryScheduler, QueryService,
                                      WindowController)
 
-    cfg = geps_reduced()
-    schema = ev.EventSchema.from_config(cfg)
-    store = create_store(schema, n_events=args.n_events,
-                         n_nodes=args.n_nodes,
-                         events_per_brick=cfg.events_per_brick,
-                         replication=cfg.replication_factor, seed=0,
-                         device=args.device)
+    _, store = _query_store(args)
     sched = QueryScheduler(
         max_batch=args.window,
         cost_budget_per_tenant=args.cost_budget)
@@ -158,10 +309,22 @@ def serve_queries(args):
         vnow = [0.0]
         clock = lambda: vnow[0]
         wc = WindowController(initial=args.window)
-    svc = QueryService(store, scheduler=sched, window_controller=wc,
+    obs = None
+    if args.trace_out or args.metrics_dump or args.policy:
+        from repro_torch.obs import Observability
+        obs = Observability(origin="fe0")
+    policy = catalog = None
+    if args.policy:
+        # the policy and the service must judge node liveness from the
+        # SAME catalogue, so build it here and hand it to both
+        from repro_torch.core.catalog import MetadataCatalog
+        from repro_torch.service.policy import FailurePolicy
+        catalog = MetadataCatalog(store.n_nodes)
+        policy = FailurePolicy(catalog, store, obs=obs)
+    svc = QueryService(store, catalog, scheduler=sched, window_controller=wc,
                        backend=args.backend,
                        backend_kwargs=_backend_kwargs(args),
-                       device=args.device,
+                       obs=obs, policy=policy, device=args.device,
                        **({"clock": clock} if clock else {}))
     # multi-tenant workload: a few hot queries repeated across tenants
     # (the interactive-analysis regime) plus per-tenant near-duplicate
@@ -230,6 +393,15 @@ def serve_queries(args):
                   f"snapshots ({sample.dropped} conflated), final coverage "
                   f"{cov.events_scanned}/{cov.events_total} events over "
                   f"{len(cov.bricks_seen)}/{cov.bricks_total} bricks")
+    if policy is not None:
+        bad = {n: st for n, st in policy.states().items() if st != "ok"}
+        print(f"  policy: {bad if bad else 'all nodes ok'} "
+              f"(speculation {'on' if policy.config.speculate else 'off'})")
+    if obs is not None:
+        if args.trace_out:
+            _dump_trace(obs.tracer.records(), args.trace_out)
+        if args.metrics_dump:
+            _dump_metrics(obs.metrics.snapshot(), args.metrics_dump)
     svc.close()
 
 
@@ -283,26 +455,54 @@ def main(argv=None):
     ap.add_argument("--mesh-devices", type=int, default=None, metavar="D",
                     help="spmd backend: lockstep emulation of a D-device "
                          "scan mesh")
-    # options of the JAX package's launcher that have no port yet
-    ap.add_argument("--fleet", type=int, default=1)
-    ap.add_argument("--policy", action="store_true")
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
-    ap.add_argument("--metrics-dump", default=None, metavar="PATH")
-    ap.add_argument("--flight-out", default=None, metavar="PATH")
+    ap.add_argument("--fleet", type=int, default=1,
+                    help="number of coherence-fabric front-ends (1 = a "
+                         "single QueryService)")
+    ap.add_argument("--single-flight", action="store_true",
+                    help="with --fleet: scan-intent leases + in-flight "
+                         "stream adoption (fabric/leases.py) — N "
+                         "duplicate scans become 1 scan + N-1 zero-I/O "
+                         "stream subscriptions")
+    ap.add_argument("--policy", action="store_true",
+                    help="enable the failure-policy engine (node state "
+                         "machine, routing avoidance, speculative "
+                         "re-execution, proactive re-replication; with "
+                         "--fleet also gossip ack/repair)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable the observability plane and write the "
+                         "span trace to PATH (.jsonl = JSONL records, "
+                         "anything else = Chrome-trace JSON)")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="enable the observability plane and write the "
+                         "(fleet-merged) metrics snapshot to PATH (.prom "
+                         "= Prometheus text exposition, anything else = "
+                         "JSON)")
+    ap.add_argument("--flight-out", default=None, metavar="PATH",
+                    help="with --fleet: arm the flight recorder and write "
+                         "the causal decision log as JSONL to PATH; "
+                         "replay with 'python -m repro_torch.obs.replay "
+                         "PATH'")
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="with --fleet: seeded message-loss probability "
+                         "on every bus link")
+    ap.add_argument("--bus-seed", type=int, default=0,
+                    help="with --fleet: RNG seed for the bus loss draw")
+    ap.add_argument("--kill-node", type=int, default=None, metavar="N",
+                    help="with --fleet: kill grid node N a third of the "
+                         "way through the workload (failover + liveness "
+                         "gossip)")
+    # an option of the JAX package's launcher that has no port yet
     ap.add_argument("--autotune", action="store_true")
     args = ap.parse_args(argv)
 
     if args.mode == "lm":
         return serve_lm(args)
-    for given, name in ((args.fleet > 1, "--fleet > 1"),
-                        (args.policy, "--policy"),
-                        (args.trace_out, "--trace-out"),
-                        (args.metrics_dump, "--metrics-dump"),
-                        (args.flight_out, "--flight-out"),
-                        (args.autotune, "--autotune")):
-        if given:
-            raise SystemExit(f"{name} {NOT_PORTED}")
-    serve_queries(args)
+    if args.autotune:
+        raise SystemExit(f"--autotune {NOT_PORTED}")
+    if args.fleet > 1:
+        serve_fleet(args)
+    else:
+        serve_queries(args)
 
 
 if __name__ == "__main__":

@@ -271,20 +271,32 @@ class QueryService:
         and stream fan-out address it by this id).
     backend_kwargs:
         Extra constructor kwargs for a string-selected backend — the
-        SPMD performance knobs (``use_pallas``, ``interpret``,
-        ``chunk_events``, ``adaptive_chunks``, ``mesh_devices``,
-        ``autotune``, ``double_buffer``; see ``docs/backends.md``,
-        "Performance tuning") or simulation extras.  Rejected alongside
-        a pre-built backend instance, same as ``time_model``.
+        SPMD performance knobs (``use_pallas``, ``chunk_events``,
+        ``adaptive_chunks``, ``mesh_devices``, ``double_buffer``) or
+        simulation extras (``adaptive_packets``).  Rejected alongside a
+        pre-built backend instance, same as ``time_model``.
     obs:
-        Optional :class:`repro_torch.obs.Observability` bundle.  When present
-        the service traces every ticket (submit/window/plan/dispatch/
-        per-packet/stream/final spans on one deterministic virtual
-        timeline), records the metric catalog of
-        ``docs/observability.md``, feeds the per-node health monitor,
-        and installs the bundle on the execution backend and scheduler.
-        ``None`` (default) disables the whole plane — every
+        Optional :class:`repro_torch.obs.Observability` bundle (a
+        :class:`~repro_torch.fabric.fleet.Fleet` built with ``obs=True``
+        gives each front-end its own).  When present the service traces
+        every ticket (submit/window/plan/dispatch/per-packet/stream/final
+        spans on one deterministic virtual timeline), records the metric
+        catalog of ``docs/observability.md``, feeds the per-node health
+        monitor, and installs the bundle on the execution backend and
+        scheduler.  ``None`` (default) disables the whole plane — every
         instrumentation site is one ``is not None`` test.
+    policy:
+        Optional :class:`repro_torch.service.policy.FailurePolicy` over
+        the service's catalogue: one decision per window, from the
+        health monitor's report when ``obs`` is on (else from node
+        liveness alone), applied as routing, speculation and
+        re-replication on a backend that supports them (the sim
+        backend).  ``None`` (default) disables it.
+    leases:
+        Optional :class:`repro_torch.fabric.leases.LeaseManager`: scan
+        intents announced at submit, duplicate scans adopted from the
+        lease owner's stream (a fleet built with ``single_flight=True``
+        installs one per front-end).
     device:
         Where the scans run (default ``"cuda"``): the store must live
         there, and a string-selected backend is built for it.  Asking

@@ -106,8 +106,9 @@ class QueryScheduler:
         nodes, :meth:`next_batch` narrows the dispatch window by the
         healthy fraction, so sick nodes see less concurrent work while
         staying in rotation.  This is deliberately a hint, not a
-        routing policy — ROADMAP item 4's resource-status system plugs
-        into exactly this consumption point.
+        routing policy — the failure policy
+        (:mod:`repro_torch.service.policy`) plugs into exactly this
+        consumption point.
     """
 
     def __init__(self, *, max_batch: int = 64,

@@ -194,6 +194,36 @@ def test_spmd_scan_goes_through_the_kernel(cuda):
         assert merge_lib.results_identical(a, b)
 
 
+def test_fleet_on_the_spmd_backend_goes_through_the_kernel(cuda):
+    from repro_torch.fabric import Fleet, FragmentRegistry
+    from repro_torch.obs.trace import validate_records
+    store = create_store(ev.EventSchema.from_config(reduced()),
+                         n_events=128, n_nodes=4, events_per_brick=16,
+                         seed=3)
+    exprs = ["e_total > 40 && count(pt > 15) >= 2", "e_t_miss > 30",
+             "pt_lead > 60 || n_tracks >= 8", "e_total > 40 && "
+             "count(pt > 15) >= 2", "e_total > 50 && count(pt > 15) >= 3"]
+    runs = []
+    for use_pallas in (True, False):
+        fleet = Fleet(store, 2, registry=FragmentRegistry(), backend="spmd",
+                      backend_kwargs={"use_pallas": use_pallas}, obs=True,
+                      single_flight=True)
+        before = ef_kernel.LAUNCHES["event_filter_batch"]
+        gtids = [fleet.submit(e, tenant=f"t{i % 2}", stream=True)
+                 for i, e in enumerate(exprs)]
+        fleet.drain()
+        launched = ef_kernel.LAUNCHES["event_filter_batch"] - before
+        scanned = fleet.fleet_stats()["events_scanned"]
+        assert launched > 0 if use_pallas else launched == 0
+        assert scanned > 0 and not validate_records(fleet.trace_records())
+        runs.append([fleet.result(g) for g in gtids])
+        fleet.close()
+    for a, b in zip(*runs):
+        assert a.status == b.status == "SERVED"
+        assert a.result.n_processed == store.n_events
+        assert merge_lib.results_identical(a.result, b.result)
+
+
 # ------------------------------ flash attention -------------------------- #
 # bf16: the kernels keep q * scale in f32 (the scale is applied to the f32
 # scores) while the plain version rounds it to bf16 (as

@@ -27,6 +27,8 @@ from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.configs.registry import reduced_config as reduced_config_lm
+from repro_torch.fabric import Fleet
+from repro_torch.obs.replay import replay_run
 from repro_torch.models.params import params_from_reference
 from repro_torch.service import QueryService
 from test_torch_parity import operands, ref_store, stores
@@ -93,6 +95,51 @@ def test_importing_the_port_loads_no_jax():
     assert proc.stdout.strip().endswith("\nok")
 
 
+def _run_module_isolated(module, argv, cwd):
+    """Run ``python -m module argv`` in a fresh interpreter and fail if it
+    loaded JAX or the JAX package; returns the completed process."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}] + {list(argv)!r}\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('isolated ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=cwd)
+
+
+def test_fleet_launcher_and_replay_cli_load_no_jax(tmp_path):
+    """The fleet path end to end on the CPU: the launcher with the policy,
+    the trace, the metrics, a node leaving and the flight log, then the
+    replay CLI on that log; neither loads JAX or the JAX package."""
+    flight = tmp_path / "flight.jsonl"
+    proc = _run_module_isolated("repro_torch.launch.serve", [
+        "--mode", "query", "--fleet", "4", "--policy",
+        "--trace-out", str(tmp_path / "trace.jsonl"),
+        "--metrics-dump", str(tmp_path / "metrics.prom"),
+        "--flight-out", str(flight), "--kill-node", "1",
+        "--queries", "24", "--n-events", "256", "--device", "cpu"],
+        tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "fleet (cpu): 4 front-ends, 24/24 served" in proc.stdout
+    assert "policy[fe0]: {1: 'banned'}" in proc.stdout
+    assert proc.stdout.strip().endswith("isolated ok")
+    from repro_torch.obs import trace as trace_lib
+    assert trace_lib.validate_file(tmp_path / "trace.jsonl") == []
+    assert "# TYPE" in (tmp_path / "metrics.prom").read_text()
+    proc = _run_module_isolated("repro_torch.obs.replay",
+                                [str(flight), "--device", "cpu"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "bit-identical to recording" in proc.stdout
+    assert proc.stdout.strip().endswith("isolated ok")
+
+
 def _require_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -106,12 +153,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         store_from_reference(ref_store(n_events=16))
     _, store = stores(n_events=32)
     cat = MetadataCatalog(store.n_nodes)
+    recorded = Fleet(store, 2, flight=True, device="cpu")
+    recorded.submit("e_total > 40")
+    recorded.drain()
+    records = list(recorded.flight.records)
     for build in (lambda: SpmdBackend(cat, store),
                   lambda: SimulatedBackend(cat, store),
                   lambda: QueryService(store),
                   lambda: spmd_query_step("e_total > 40", SCHEMA),
                   lambda: spmd_query_batch_step(["e_total > 40"], SCHEMA),
-                  lambda: ev.synthetic_events(torch.Generator(), SCHEMA, 4)):
+                  lambda: ev.synthetic_events(torch.Generator(), SCHEMA, 4),
+                  lambda: Fleet(store, 2),
+                  lambda: replay_run(records, store=store)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     with pytest.raises(RuntimeError, match="'cuda'"):
@@ -126,6 +179,10 @@ def test_serve_launcher_defaults_to_cuda():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--queries", "4", "--n-events", "32"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--mode", "query", "--fleet", "4", "--policy",
+                    "--kill-node", "1", "--queries", "4", "--n-events",
+                    "32"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--mode", "lm", "--arch", "qwen3-14b", "--reduced"])
 
