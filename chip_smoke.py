@@ -13,9 +13,11 @@ Phases, each printing one JSON line:
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
-   with and without a sum(pt) cap.  Masks must be equal at calib 0 without
-   a cap; otherwise they may differ only on band events (a count-driving
-   pt or the sum within rtol 1e-5 of its threshold), which are counted.
+   with and without a sum(pt) cap, the batched kernel at each block size
+   the launch-shape sweep may pick (128, 256, 512 threads).  Masks must be
+   equal at calib 0 without a cap; otherwise they may differ only on band
+   events (a count-driving pt or the sum within rtol 1e-5 of its
+   threshold), which are counted.
    flash_attention at qwen3-14b's decode (B 2, Sq 1, Sk in {1, 9, 24,
    256}, 48 q heads over 8 kv heads of 128, bf16) and prefill (B 1,
    Sq = Sk = 2048, causal, bf16) shapes, at recurrentgemma-9b's decode
@@ -23,7 +25,11 @@ Phases, each printing one JSON line:
    1, Sq = Sk = 4096, window 2048) shapes, the tensor-core kernels off
    those shapes (Sq 300, 64 <= Sq < Sk, head dim 64, window with softcap,
    non-causal, decode over 2048- and 4096-slot rings, which takes the
-   split-K path and its merge), and small cases (Sq < Sk, a window, a
+   split-K path and its merge), whisper-medium's non-causal shapes at
+   head dim 64 and full MHA (the 1500-frame encoder, cross-attention of 1
+   query over 1500 keys on 4 splits with a ragged last tile, and of 448
+   queries over 1500 keys; each must take its planned kernel and splits),
+   and small cases (Sq < Sk, a window, a
    softcap, ragged tiles, f32, head dim 16), within |kernel - plain| <=
    atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with TF32 off (FA_TOL);
    bf16 cases also against the plain version in f32 on the same values.
@@ -54,6 +60,14 @@ Phases, each printing one JSON line:
    lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
    time by kernel and the card's busy share;
+   autotune — the same workload through QueryService on spmd with the
+   kernel and autotune=True: each shape class of its windows sweeps the
+   kernel's block sizes on a sample chunk (one warm-up and tune.REPEATS
+   timed launches a candidate) and every kernel chunk launches with the
+   winner; the sweep's launches are counted apart and the chunks' must
+   equal the kernel chunks; every final must be identical to the
+   plain-path service's; each verdict (the candidates' ms, the winner,
+   the default, the speedup) is printed;
    fleet   — on the same resident store, a Fleet of 4 front-ends on the
    spmd backend with the kernel, the observability plane and
    single-flight leases on, runs the launcher's fleet workload (64
@@ -74,35 +88,50 @@ Phases, each printing one JSON line:
    run on fixed packets must give finals identical to a run with no node
    leaving (adaptive packets follow the nodes' virtual times, so their
    float sums differ in the last bits there, in the JAX package too);
-5. lm      — the query store freed, three LMs at full width, one on the
+5. lm      — the query store freed, six LMs at full width, one on the
    card at a time, each held by ``LanguageModel`` with parameters drawn
    from a seeded generator: qwen3-14b (40 layers, d_model 5120, 48 (40
    real) q heads x 128 over 8 kv heads, d_ff 17408, 30.4 GB bf16),
    recurrentgemma-9b (38 layers = 12 x (rec, rec, attn) + (rec, rec),
    d_model 4096, lru_width 4096, 16 q heads x 256 over 1 kv head, window
-   2048, 17.2 GB) and xlstm-350m (24 layers = 3 x (7 mLSTM + 1 sLSTM),
-   d_model 1024, 4 heads, 0.66 GB).  Each serves generate() for a batch
-   of 2 prompts of 8 tokens and 16 new tokens: 24 decode steps, each
-   attention call the flash kernel, so flash_attention must launch 40 x
-   24 = 960 times for qwen3-14b, 12 x 24 = 288 for recurrentgemma-9b and
-   0 for xlstm-350m, whose decode runs no kernel (counts of every LM
-   kernel zeroed just before, read just after), every flash call on the
-   GQA-packed decode kernel (``flash_attention.decode``).  The same tokens are
+   2048, 17.2 GB), xlstm-350m (24 layers = 3 x (7 mLSTM + 1 sLSTM),
+   d_model 1024, 4 heads, 0.66 GB), pixtral-12b (40 layers, d_model 5120,
+   32 q heads x 128 over 8, the stub patch projection, 24.5 GB),
+   phi3.5-moe (16 of its 32 layers, LM_LAYERS: d_model 4096, 32 q heads
+   over 8, 16 experts top-2 of d_ff 6400, ~42 GB; 32 layers are 83.7 GB)
+   and whisper-medium (24 encoder + 24 decoder layers, d_model 1024, 16
+   heads of 64, full MHA, 1500 stub frames, 1.6 GB).  Each serves
+   generate() for a batch of 2 prompts of 8 tokens and 16 new tokens: 24
+   decode steps, each attention call the flash kernel, so flash_attention
+   must launch 40 x 24 = 960 times for qwen3-14b and pixtral-12b, 12 x 24
+   = 288 for recurrentgemma-9b, 16 x 24 = 384 for phi3.5-moe, 24 x (24 +
+   24) = 1,152 for whisper-medium (self- and cross-attention) after its
+   24-layer encoder fills the cross cache (24 on ``flash_attention.wgmma``)
+   and 0 for xlstm-350m, whose decode runs no kernel (counts of every LM
+   kernel zeroed just before, read just after), every decode-step flash
+   call on the GQA-packed decode kernel (``flash_attention.decode``).  The
+   same tokens are
    replayed teacher-forced through the kernels (their argmax must give
    generate()'s tokens) and through the plain versions
-   (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b
-   each step's max |logit difference| over the plain logits' spread must
-   stay within LM_REL_TOL, and the top-1 agreement at or above
-   LM_TOP1_MIN.  One more generate() under torch.profiler gives the
+   (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b,
+   and for pixtral-12b, phi3.5-moe and whisper-medium where the path's own
+   two plain runs agree within LM_REL_TOL and LM_TOP1_MIN
+   (E2E_IF_STABLE), each step's max |logit difference| over the plain
+   logits' spread must stay within LM_REL_TOL, and the top-1 agreement at
+   or above LM_TOP1_MIN.  One more generate() under torch.profiler gives the
    device time by kernel and the busy share;
 6. prefill — one forward() for each LM: qwen3-14b over 1 x 2048 tokens
    (40 flash launches), recurrentgemma-9b over 1 x 4096 (26 rglru_scan
    and 12 flash launches; the window bites), every flash call on the
    tensor-core prefill kernel (``flash_attention.wgmma``), xlstm-350m
    over 1 x 2048 (21 mlstm launches, all on the tensor-core kernel,
-   ``mlstm.wgmma``), each compared with the same forward on the plain
-   versions in the same way; then xlstm-350m's forward logits over 1024
-   tokens against a teacher-forced decode of the same tokens (the
+   ``mlstm.wgmma``), pixtral-12b over 1 x 2048 with 256 stub patch
+   embeddings (40 flash launches), phi3.5-moe over 1 x 2048 (16),
+   whisper-medium over 1500 stub frames and 448 tokens (72: 24 encoder,
+   24 decoder self- and 24 cross-attention), every flash call of these
+   on ``flash_attention.wgmma``, each compared with the same forward on
+   the plain versions in the same way; then xlstm-350m's forward logits
+   over 1024 tokens against a teacher-forced decode of the same tokens (the
    recurrent form), which ties the mLSTM kernel to the recurrence.  Every
    kernel call of these paths is also held against its plain version in
    f32 on the same inputs (``shadow_kernels()``); a flash_attention call
@@ -119,13 +148,17 @@ Phases, each printing one JSON line:
    plain version and its bound: device time (CUDA graph replay) and time
    per call (CUDA events around calls from the host); flash_attention at
    the decode shape with Sk = 24 and at the 2048 prefill (qwen3-14b), at
-   recurrentgemma-9b's decode and its 4096 prefill under the window, with
+   recurrentgemma-9b's decode and its 4096 prefill under the window, at
+   whisper-medium's encoder (2, 1500, 1500) and cross-attention at decode
+   (2, 1 over 1500) and in the forward (1, 448 over 1500), all three
+   non-causal (their bound counts every key), with
    scaled_dot_product_attention (enable_gqa; an explicit mask under the
    window) as the library call; rglru_scan and mlstm with no library call
    (no PyTorch call computes either function); every row with its share of
    the bound, the event filter's also with the sector bound of the store's
    strided pt, beside the launch floor (a one-element fill);
-8. the kernels line, nvidia-smi's line, and the result line.
+8. the kernels line (flash_attention's launches summed over every LM
+   path), nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -173,10 +206,18 @@ MLSTM_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (5e-4, 5e-4)}
 LM_ARCH = "qwen3-14b"
 RG_ARCH = "recurrentgemma-9b"
 XL_ARCH = "xlstm-350m"
+PX_ARCH = "pixtral-12b"
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+WH_ARCH = "whisper-medium"
+# layers on the card where the published depth does not fit: phi3.5-moe's
+# 32 layers are 83.7 GB in bf16, 16 at full width ~42 GB
+LM_LAYERS = {MOE_ARCH: 16}
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8, 16
 PREFILL_LEN = 2048
-# forward lengths: recurrentgemma's 4096 passes its 2048 attention window
-FORWARD_LEN = {LM_ARCH: PREFILL_LEN, RG_ARCH: 4096, XL_ARCH: 2048}
+# forward lengths: recurrentgemma's 4096 passes its 2048 attention window;
+# whisper's decoder reads 448 tokens beside its 1500 encoder frames
+FORWARD_LEN = {LM_ARCH: PREFILL_LEN, RG_ARCH: 4096, XL_ARCH: 2048,
+               PX_ARCH: PREFILL_LEN, MOE_ARCH: PREFILL_LEN, WH_ARCH: 448}
 # xlstm-350m's forward against its own decode: the decode runs token by
 # token (~50 ms a step, host-bound), so 1024 tokens keep it near a minute
 TIE_LEN = 1024
@@ -194,6 +235,10 @@ TIE_LEN = 1024
 # (shadow_kernels), and the end-to-end numbers are reported beside that
 # baseline.
 E2E_GATED = (LM_ARCH,)
+# models gated end to end when their own two plain runs (bf16 and f32
+# plain versions) agree within LM_REL_TOL and LM_TOP1_MIN on the path;
+# otherwise reported beside that baseline, as the recurrent models are
+E2E_IF_STABLE = (PX_ARCH, MOE_ARCH, WH_ARCH)
 LM_REL_TOL = 5e-2     # max |logit difference| / spread of the plain logits
 LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 
@@ -392,19 +437,23 @@ def phase_kernels(gen):
                 for cap in (False, True):
                     ops = make_operands(gen, *shape, k, cap=cap)
                     scalars, tracks, n_tracks, thr, var_idx = ops
-                    mask, var = ef_kernel.event_filter_batch_cuda(
-                        *ops, calib_iters=calib)
-                    torch.cuda.synchronize()
                     mask_p, var_p = event_filter_batch_ref(
                         scalars, tracks, n_tracks, thr, var_idx=var_idx,
                         calib_iters=calib)
-                    nb, err = compare(mask, var, mask_p, var_p, tracks,
-                                      n_tracks, thr, calib, cap,
-                                      "event_filter_batch")
-                    row = {"kernel": "event_filter_batch",
-                           "shape": list(shape), "k": k, "calib": calib,
-                           "cap": cap, "band_events": nb,
-                           "max_abs_err": err}
+                    # every block size the launch-shape sweep may pick
+                    for threads in ef_kernel.LAUNCH_THREADS:
+                        mask, var = ef_kernel.event_filter_batch_cuda(
+                            *ops, calib_iters=calib, threads=threads)
+                        torch.cuda.synchronize()
+                        name = f"event_filter_batch ({threads} threads)"
+                        nb, err = compare(mask, var, mask_p, var_p, tracks,
+                                          n_tracks, thr, calib, cap, name)
+                        row = {"kernel": "event_filter_batch",
+                               "shape": list(shape), "k": k,
+                               "calib": calib, "cap": cap,
+                               "threads": threads, "band_events": nb,
+                               "max_abs_err": err}
+                        rows.append(row)
                     if k == 1:
                         t1 = thr[:, 0].contiguous()
                         m1, v1 = ef_kernel.event_filter_cuda(
@@ -417,9 +466,9 @@ def phase_kernels(gen):
                                             n_tracks, t1, calib, cap,
                                             "event_filter")
                         rows.append({**row, "kernel": "event_filter",
+                                     "threads": ef_kernel.DEFAULT_THREADS,
                                      "band_events": nb1,
                                      "max_abs_err": err1})
-                    rows.append(row)
     return rows
 
 
@@ -473,6 +522,20 @@ def time_kernel(name, gen, shape, k, calib_iters):
 # --------------------------------------------------------------------- #
 # flash attention
 # --------------------------------------------------------------------- #
+# whisper-medium's new shapes, with the device kernel and the number of
+# key splits the plan must give each on an H100
+WHISPER_FA_CASES = [
+    ("whisper encoder", 2, 1500, 1500, 16, 16, 64, torch.bfloat16,
+     {"causal": False}),
+    ("whisper cross decode", 2, 1, 1500, 16, 16, 64, torch.bfloat16,
+     {"causal": False}),
+    ("whisper cross forward", 1, 448, 1500, 16, 16, 64, torch.bfloat16,
+     {"causal": False}),
+]
+WHISPER_FA_PLANS = {"whisper encoder": ("wgmma", 1),
+                    "whisper cross decode": ("decode", 4),
+                    "whisper cross forward": ("wgmma", 1)}
+
 # (case, B, Sq, Sk, H, K, D, dtype, flags): qwen3-14b's and
 # recurrentgemma-9b's decode steps and prefill at full width, then the
 # small cases
@@ -498,6 +561,11 @@ FA_CASES = [
     ("rg long ring", 2, 1, 2048, 16, 1, 256, torch.bfloat16,
      {"window": 2048}),
     ("long ring", 2, 1, 4096, 48, 8, 128, torch.bfloat16, {}),
+    # whisper-medium (16 heads of 64, full MHA): the non-causal 1500-frame
+    # encoder, cross-attention at decode (1 query over 1500 keys: 24 key
+    # tiles, the last ragged, in 4 splits) and in the decoder's forward
+    # (448 queries over 1500 keys)
+    *WHISPER_FA_CASES,
     ("decode 2 rows", 1, 2, 300, 12, 2, 64, torch.bfloat16,
      {"logit_cap": 20.0}),
     ("d256 ragged", 1, 300, 300, 4, 2, 256, torch.float32, {"window": 200}),
@@ -554,6 +622,11 @@ def phase_flash_kernels(gen):
                "dtype": str(dtype).split(".")[-1], "flags": kw,
                "variant": pl.variant, "splits": len(pl.splits),
                "max_abs_err": err}
+        if name in WHISPER_FA_PLANS and \
+                (pl.variant, len(pl.splits)) != WHISPER_FA_PLANS[name]:
+            raise AssertionError(f"flash_attention {name}: plan "
+                                 f"{pl.variant} with {len(pl.splits)} "
+                                 f"splits, expected {WHISPER_FA_PLANS[name]}")
         if dtype != torch.float32:
             # and against the plain version in f32 on the same values (the
             # kernels' arithmetic: q * scale never rounded), as the LM
@@ -565,36 +638,41 @@ def phase_flash_kernels(gen):
     return rows
 
 
-def fa_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None):
-    """Least time for causal attention on these shapes: q, k, v read and
-    the output written once at the HBM rate, against 4 flops per (query,
-    valid key, head, head-dim) pair at the bf16 tensor-core rate (a window
-    leaves the last ``window`` keys of each query valid); the larger of
-    the two, and which one it is."""
+def fa_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None, causal=True):
+    """Least time for attention on these shapes: q, k, v read and the
+    output written once at the HBM rate, against 4 flops per (query,
+    valid key, head, head-dim) pair at the bf16 tensor-core rate (causal:
+    the keys up to the query's position, a window leaving the last
+    ``window`` of them; not causal: every key); the larger of the two,
+    and which one it is."""
     nbytes = itemsize * (2 * b * sq * h * d + 2 * b * sk * kh * d)
-    pairs = sum(min(sk, i + sk - sq + 1, window or sk) for i in range(sq))
+    if causal:
+        pairs = sum(min(sk, i + sk - sq + 1, window or sk)
+                    for i in range(sq))
+    else:
+        pairs = sq * sk
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
-def time_flash(gen, b, sq, sk, h, kh, d, window=None):
-    """flash_attention at one main-path shape (bf16, causal) over
-    TIMING_ROTATION operand sets: kernel and plain version as in
-    ``time_kernel``, and the library call,
-    ``scaled_dot_product_attention(enable_gqa=True)`` (causal at prefill,
-    or an explicit boolean mask under a window; at decode every key is
-    valid and SDPA would align a causal mask top-left), timed only."""
+def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
+    """flash_attention at one main-path shape (bf16) over TIMING_ROTATION
+    operand sets: kernel and plain version as in ``time_kernel``, and the
+    library call, ``scaled_dot_product_attention(enable_gqa=True)``
+    (causal at prefill, or an explicit boolean mask under a window; at
+    decode, and in a call that is not causal, every key is valid, and
+    SDPA would align a causal mask top-left), timed only."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sets = [fa_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16)
             for _ in range(TIMING_ROTATION)]
     kern = [functools.partial(fa_kernel.flash_attention_cuda, *qkv,
-                              window=window) for qkv in sets]
-    plain = [functools.partial(flash_attention_ref, *qkv, window=window)
-             for qkv in sets]
-    lib_kw = {"is_causal": sq > 1}
+                              window=window, causal=causal) for qkv in sets]
+    plain = [functools.partial(flash_attention_ref, *qkv, window=window,
+                               causal=causal) for qkv in sets]
+    lib_kw = {"is_causal": causal and sq > 1}
     if window is not None:
         q_pos = torch.arange(sq, device=DEVICE)[:, None] + sk - sq
         k_pos = torch.arange(sk, device=DEVICE)[None, :]
@@ -607,8 +685,8 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None):
         err = max(err, fa_check(out, want, torch.bfloat16, "timing"))
         lib_err = max(lib_err, float((lo.float() - want.float()).abs()
                                      .max()))
-    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2, window)
-    pl = fa_kernel.plan(b, sq, sk, h, kh, d, torch.bfloat16, True, window)
+    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2, window, causal)
+    pl = fa_kernel.plan(b, sq, sk, h, kh, d, torch.bfloat16, causal, window)
     return {"variant": pl.variant, "splits": len(pl.splits),
             **time_pair(kern, plain), "library_ms": device_time_ms(lib),
             "library_max_abs_err": lib_err, "bound_ms": bound,
@@ -1068,6 +1146,72 @@ def phase_serve(store):
     return ({"event_filter_batch": launches["event_filter_batch"],
              "event_filter": step_launches["event_filter"]},
             backend.kernel_widths)
+
+
+def phase_autotune(store):
+    """The serve workload through QueryService on spmd with the kernel and
+    ``autotune=True``: each shape class of the windows (chunk x K x calib)
+    sweeps the kernel's block sizes on a sample chunk, once, and every
+    kernel chunk launches with the winner.  The sweep's launches (one
+    warm-up and ``tune.REPEATS`` timed a candidate) are counted apart: the
+    chunks' launches must equal the kernel chunks, as in the serve phase.
+    Every final must be identical to the plain-path service's."""
+    from repro_torch.core.backend import SpmdBackend
+    from repro_torch.core.catalog import MetadataCatalog
+    from repro_torch.kernels.event_filter import tune
+    from repro_torch.service import QueryScheduler, QueryService
+
+    tune.clear_cache()
+    backend = record_windows(SpmdBackend(MetadataCatalog(store.n_nodes),
+                                         store, use_pallas=True,
+                                         autotune=True, device="cuda"))
+    svc = QueryService(store, backend=backend,
+                       scheduler=QueryScheduler(max_batch=16),
+                       device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tids, launches = counted(lambda: serve_workload(svc))
+    wall = time.perf_counter() - t0
+    sweeps = tune.cached_shapes()
+    sweep_launches = sum(len(ts.measurements) for ts in sweeps.values()) \
+        * (1 + tune.REPEATS)
+    scanned, kernel_events, n_chunks = kernel_chunks([backend])
+    chunk_launches = launches["event_filter_batch"] - sweep_launches
+    if not sweeps or chunk_launches != n_chunks or n_chunks <= 0:
+        raise AssertionError(
+            f"the autotuned serve run launched event_filter_batch "
+            f"{launches['event_filter_batch']} times: {sweep_launches} for "
+            f"{len(sweeps)} sweeps and {chunk_launches} for {n_chunks} "
+            f"kernel chunks")
+    if launches["event_filter"] != 0 or kernel_events != scanned:
+        raise AssertionError(f"autotune: {launches}, kernel_events "
+                             f"{kernel_events} != events_scanned {scanned}")
+    for ts in sweeps.values():
+        timed = dict(ts.measurements)
+        if sorted(timed) != list(tune.CANDIDATES) or \
+                ts.default_ms != timed[tune.DEFAULT_SHAPE] or \
+                ts.best_ms != min(timed.values()) or \
+                ts.speedup_vs_default < 1.0:
+            raise AssertionError(f"autotune verdict malformed: {ts}")
+    plain = QueryService(store, backend="spmd",
+                         backend_kwargs={"use_pallas": False},
+                         scheduler=QueryScheduler(max_batch=16),
+                         device="cuda")
+    tids_p = serve_workload(plain)
+    check_finals("autotune", svc, tids, plain, tids_p, store.n_events)
+    svc.close()
+    plain.close()
+    emit({"phase": "autotune", "tickets": len(tids),
+          "windows": len(backend.window_stats),
+          "sweeps": [{"key": list(key), **dataclasses.asdict(ts),
+                      "speedup_vs_default": ts.speedup_vs_default}
+                     for key, ts in sweeps.items()],
+          "last_winner": backend.last_autotune.threads,
+          "launches": launches, "sweep_launches": sweep_launches,
+          "chunk_launches": chunk_launches, "kernel_chunks": n_chunks,
+          "wall_s": wall, "events_per_s": scanned / wall,
+          "results_identical_to_plain": True})
+    tune.clear_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -1558,11 +1702,24 @@ def summary(cmp):
             for key, val in cmp.items() if key.startswith("plain")}
 
 
+def e2e_gated(cfg, cmp) -> bool:
+    """Whether a path's end-to-end logits are held against the plain
+    versions: always for E2E_GATED; for E2E_IF_STABLE when the path's own
+    two plain runs (bf16 and f32 plain versions) agree within LM_REL_TOL
+    and LM_TOP1_MIN, so that a difference there is the kernels'."""
+    if cfg.name in E2E_GATED:
+        return True
+    base = cmp["plain_vs_plain_f32"]
+    return cfg.name in E2E_IF_STABLE and \
+        base["max_rel_logit_diff"] <= LM_REL_TOL and \
+        base["top1_agreement"] >= LM_TOP1_MIN
+
+
 def check_runs(name, cfg, cmp):
     """The per-call check always; the end-to-end logits against the plain
-    versions where the model is not chaotic (E2E_GATED)."""
+    versions where the model is not chaotic (``e2e_gated``)."""
     check_calls(name, cmp["per_call"])
-    if cfg.name in E2E_GATED:
+    if e2e_gated(cfg, cmp):
         check_logits(name, [cmp["plain"]["max_rel_logit_diff"]],
                      cmp["plain"]["top1_agreement"])
 
@@ -1596,15 +1753,15 @@ def check_launches(name, got, want):
         raise AssertionError(f"{name} launched {got}, expected {want}")
 
 
-def lm_launches(flash=0, variant=None, rglru_scan=0, mlstm=0):
-    """The launch counts of one LM path: ``flash`` flash_attention calls,
-    all taking the device kernel ``variant``, and ``mlstm`` calls, all on
-    the tensor-core kernel."""
+def lm_launches(rglru_scan=0, mlstm=0, **flash):
+    """The launch counts of one LM path: flash_attention calls by the
+    device kernel each takes (``decode=``, ``wgmma=``), and ``mlstm``
+    calls, all on the tensor-core kernel."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
-    out = {"flash_attention": flash, "rglru_scan": rglru_scan,
-           "mlstm": mlstm}
-    out.update({f"flash_attention.{key}": flash if key == variant else 0
+    out = {"flash_attention": sum(flash.values()),
+           "rglru_scan": rglru_scan, "mlstm": mlstm}
+    out.update({f"flash_attention.{key}": flash.get(key, 0)
                 for key in fa_kernel.VARIANTS})
     out.update({f"mlstm.{key}": mlstm if key == "wgmma" else 0
                 for key in ml_kernel.VARIANTS})
@@ -1614,23 +1771,30 @@ def lm_launches(flash=0, variant=None, rglru_scan=0, mlstm=0):
 def path_launches(cfg):
     """What each path of ``cfg``'s model must launch, counted from its
     pattern: ``generate`` (every decode step's attention layers, each on
-    the GQA-packed decode kernel) and one ``forward`` (each attention,
-    RG-LRU and mLSTM layer once, the attention and the mLSTM on their
-    tensor-core kernels)."""
+    the GQA-packed decode kernel; whisper's cross-cache fill first, its
+    encoder on the tensor-core kernel) and one ``forward`` (each
+    attention, RG-LRU and mLSTM layer once, the attention and the mLSTM
+    on their tensor-core kernels)."""
     from repro_torch.models import hybrid, xlstm
     steps = LM_PROMPT + LM_NEW
     if cfg.family == "hybrid":
         unit, n_super, tail = hybrid._pattern(cfg)
         n_attn = n_super * unit.count("attn")
         n_rec = n_super * unit.count("rec") + tail.count("rec")
-        return (lm_launches(n_attn * steps, "decode"),
-                lm_launches(n_attn, "wgmma", rglru_scan=n_rec))
+        return (lm_launches(decode=n_attn * steps),
+                lm_launches(wgmma=n_attn, rglru_scan=n_rec))
     if cfg.family == "ssm":
         unit, n_super = xlstm._pattern(cfg)
         return (lm_launches(),
                 lm_launches(mlstm=n_super * unit.count("mlstm")))
-    return (lm_launches(cfg.num_layers * steps, "decode"),
-            lm_launches(cfg.num_layers, "wgmma"))
+    if cfg.family == "audio":
+        # the encoder's self-attention; the decoder's self- and
+        # cross-attention in every layer
+        enc, dec = cfg.num_encoder_layers, 2 * cfg.num_layers
+        return (lm_launches(wgmma=enc, decode=dec * steps),
+                lm_launches(wgmma=enc + dec))
+    return (lm_launches(decode=cfg.num_layers * steps),
+            lm_launches(wgmma=cfg.num_layers))
 
 
 def compare_logits(kern, plain, vocab):
@@ -1657,12 +1821,14 @@ def check_logits(name, rel, top1):
 
 
 def build_lm(arch):
-    """``arch`` at full width on the card, weights from a seeded
-    generator, held by ``LanguageModel``: (cfg, model facade, parameter
-    tree)."""
+    """``arch`` at full width on the card (at ``LM_LAYERS`` depth where the
+    published one does not fit), weights from a seeded generator, held by
+    ``LanguageModel``: (cfg, model facade, parameter tree)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model_zoo
     cfg = get_config(arch)
+    if arch in LM_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS[arch])
     model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -1671,7 +1837,13 @@ def build_lm(arch):
     lm = model_zoo.LanguageModel(model, model.table.init(gen, DEVICE))
     torch.cuda.synchronize()
     emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "layers": cfg.num_layers,
+          "published_layers": get_config(arch).num_layers,
+          "encoder_layers": cfg.num_encoder_layers,
+          "encoder_seq_len": cfg.encoder_seq_len
+          if cfg.is_encoder_decoder else 0,
+          "experts": [cfg.num_experts, cfg.num_experts_per_tok],
+          "patches": cfg.num_patches, "d_model": cfg.d_model,
           "q_heads": [cfg.num_heads, cfg.num_heads_padded],
           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
           "d_ff": cfg.d_ff, "lru_width": cfg.lru_width,
@@ -1685,10 +1857,45 @@ def build_lm(arch):
     return cfg, model, lm.tree()
 
 
-def replay(cfg, model, params, seq):
-    """Teacher-forced decode of ``seq`` (B, S) from an empty cache: the
-    logits of every step, (S, B, Vp) f32."""
-    cache = model.init_cache(seq.shape[0], 256, DEVICE)
+def lm_start(cfg, model, params):
+    """A function giving the decode state a generate or a replay starts
+    from: None (the model's own empty cache), or for an encoder-decoder
+    a fresh cache whose cross-attention K/V the encoder filled from the
+    same seeded stub frames each time (so the encoder runs on whatever
+    kernels the caller's block swapped in)."""
+    from repro_torch.launch.serve import encoder_cache
+    if not cfg.is_encoder_decoder:
+        return lambda: None
+
+    def start():
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(5)
+        return encoder_cache(cfg, model, params, LM_BATCH, gen)[0]
+    return start
+
+
+def forward_inputs(cfg, length):
+    """One forward's batch over ``length`` tokens: pixtral's 256 stub patch
+    embeddings, whisper's 1500 stub frames, from a seeded generator."""
+    from repro_torch.models.params import torch_dtype
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, length),
+                                     generator=gen, device=DEVICE)}
+    extra = {"patch_embeds": cfg.num_patches,
+             "frames": cfg.encoder_seq_len if cfg.is_encoder_decoder else 0}
+    for key, rows in extra.items():
+        if rows:
+            batch[key] = torch.randn((1, rows, cfg.d_model), generator=gen,
+                                     device=DEVICE).to(torch_dtype(cfg.dtype))
+    return batch
+
+
+def replay(cfg, model, params, seq, cache=None):
+    """Teacher-forced decode of ``seq`` (B, S) from ``cache`` (None: an
+    empty one): the logits of every step, (S, B, Vp) f32."""
+    if cache is None:
+        cache = model.init_cache(seq.shape[0], 256, DEVICE)
     steps = []
     for s in range(seq.shape[1]):
         logits, cache = model.decode_step(params, cache, seq[:, s:s + 1])
@@ -1701,15 +1908,17 @@ def phase_lm(cfg, model, params):
     """generate() through the kernels, its launch counts, tok/s, and the
     teacher-forced comparison with the plain versions."""
     from repro_torch.launch.serve import generate
+    start = lm_start(cfg, model, params)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                            generator=gen, device=DEVICE)
-    generate(cfg, model, params, prompt, max_new_tokens=2)   # warm-up
+    generate(cfg, model, params, prompt, max_new_tokens=2,
+             cache=start())   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tokens, launches = lm_counted(lambda: generate(
-        cfg, model, params, prompt, max_new_tokens=LM_NEW))
+        cfg, model, params, prompt, max_new_tokens=LM_NEW, cache=start()))
     wall = time.perf_counter() - t0
     check_launches(f"{cfg.name} generate", launches, path_launches(cfg)[0])
     if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
@@ -1718,16 +1927,18 @@ def phase_lm(cfg, model, params):
                              "ids outside the vocab")
 
     seq = torch.cat([prompt, tokens], dim=1)   # what the 24 steps were fed
-    kern = replay(cfg, model, params, seq)
+    kern = replay(cfg, model, params, seq, start())
     pred = kern[..., :cfg.vocab_size].argmax(-1)       # (steps, B)
     if not torch.equal(pred[LM_PROMPT - 1:LM_PROMPT - 1 + LM_NEW].T, tokens):
         raise AssertionError("the kernels' teacher-forced replay does not "
                              "give generate()'s tokens")
-    cmp = compare_runs(cfg, kern, lambda: replay(cfg, model, params, seq),
+    cmp = compare_runs(cfg, kern,
+                       lambda: replay(cfg, model, params, seq, start()),
                        lambda logits: logits)
     check_runs(f"{cfg.name} serve", cfg, cmp)
     profile_run("lm_profile", lambda: generate(
-        cfg, model, params, prompt, max_new_tokens=LM_NEW), arch=cfg.name)
+        cfg, model, params, prompt, max_new_tokens=LM_NEW, cache=start()),
+        arch=cfg.name)
     emit({"phase": "lm", "arch": cfg.name, "batch": LM_BATCH,
           "prompt": LM_PROMPT, "new_tokens": LM_NEW,
           "decode_steps": LM_PROMPT + LM_NEW,
@@ -1737,7 +1948,7 @@ def phase_lm(cfg, model, params):
           "ms_per_decode_step": wall / (LM_PROMPT + LM_NEW) * 1e3,
           "rel_logit_diff_per_step": cmp["plain"]["rel_logit_diff"],
           "top1_agreement": cmp["plain"]["top1_agreement"],
-          "end_to_end_gated": cfg.name in E2E_GATED, **summary(cmp),
+          "end_to_end_gated": e2e_gated(cfg, cmp), **summary(cmp),
           "per_call": cmp["per_call"], "sample": tokens[0].tolist()})
     return launches
 
@@ -1748,28 +1959,29 @@ def phase_prefill(cfg, model, params):
     (each attention, RG-LRU and mLSTM layer launches once), compared with
     the same forward on the plain versions."""
     length = FORWARD_LEN[cfg.name]
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, (1, length), generator=gen,
-                         device=DEVICE)
+    batch = forward_inputs(cfg, length)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (logits, _), launches = lm_counted(
-        lambda: model.forward(params, {"tokens": toks}))
+    (logits, aux), launches = lm_counted(
+        lambda: model.forward(params, batch))
     wall = time.perf_counter() - t0
     check_launches(f"{cfg.name} forward", launches, path_launches(cfg)[1])
+    if not bool(torch.isfinite(aux)):
+        raise AssertionError(f"{cfg.name} forward: aux loss {aux}")
     # each position is one row of the comparison
     cmp = compare_runs(cfg, logits,
-                       lambda: model.forward(params, {"tokens": toks})[0],
+                       lambda: model.forward(params, batch)[0],
                        lambda x: x[0][:, None])
     del logits
     check_runs(f"{cfg.name} forward", cfg, cmp)
     emit({"phase": "prefill", "arch": cfg.name, "tokens": length,
+          "inputs": {k: list(v.shape) for k, v in batch.items()},
+          "aux_loss": float(aux),
           "flash_attention_launches": launches["flash_attention"],
           "launches": launches, "wall_s": wall, "tok_per_s": length / wall,
           "max_rel_logit_diff": cmp["plain"]["max_rel_logit_diff"],
           "top1_agreement": cmp["plain"]["top1_agreement"],
-          "end_to_end_gated": cfg.name in E2E_GATED, **summary(cmp),
+          "end_to_end_gated": e2e_gated(cfg, cmp), **summary(cmp),
           "per_call": cmp["per_call"]})
     return launches
 
@@ -1937,6 +2149,7 @@ def main(argv=None) -> int:
     # each), then the fleet and failover paths on the same resident store
     store = build_store(args.n_events)
     launches, widths = phase_serve(store)
+    phase_autotune(store)
     phase_fleet(store)
     phase_failover(store)
     del store
@@ -1944,14 +2157,18 @@ def main(argv=None) -> int:
 
     # 5, 6. each LM at full width: serve and one forward (launch counts
     # read around each path), one model on the card at a time
+    # flash_attention launches of every LM path, per model and path
+    flash = {}
     lm = build_lm(LM_ARCH)
-    launches["flash_attention"] = phase_lm(*lm)["flash_attention"]
-    prefill_launches = phase_prefill(*lm)["flash_attention"]
+    flash[LM_ARCH] = (phase_lm(*lm)["flash_attention"],
+                      phase_prefill(*lm)["flash_attention"])
     del lm
     release()
     lm = build_lm(RG_ARCH)
     rg_serve = phase_lm(*lm)
     rg_forward = phase_prefill(*lm)
+    flash[RG_ARCH] = (rg_serve["flash_attention"],
+                      rg_forward["flash_attention"])
     launches["rglru_scan"] = rg_forward["rglru_scan"]
     del lm
     release()
@@ -1961,6 +2178,15 @@ def main(argv=None) -> int:
     phase_recurrent_tie(*lm)
     del lm
     release()
+    # the vlm, moe and audio families: pixtral-12b, phi3.5-moe at 16 of
+    # its 32 layers, whisper-medium
+    for arch in (PX_ARCH, MOE_ARCH, WH_ARCH):
+        lm = build_lm(arch)
+        flash[arch] = (phase_lm(*lm)["flash_attention"],
+                       phase_prefill(*lm)["flash_attention"])
+        del lm
+        release()
+    launches["flash_attention"] = sum(sum(n) for n in flash.values())
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -1979,6 +2205,12 @@ def main(argv=None) -> int:
     rg_len = FORWARD_LEN[RG_ARCH]
     rg_decode = time_flash(gen, LM_BATCH, 1, LM_PROMPT + LM_NEW, 16, 1, 256)
     rg_prefill = time_flash(gen, 1, rg_len, rg_len, 16, 1, 256, window=2048)
+    # whisper-medium: the encoder of generate's cross-cache fill, and the
+    # cross-attention of a decode step
+    wh_enc = time_flash(gen, LM_BATCH, 1500, 1500, 16, 16, 64, causal=False)
+    wh_cross = time_flash(gen, LM_BATCH, 1, 1500, 16, 16, 64, causal=False)
+    wh_cross_fwd = time_flash(gen, 1, FORWARD_LEN[WH_ARCH], 1500, 16, 16, 64,
+                              causal=False)
     emit({"phase": "timing", "smi": smi,
           "launch_floor_ms": launch_floor_ms(),
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
@@ -1987,11 +2219,11 @@ def main(argv=None) -> int:
                            **timed["event_filter"]},
           "flash_attention_decode": {
               "shape": [LM_BATCH, 1, LM_PROMPT + LM_NEW, 48, 8, 128],
-              "launches_serve": launches["flash_attention"],
+              "launches_serve": flash[LM_ARCH][0],
               **timed["flash_attention"]},
           "flash_attention_prefill": {
               "shape": [1, PREFILL_LEN, PREFILL_LEN, 48, 8, 128],
-              "launches_prefill": prefill_launches, **prefill},
+              "launches_prefill": flash[LM_ARCH][1], **prefill},
           "flash_attention_rg_decode": {
               "shape": [LM_BATCH, 1, LM_PROMPT + LM_NEW, 16, 1, 256],
               "launches_serve": rg_serve["flash_attention"], **rg_decode},
@@ -1999,6 +2231,18 @@ def main(argv=None) -> int:
               "shape": [1, rg_len, rg_len, 16, 1, 256], "window": 2048,
               "launches_forward": rg_forward["flash_attention"],
               **rg_prefill},
+          "flash_attention_whisper_encoder": {
+              "shape": [LM_BATCH, 1500, 1500, 16, 16, 64], "causal": False,
+              **wh_enc},
+          "flash_attention_whisper_cross_decode": {
+              "shape": [LM_BATCH, 1, 1500, 16, 16, 64], "causal": False,
+              **wh_cross},
+          "flash_attention_whisper_cross_forward": {
+              "shape": [1, FORWARD_LEN[WH_ARCH], 1500, 16, 16, 64],
+              "causal": False, **wh_cross_fwd},
+          "flash_attention_launches_by_model": {
+              arch: {"serve": n[0], "forward": n[1]}
+              for arch, n in flash.items()},
           "rglru_scan": {"shape": [1, rg_len, 4096],
                          "launches_forward": launches["rglru_scan"],
                          **timed["rglru_scan"]},

@@ -41,8 +41,8 @@ calibration, window planning) works identically on both paths:
 The JAX package's ``docs/backends.md`` states the full contract
 (merge-order determinism, clock semantics, failure semantics, kernel
 fragment fusion).  On one card the port keeps adaptive chunk sizing,
-double buffering and the lockstep mesh emulation; the block-shape
-autotune is not ported yet.
+double buffering, the lockstep mesh emulation and the autotune, which
+sweeps the CUDA kernel's launch shape (``kernels/event_filter/tune.py``).
 """
 from __future__ import annotations
 
@@ -347,8 +347,13 @@ class SpmdBackend:
       its plain version on a CPU store); the rest run through the plain
       fragment walk on the same resident slice and the two sub-batches
       are reassembled in slot order (:class:`PlanSplit`).
-      ``autotune=True`` raises: the block-shape sweep (``tune.py``) is
-      not ported yet.  Per-chunk telemetry (``PacketTelemetry``) is
+      ``autotune=True`` sweeps the kernel's launch shape (threads a
+      block) once per (chunk shape x K x calib) class on a sample chunk
+      of the window's first brick, caches the winner in-process
+      (``repro_torch.kernels.event_filter.tune``) and launches every
+      kernel chunk of the window with it; it tunes the CUDA kernel, so on
+      a CPU store it raises ``ValueError`` at construction.  Per-chunk
+      telemetry (``PacketTelemetry``) is
       recorded either way, so ``planner.fit_cost_weights`` calibrates
       from SPMD runs too.
     - **Double buffering** (``double_buffer=True``, the default): chunk
@@ -385,15 +390,19 @@ class SpmdBackend:
             raise ValueError("ramp_factor must be > 1")
         if mesh_devices < 1:
             raise ValueError("mesh_devices must be >= 1")
-        if autotune:
-            raise NotImplementedError("event_filter tune.py is not ported yet")
         self.device = store.check_device(device)
+        if autotune and self.device.type != "cuda":
+            raise ValueError(
+                f"autotune=True sweeps the event_filter CUDA kernel's launch "
+                f"shape; a store on {self.device} runs the kernel's plain "
+                f"version, which has no launch to tune")
         self.catalog = catalog
         self.store = store
         self.chunk_events = chunk_events
         self.packet_ramp = packet_ramp
         self.ramp_factor = ramp_factor
         self.use_pallas = use_pallas
+        self.autotune = autotune
         self.mesh_devices = mesh_devices
         self.adaptive_chunks = adaptive_chunks
         self.chunk_target_s = chunk_target_s
@@ -407,6 +416,8 @@ class SpmdBackend:
         self.supports_routing_policy = False
         # observability plane; None = disabled
         self.obs = None
+        #: most recent autotune verdict (TunedShape) — reporting
+        self.last_autotune = None
 
     # ------------------------------------------------------------------ #
     def _chunk_size(self, seq: int, remaining: int, ramp: Optional[int],
@@ -446,16 +457,38 @@ class SpmdBackend:
                          thresholds=thresholds, var_idx=var_idx,
                          plain_targets=tuple(targets[i] for i in pcols))
 
+    def _maybe_autotune(self, split: PlanSplit, brick_id: int,
+                        calib_iters: int) -> Optional[int]:
+        """Resolve the kernel's block size for this window: the in-process
+        autotune winner for the (chunk shape x K x calib) class when
+        ``autotune=True``, the kernel's fixed default (None) otherwise."""
+        if not (self.autotune and split.any_kernel):
+            return None
+        from repro_torch.kernels.event_filter import tune as ef_tune
+        batch = self.store.bricks[brick_id]
+        n = min(self.chunk_events, batch["scalars"].shape[0])
+        tuned = ef_tune.autotune_block_shapes(
+            batch["scalars"][:n], batch["tracks"][:n],
+            batch["n_tracks"][:n], split.thresholds, split.var_idx,
+            calib_iters=calib_iters)
+        self.last_autotune = tuned
+        if self.obs is not None:
+            self.obs.metrics.gauge("spmd.autotune.threads").set(
+                tuned.threads)
+        return tuned.threads
+
     # ------------------------------------------------------------------ #
     def _dispatch_chunk(self, plan: query_lib.FragmentPlan,
                         split: PlanSplit, seq: int, brick_id: int,
                         start: int, size: int, owner: int,
-                        calib_iters: int) -> _Inflight:
+                        calib_iters: int,
+                        threads: Optional[int] = None) -> _Inflight:
         """Dispatch one chunk: kernel sub-batch + plain sub-batch launched
         on the device stream (nothing waits here), or — for windows with
         no kernel targets — the shared ``eval_plan_slice`` primitive
         evaluated in place.  The chunk's tensors are views of the
-        device-resident brick; nothing is copied to the device."""
+        device-resident brick; nothing is copied to the device.  The
+        kernel launches with ``threads`` a block (None: its default)."""
         infl = _Inflight(seq=seq, brick_id=brick_id, start=start,
                          size=size, owner=owner)
         if not split.any_kernel:
@@ -468,7 +501,7 @@ class SpmdBackend:
         infl.ids = sl["event_id"]
         infl.mask_dev, infl.var_dev = ef_ops.event_filter_batch(
             sl["scalars"], sl["tracks"], sl["n_tracks"], split.thresholds,
-            split.var_idx, calib_iters=calib_iters)
+            split.var_idx, calib_iters=calib_iters, threads=threads)
         if split.plain_cols:
             # out-of-family targets: the same shared-memo fragment walk
             # the plan runs, restricted to the plain sub-batch (values
@@ -531,6 +564,8 @@ class SpmdBackend:
                                       target_s=self.chunk_target_s)
                       if self.adaptive_chunks else None)
         bricks = sorted(rec.bricks)
+        threads = (self._maybe_autotune(split, bricks[0], rec.calib_iters)
+                   if bricks else None)
         mesh = max(1, self.mesh_devices)
         # one card: a mesh of more than one device is always emulated
         lockstep = mesh > 1
@@ -617,7 +652,7 @@ class SpmdBackend:
                         t0 = clock()
                         infl = self._dispatch_chunk(
                             plan, split, seq, bid, start, size, owner,
-                            rec.calib_iters)
+                            rec.calib_iters, threads)
                         self._finalize_chunk(infl, split)
                         group_walls.append(max(clock() - t0, 1e-9))
                         group.append(infl)
@@ -636,7 +671,8 @@ class SpmdBackend:
                         seq=seq, brick=bid, start=start, size=size,
                         node=owner)
                 infl = self._dispatch_chunk(plan, split, seq, bid, start,
-                                            size, owner, rec.calib_iters)
+                                            size, owner, rec.calib_iters,
+                                            threads)
                 infl.span = span
                 if not buffered:
                     finalize(infl)

@@ -32,16 +32,23 @@
 // 32-byte sector (the store's layout; a contiguous pt plane beside each
 // brick would cut that by 8).
 //
-// Design for latency: one block of 512 threads per event.  Each thread
-// issues all its loads of pt for up to kPer = 8 tracks (tid, tid + 512,
-// ...) before it uses any of them, so an event of up to 4096 tracks (the
-// store's width) costs one round trip to device memory, not one per
-// block-wide row of tracks, and a longer one a round trip per 4096; the
-// loads of the query operands of the final compare (thresholds, var_idx,
-// the selected scalar) are issued at the start too.
+// Design for latency: one block per event, of `threads` threads (128, 256
+// or 512, a launch argument; 512 unless the caller's launch-shape sweep,
+// kernels/event_filter/tune.py, picked another).  Each thread issues all
+// its loads of pt for up to kPer = 8 tracks (tid, tid + threads, ...)
+// before it uses any of them, so at 512 threads an event of up to 4096
+// tracks (the store's width) costs one round trip to device memory, not
+// one per block-wide row of tracks, and a longer one a round trip per
+// 4096 (at 128 threads, one per 1024 tracks); the loads of the query
+// operands of the final compare (thresholds, var_idx, the selected
+// scalar) are issued at the start too.
 // Each pt is a 128-byte line of its own to the SM's L1, which takes lines
-// one at a time: 512 threads (more warps with lines in flight) beat 256,
-// and the loads allocate no line in L1.  Calibration, the sum and the K
+// one at a time: 512 threads (more warps with lines in flight) beat 256
+// on an H100 at the query path's chunk, and the loads allocate no line in
+// L1.  The block size is a runtime value of the one kernel instance: the
+// loop stride and the warp count follow blockDim.x, and the sum's tree
+// has one leaf a thread, so its order (and a sum's last bits) depends on
+// the block size, never on the run.  Calibration, the sum and the K
 // counts then run on registers: each thread counts its own hits of query
 // k, the warp adds them (__reduce_add_sync) and lane 0 adds the warp's
 // count to shared memory.
@@ -62,8 +69,8 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;  // the largest block size a launch takes
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPer = 8;  // tracks a thread loads before it uses any
 
 // a read-only load that leaves no line in L1: no pt is read twice, and
@@ -98,7 +105,7 @@ __device__ __forceinline__ bool scalar_pass(const float* sc,
   return vi >= 0 && vi < n_scalars && sc[vi] > thresholds[j];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 event_filter_batch_kernel(const float* __restrict__ scalars,
                           const float* __restrict__ tracks,
                           const int32_t* __restrict__ n_tracks,
@@ -111,10 +118,12 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* pt_thr = reinterpret_cast<float*>(smem_raw);  // (K,) B_k
   int* cnt = reinterpret_cast<int*>(pt_thr + k);       // (K,) cnt_k
-  __shared__ float warp_sums[kWarps];
+  __shared__ float warp_sums[kMaxWarps];
 
   const int64_t e = blockIdx.x;
   const int tid = threadIdx.x;
+  const int threads = blockDim.x;  // 128, 256 or 512 (the entry point's)
+  const int n_warps = threads >> 5;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* sc = scalars + e * n_scalars;
@@ -122,7 +131,7 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   int64_t nt = n_tracks[e];
   nt = nt < 0 ? 0 : (nt > max_tracks ? max_tracks : nt);
   const float* trk = tracks + e * max_tracks * track_vars;
-  for (int j = tid; j < k; j += kThreads) {
+  for (int j = tid; j < k; j += threads) {
     pt_thr[j] = thresholds[k + j];
     cnt[j] = 0;
   }
@@ -138,12 +147,12 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   // nt is uniform over the block, so every warp runs the same rounds and
   // the full-mask warp sums below are well defined
   float sum = 0.0f;
-  for (int64_t base = 0; base < nt; base += kPer * kThreads) {
+  for (int64_t base = 0; base < nt; base += kPer * threads) {
     float pt[kPer];
     int n_mine = 0;                   // this thread's valid tracks: u < it
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
-      const int64_t t = base + u * kThreads + tid;
+      const int64_t t = base + u * threads + tid;
       pt[u] = 0.0f;
       if (t < nt) pt[u] = load_no_allocate(trk + t * track_vars);
       n_mine += t < nt ? 1 : 0;
@@ -172,7 +181,7 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   if (lane == 0) warp_sums[warp] = sum;
   __syncthreads();
   if (warp == 0) {
-    float s = lane < kWarps ? warp_sums[lane] : 0.0f;
+    float s = lane < n_warps ? warp_sums[lane] : 0.0f;
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_down_sync(0xffffffffu, s, off);
     if (lane == 0) warp_sums[0] = s;
@@ -180,8 +189,8 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
   __syncthreads();
   const float total = warp_sums[0];
 
-  for (int j = tid; j < k; j += kThreads) {
-    if (j >= kThreads) {
+  for (int j = tid; j < k; j += threads) {
+    if (j >= threads) {
       pass = scalar_pass(sc, thresholds, var_idx, n_scalars, j);
       c_min = thresholds[2 * k + j];
       d_cap = thresholds[3 * k + j];
@@ -195,15 +204,20 @@ event_filter_batch_kernel(const float* __restrict__ scalars,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() so a refused launch is seen.
+// Plain C entry point (bound with ctypes).  Launches on `stream` with
+// `threads` threads a block (128, 256 or 512; anything else is refused as
+// cudaErrorInvalidValue before any launch), does not synchronise, and
+// returns cudaGetLastError() so a refused launch is seen.
 extern "C" int event_filter_batch_launch(
     const void* scalars, const void* tracks, const void* n_tracks,
     const void* thresholds, const void* var_idx, void* mask, void* var,
     long long n, long long n_scalars, long long max_tracks,
-    long long track_vars, int k, int calib_iters, void* stream) {
+    long long track_vars, int k, int calib_iters, int threads,
+    void* stream) {
+  if (threads != 128 && threads != 256 && threads != kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(k) * sizeof(float);
-  event_filter_batch_kernel<<<static_cast<unsigned>(n), kThreads, smem,
+  event_filter_batch_kernel<<<static_cast<unsigned>(n), threads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scalars), static_cast<const float*>(tracks),
       static_cast<const int32_t*>(n_tracks),

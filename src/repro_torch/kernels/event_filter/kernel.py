@@ -1,9 +1,12 @@
 """Wrappers of the hand-written CUDA event-filter kernels.
 
 ``csrc/event_filter.cu`` holds one kernel: the K-query shared scan that
-replaces the JAX package's ``event_filter_batch_pallas``.  The
-single-query form (``event_filter_pallas`` in the reference) launches the
-same kernel with K = 1 through its own wrapper and launch counter.
+replaces the JAX package's ``event_filter_batch_pallas``.  Its block size
+is a launch argument (``LAUNCH_THREADS``, 512 by default), which the
+launch-shape sweep (``tune.py``) chooses among.  The single-query form
+(``event_filter_pallas`` in the reference) launches the same kernel with
+K = 1 and the default block size, through its own wrapper and launch
+counter.
 
 The wrappers take CUDA tensors only: they validate shapes (the checks of
 the reference's ``_validate``, without its TPU block shapes), device,
@@ -31,6 +34,23 @@ LAUNCHES = {"event_filter": 0, "event_filter_batch": 0}
 #: the kernel keeps 2*K floats of dynamic shared memory per block; this
 #: keeps it well under the 48 KB a launch gets without opting in
 MAX_QUERIES = 4096
+
+#: block sizes the one kernel instance takes (threads a block, one block
+#: an event), and the launch it gets unless a caller passes another (the
+#: launch-shape sweep, ``tune.py``)
+LAUNCH_THREADS = (128, 256, 512)
+DEFAULT_THREADS = 512
+
+
+def check_threads(threads) -> int:
+    """The block size of a launch: ``DEFAULT_THREADS`` for None, else one
+    of ``LAUNCH_THREADS``; raises ``ValueError`` for any other value."""
+    if threads is None:
+        return DEFAULT_THREADS
+    if isinstance(threads, bool) or threads not in LAUNCH_THREADS:
+        raise ValueError(f"event_filter launches {LAUNCH_THREADS} threads a "
+                         f"block, got threads={threads!r}")
+    return int(threads)
 
 
 def validate(scalars, tracks, n_tracks, thresholds, *, batch: bool) -> None:
@@ -71,7 +91,7 @@ def _launcher():
     ``argtypes`` ctypes would pass every pointer as a 32-bit int."""
     fn = load_cuda_library(str(SOURCE)).event_filter_batch_launch
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -109,34 +129,37 @@ def _check_operands(scalars, tracks, n_tracks, thresholds, var_idx):
 
 
 def _launch(scalars, tracks, n_tracks, thresholds, var_idx, calib_iters,
-            mask, var) -> None:
+            threads, mask, var) -> None:
     n, s = scalars.shape
     _, t, v = tracks.shape
     k = var_idx.shape[0]
     rc = _launcher()(
         scalars.data_ptr(), tracks.data_ptr(), n_tracks.data_ptr(),
         thresholds.data_ptr(), var_idx.data_ptr(), mask.data_ptr(),
-        var.data_ptr(), n, s, t, v, k, int(calib_iters),
+        var.data_ptr(), n, s, t, v, k, int(calib_iters), threads,
         torch.cuda.current_stream(scalars.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"event_filter kernel launch failed: CUDA error "
-                           f"{rc} (N={n}, T={t}, V={v}, K={k})")
+                           f"{rc} (N={n}, T={t}, V={v}, K={k}, "
+                           f"{threads} threads)")
 
 
 def event_filter_batch_cuda(scalars, tracks, n_tracks, thresholds, var_idx,
-                            *, calib_iters: int):
+                            *, calib_iters: int, threads=None):
     """K-query shared scan on the card: scalars (N,S) f32, tracks (N,T,V)
     f32, n_tracks (N,) i32, thresholds (4,K) f32, var_idx (K,) i32, all
-    contiguous CUDA tensors on one device.  Returns (mask (N,K), var (N,))
-    f32, still being computed on the current stream."""
+    contiguous CUDA tensors on one device; ``threads`` a block, one of
+    ``LAUNCH_THREADS`` (None: ``DEFAULT_THREADS``).  Returns (mask (N,K),
+    var (N,)) f32, still being computed on the current stream."""
     validate(scalars, tracks, n_tracks, thresholds, batch=True)
+    threads = check_threads(threads)
     _check_operands(scalars, tracks, n_tracks, thresholds, var_idx)
     n, k = scalars.shape[0], thresholds.shape[1]
     mask = torch.empty((n, k), dtype=torch.float32, device=scalars.device)
     var = torch.empty((n,), dtype=torch.float32, device=scalars.device)
     with torch.cuda.device(scalars.device):
         _launch(scalars, tracks, n_tracks, thresholds, var_idx, calib_iters,
-                mask, var)
+                threads, mask, var)
     LAUNCHES["event_filter_batch"] += 1
     return mask, var
 
@@ -154,6 +177,6 @@ def event_filter_cuda(scalars, tracks, n_tracks, thresholds, var_idx,
     with torch.cuda.device(scalars.device):
         # a contiguous (4,) threshold vector is the (4, 1) layout
         _launch(scalars, tracks, n_tracks, thresholds, var_idx, calib_iters,
-                mask, var)
+                DEFAULT_THREADS, mask, var)
     LAUNCHES["event_filter"] += 1
     return mask[:, 0], var

@@ -165,15 +165,19 @@ def event_filter(scalars, tracks, n_tracks, thresholds, var_idx, *,
 
 
 def event_filter_batch(scalars, tracks, n_tracks, thresholds, var_idx, *,
-                       calib_iters: int):
+                       calib_iters: int, threads=None):
     """K-query dispatch (thresholds and var_idx in the layout of
-    :func:`batch_kernel_params`): CUDA tensors launch the kernel, CPU
-    tensors take the plain version.  Returns (mask (N, K), var (N,))."""
+    :func:`batch_kernel_params`): CUDA tensors launch the kernel with
+    ``threads`` a block (one of ``kernel.LAUNCH_THREADS``; None: the
+    default), CPU tensors take the plain version, which validates
+    ``threads`` and has no launch for it to shape.  Returns (mask (N, K),
+    var (N,))."""
     dev = _device_of(scalars, tracks, n_tracks, thresholds, var_idx)
     if dev.type == "cuda":      # the wrapper validates
         return ef_kernel.event_filter_batch_cuda(
             scalars, tracks, n_tracks, thresholds, var_idx,
-            calib_iters=calib_iters)
+            calib_iters=calib_iters, threads=threads)
+    ef_kernel.check_threads(threads)
     ef_kernel.validate(scalars, tracks, n_tracks, thresholds, batch=True)
     return event_filter_batch_ref(scalars, tracks, n_tracks, thresholds,
                                   var_idx=var_idx, calib_iters=calib_iters)

@@ -1,15 +1,21 @@
 """Serving launcher of the port, with two modes.
 
 ``--mode lm``: batched prefill -> decode loop over the decode state of a
-dense decoder LM (ring KV cache), the hybrid recurrentgemma (RG-LRU state
-and a local-attention ring) or xLSTM (matrix and scalar memories).
-``python -m repro_torch.launch.serve --mode lm --arch qwen3-14b`` (or
-``recurrentgemma-9b``, ``xlstm-350m``) builds the model at full width with
-seeded random weights, generates ``--new-tokens`` for a ``--batch`` of
-random prompts, and prints tok/s and a sample; ``--reduced`` takes the
-tiny same-family config.  On a CUDA device every attention call launches
-the hand-written flash-attention kernel; the recurrent families' decode
-steps are plain PyTorch, as in the reference.
+decoder LM (ring KV cache; dense, with experts or with pixtral's patch
+front end), the encoder-decoder whisper (the ring plus the cross-attention
+K/V), the hybrid recurrentgemma (RG-LRU state and a local-attention ring)
+or xLSTM (matrix and scalar memories).  ``python -m
+repro_torch.launch.serve --mode lm --arch qwen3-14b`` (or any other arch:
+``pixtral-12b``, ``phi3.5-moe-42b-a6.6b``, ``whisper-medium``,
+``recurrentgemma-9b``, ``xlstm-350m``, ...) builds the model at full
+width with seeded random weights, generates ``--new-tokens`` for a
+``--batch`` of random prompts, and prints tok/s and a sample;
+``--reduced`` takes the tiny same-family config.  For whisper the stub
+frames come from the same seeded generator, the encoder fills the
+cross-attention cache, and the decode runs on that cache (the reference's
+launcher decodes on a fresh zero cache, C-ref8).  On a CUDA device every
+attention call launches the hand-written flash-attention kernel; the
+recurrent families' decode steps are plain PyTorch, as in the reference.
 
 ``--mode query`` (default): ``python -m repro_torch.launch.serve --mode query --backend spmd
 --use-pallas`` stands up a brick store on the card, replays a
@@ -39,11 +45,12 @@ seeded, ``--kill-node`` kills a grid node a third of the way in, and
 ``--policy`` arms the failure-policy engine (``service/policy.py``) on
 each front-end (with ``--fleet`` also gossip ack/repair);
 ``--trace-out`` and ``--metrics-dump`` turn the observability plane on
-and write its span trace and metrics snapshot.
+and write its span trace and metrics snapshot.  ``--autotune`` (spmd,
+with ``--use-pallas``, on the card) sweeps the event_filter kernel's
+launch shape per chunk shape class and prints the winner.
 
-Not ported yet: the moe, vlm and audio LM families,
-``--production-mesh`` and ``--autotune``; each exits with a message
-saying so.
+Not ported yet: ``--production-mesh`` (the training slice's
+``launch/mesh.py``); it exits with a message saying so.
 """
 from __future__ import annotations
 
@@ -66,7 +73,8 @@ def _backend_kwargs(args):
         for flag, name in ((args.use_pallas, "--use-pallas"),
                            (args.chunk_events, "--chunk-events"),
                            (args.adaptive_chunks, "--adaptive-chunks"),
-                           (args.mesh_devices, "--mesh-devices")):
+                           (args.mesh_devices, "--mesh-devices"),
+                           (args.autotune, "--autotune")):
             if flag:
                 raise SystemExit(
                     f"{name} requires --backend spmd (the simulation "
@@ -81,7 +89,24 @@ def _backend_kwargs(args):
         kw["adaptive_chunks"] = True
     if args.mesh_devices is not None:
         kw["mesh_devices"] = args.mesh_devices
+    if args.autotune:
+        kw["autotune"] = True
     return kw or None
+
+
+def _print_autotune(backends):
+    """The report's autotune lines: each backend's last verdict (a fleet's
+    front-ends share the in-process cache, so a shape class is swept once,
+    but their last windows may be of different classes)."""
+    for i, backend in enumerate(backends):
+        tuned = getattr(backend, "last_autotune", None)
+        if tuned is None:
+            print(f"  autotune[fe{i}]: no kernel window swept")
+            continue
+        times = ", ".join(f"{t}: {ms:.4f} ms" for t, ms in tuned.measurements)
+        print(f"  autotune[fe{i}]: {tuned.threads} threads a block "
+              f"(default {tuned.default_ms:.4f} ms, best {tuned.best_ms:.4f} "
+              f"ms, x{tuned.speedup_vs_default:.3f}; {times})")
 
 
 def _dump_trace(records, path):
@@ -219,6 +244,8 @@ def serve_fleet(args):
         _dump_trace(fleet.trace_records(), args.trace_out)
     if args.metrics_dump:
         _dump_metrics(fleet.metrics_snapshot(), args.metrics_dump)
+    if args.autotune:
+        _print_autotune([fe.service.backend for fe in fleet.frontends])
     if args.flight_out:
         n = fleet.save_flight(args.flight_out)
         print(f"  flight: {n} records -> {args.flight_out} (replay: "
@@ -236,11 +263,16 @@ def prefill_into_cache(cfg, model, params, cache, tokens):
 
 
 @torch.inference_mode()
-def generate(cfg, model, params, prompt, max_new_tokens=16, cache_len=256):
+def generate(cfg, model, params, prompt, max_new_tokens=16, cache_len=256,
+             cache=None):
     """Greedy generation: prompt (B, P) int64 -> (B, max_new_tokens) token
-    ids, on the prompt's device."""
+    ids, on the prompt's device.  ``cache`` is the decode state to start
+    from (for whisper, one whose cross-attention K/V
+    :func:`encoder_cache` filled); None starts from a fresh
+    ``model.init_cache(B, cache_len)``."""
     b = prompt.shape[0]
-    cache = model.init_cache(b, cache_len, prompt.device)
+    if cache is None:
+        cache = model.init_cache(b, cache_len, prompt.device)
     logits, cache = prefill_into_cache(cfg, model, params, cache, prompt)
     out = []
     tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
@@ -250,6 +282,22 @@ def generate(cfg, model, params, prompt, max_new_tokens=16, cache_len=256):
         tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
                            dim=-1).reshape(b, 1)
     return torch.cat(out, dim=1)
+
+
+@torch.inference_mode()
+def encoder_cache(cfg, model, params, batch, generator, cache_len=256):
+    """An encoder-decoder's decode state for ``batch`` stub inputs: frame
+    embeddings (B, S_enc, d) drawn from ``generator`` (standard normal,
+    in cfg.dtype, on the generator's device), run through the encoder into
+    the cross-attention K/V of a fresh cache.  Returns (cache, frames)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.params import torch_dtype
+    device = generator.device
+    frames = torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                         generator=generator, device=device).to(
+                             torch_dtype(cfg.dtype))
+    cache = model.init_cache(batch, cache_len, device)
+    return encdec.prefill_cross_cache(cfg, params, frames, cache), frames
 
 
 def serve_lm(args):
@@ -266,19 +314,24 @@ def serve_lm(args):
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else \
         get_config(args.arch)
-    try:
-        model = model_zoo.build_model(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"--mode lm --arch {args.arch}: {e}") from None
+    model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     lm = model_zoo.LanguageModel(model, model.table.init(gen, device))
+    params = lm.tree()
+    cache = None
+    t0 = time.time()
+    if cfg.is_encoder_decoder:
+        # fill the cross-attention cache from stub frames first, and
+        # decode on it (C-ref8: the reference's launcher fills one cache
+        # and then generates on a fresh zero one)
+        gen.manual_seed(1)
+        cache, _ = encoder_cache(cfg, model, params, args.batch, gen)
     gen.manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    t0 = time.time()
-    tokens = generate(cfg, model, lm.tree(), prompt,
-                      max_new_tokens=args.new_tokens)
+    tokens = generate(cfg, model, params, prompt,
+                      max_new_tokens=args.new_tokens, cache=cache)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -393,6 +446,8 @@ def serve_queries(args):
                   f"snapshots ({sample.dropped} conflated), final coverage "
                   f"{cov.events_scanned}/{cov.events_total} events over "
                   f"{len(cov.bricks_seen)}/{cov.bricks_total} bricks")
+    if args.autotune:
+        _print_autotune([svc.backend])
     if policy is not None:
         bad = {n: st for n, st in policy.states().items() if st != "ok"}
         print(f"  policy: {bad if bad else 'all nodes ok'} "
@@ -491,14 +546,15 @@ def main(argv=None):
                     help="with --fleet: kill grid node N a third of the "
                          "way through the workload (failover + liveness "
                          "gossip)")
-    # an option of the JAX package's launcher that has no port yet
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="spmd backend with --use-pallas: sweep the "
+                         "event_filter kernel's launch shape (threads a "
+                         "block) per chunk shape class and launch every "
+                         "kernel chunk with the winner (CUDA only)")
     args = ap.parse_args(argv)
 
     if args.mode == "lm":
         return serve_lm(args)
-    if args.autotune:
-        raise SystemExit(f"--autotune {NOT_PORTED}")
     if args.fleet > 1:
         serve_fleet(args)
     else:

@@ -1,14 +1,16 @@
 """Family dispatch: one ``Model`` facade per architecture family (port of
-``models/model_zoo.py``).  The port builds dense decoder LMs without
-experts, the hybrid recurrent/attention family (recurrentgemma) and the
-xLSTM family; ``moe``, ``vlm`` and ``audio`` raise "not ported yet".
+``models/model_zoo.py``): decoder LMs (dense, with or without experts,
+moe and vlm), the encoder-decoder (audio: whisper), the hybrid
+recurrent/attention family (recurrentgemma) and the xLSTM family.
 
   table                               -> ParamTable
   forward(params, batch)              -> (logits, aux_loss)   prefill
   init_cache(batch, seq_len, device)  -> decode state         decode
   decode_step(params, cache, tokens)  -> (logits, cache)
 
-``LanguageModel`` is the ``nn.Module`` that serves any of them.
+``batch`` holds ``tokens`` and the family's extra inputs: ``patch_embeds``
+(vlm, optional) or ``frames`` (audio).  ``LanguageModel`` is the
+``nn.Module`` that serves any of them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Callable
 
 from torch import nn
 
-from repro_torch.models.params import NOT_PORTED, ParamTable
+from repro_torch.models.params import ParamTable
 
 
 @dataclasses.dataclass
@@ -30,17 +32,17 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    if cfg.family == "dense" and not cfg.num_experts:
+    if cfg.family in ("dense", "moe", "vlm"):
         return _decoder_lm(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec.build(cfg)
     if cfg.family == "hybrid":
         from repro_torch.models import hybrid
         return hybrid.build(cfg)
     if cfg.family == "ssm":
         from repro_torch.models import xlstm
         return xlstm.build(cfg)
-    if cfg.family in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) {NOT_PORTED}")
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -50,7 +52,8 @@ def _decoder_lm(cfg) -> Model:
         cfg=cfg,
         table=transformer.param_table(cfg),
         forward=lambda params, batch: transformer.forward(
-            cfg, params, batch["tokens"]),
+            cfg, params, batch["tokens"],
+            patch_embeds=batch.get("patch_embeds")),
         decode_step=lambda params, cache, tokens: transformer.decode_step(
             cfg, params, cache, tokens),
         init_cache=lambda b, s, device: transformer.init_cache(
@@ -91,8 +94,15 @@ class LanguageModel(nn.Module):
             node[parts[-1]] = val
         return tree
 
-    def forward(self, tokens):
-        return self.model.forward(self.tree(), {"tokens": tokens})
+    def forward(self, tokens, patch_embeds=None, frames=None):
+        """tokens (B, S) and the family's extra inputs: ``patch_embeds``
+        (B, P, d) for vlm, ``frames`` (B, S_enc, d) for audio."""
+        batch = {"tokens": tokens}
+        if patch_embeds is not None:
+            batch["patch_embeds"] = patch_embeds
+        if frames is not None:
+            batch["frames"] = frames
+        return self.model.forward(self.tree(), batch)
 
     def decode_step(self, cache, tokens):
         return self.model.decode_step(self.tree(), cache, tokens)

@@ -1,17 +1,22 @@
-"""Decoder-only dense transformer LM on torch tensors (port of
-``models/transformer.py``, without MoE and the VLM front end).
+"""Decoder-only transformer LM on torch tensors (dense / MoE / VLM
+backbone; port of ``models/transformer.py``).
 
 Layers run in a Python loop over the stacked layer parameters; the
 reference's ``scan_layers``, remat and ``Sharder`` are TPU and mesh
 devices with no port.  Every attention call goes through
 ``kernels/flash_attention/ops.py``: a CUDA tensor launches the
-hand-written kernel, a CPU tensor takes the plain version.
+hand-written kernel, a CPU tensor takes the plain version.  A config
+with experts runs ``models/moe.py`` in place of the MLP (forward returns
+the summed load-balancing loss); a config with patches projects
+precomputed patch embeddings in front of the tokens (pixtral's stubbed
+vision front end).
 
 Param paths (all stacked with leading L), as the reference:
   embed/table (Vp, d)            out/head (d, Vp)          final_norm/scale
   layers/ln1/scale               layers/ln2/scale
   layers/attn/{wq,wk,wv,wo}      layers/attn/{q_norm,k_norm}  (qk_norm)
-  layers/mlp/...
+  layers/mlp/...  or  layers/moe/...
+  vlm/patch_proj (d_patch_in, d) (pixtral stub frontend)
 """
 from __future__ import annotations
 
@@ -22,19 +27,15 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.model_zoo import LanguageModel
-from repro_torch.models.params import NOT_PORTED, ParamTable, torch_dtype
+from repro_torch.models.params import ParamTable, torch_dtype
 
 
 # --------------------------------------------------------------------------- #
 # Parameter table
 # --------------------------------------------------------------------------- #
 def param_table(cfg) -> ParamTable:
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers ({cfg.name}) {NOT_PORTED}")
-    if cfg.num_patches:
-        raise NotImplementedError(f"the VLM patch front end ({cfg.name}) "
-                                  f"{NOT_PORTED}")
     t = ParamTable(cfg)
     d = cfg.d_model
     vp = cfg.vocab_padded
@@ -49,7 +50,14 @@ def param_table(cfg) -> ParamTable:
         t.add("final_norm/bias", (d,), ("null",), init="zeros")
 
     add_attn_layer_params(t, cfg, "layers", nl)
-    mlp_lib.add_mlp_params(t, cfg, "layers/mlp", nl)
+    if cfg.num_experts:
+        moe_lib.add_moe_params(t, cfg, "layers/moe", nl)
+    else:
+        mlp_lib.add_mlp_params(t, cfg, "layers/mlp", nl)
+
+    if cfg.num_patches:
+        # pixtral stub frontend: project precomputed patch embeddings
+        t.add("vlm/patch_proj", (d, d), ("fsdp", "null"), init="fan_in")
     return t
 
 
@@ -149,8 +157,17 @@ def layer_params(layers: dict, i: int) -> dict:
             for key, val in layers.items()}
 
 
+def _ffn(cfg, p, h):
+    """The layer's feed-forward: the experts (``moe_block``) when the
+    config has them, else the MLP.  Returns (out, aux loss f32)."""
+    if cfg.num_experts:
+        return moe_lib.moe_block(cfg, p["moe"], h)
+    return mlp_lib.mlp(cfg, p["mlp"], h), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
+
+
 def _layer(cfg, p, x, positions):
-    """One pre-norm transformer layer. Returns x."""
+    """One pre-norm transformer layer. Returns (x, aux_loss)."""
     h = L.norm(cfg, x, p["ln1"]["scale"], p["ln1"].get("bias"))
     a = self_attention(cfg, p["attn"], h, positions,
                        window=cfg.sliding_window)
@@ -158,17 +175,25 @@ def _layer(cfg, p, x, positions):
         a = L.norm(cfg, a, p["ln1_post"]["scale"])
     x = x + a
     h = L.norm(cfg, x, p["ln2"]["scale"], p["ln2"].get("bias"))
-    m = mlp_lib.mlp(cfg, p["mlp"], h)
+    m, aux = _ffn(cfg, p, h)
     if cfg.post_attn_norm:
         m = L.norm(cfg, m, p["ln2_post"]["scale"])
-    return x + m
+    return x + m, aux
 
 
-def embed_tokens(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens, patch_embeds=None):
+    """Token embeddings times ``embed_scale``; with a patch front end
+    (``cfg.num_patches``) and ``patch_embeds`` (B, P, d), the first P
+    positions are the projected patch embeddings instead."""
     dt = torch_dtype(cfg.dtype)
     x = L.embed_lookup(params["embed"]["table"], tokens)
-    return x.to(dt) * torch.tensor(cfg.embed_scale, dtype=dt,
-                                   device=x.device)
+    x = x.to(dt) * torch.tensor(cfg.embed_scale, dtype=dt, device=x.device)
+    if cfg.num_patches and patch_embeds is not None:
+        # pixtral stub: precomputed patch embeddings projected and prepended
+        pe = torch.einsum("bpd,de->bpe", patch_embeds.to(dt),
+                          params["vlm"]["patch_proj"])
+        x = torch.cat([pe, x[:, cfg.num_patches:, :]], dim=1)
+    return x
 
 
 def unembed(cfg, params, x):
@@ -177,16 +202,19 @@ def unembed(cfg, params, x):
     return torch.einsum("bsd,dv->bsv", x, table)
 
 
-def forward(cfg, params, tokens):
-    """tokens: (B, S) -> (logits (B, S, Vp), aux loss 0 for dense)."""
+def forward(cfg, params, tokens, patch_embeds=None):
+    """tokens: (B, S) [+ patch_embeds (B, P, d)] -> (logits (B, S, Vp),
+    aux loss: the experts' summed over the layers, 0 without experts)."""
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int64, device=tokens.device)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, patch_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = _layer(cfg, layer_params(params["layers"], i), x, positions)
+        x, aux_i = _layer(cfg, layer_params(params["layers"], i), x,
+                          positions)
+        aux = aux + aux_i
     x = L.norm(cfg, x, params["final_norm"]["scale"],
                params["final_norm"].get("bias"))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux
 
 
@@ -254,7 +282,7 @@ def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
         a = L.norm(cfg, a, p["ln1_post"]["scale"])
     x = x + a
     h = L.norm(cfg, x, p["ln2"]["scale"], p["ln2"].get("bias"))
-    m = mlp_lib.mlp(cfg, p["mlp"], h)
+    m, _ = _ffn(cfg, p, h)
     if cfg.post_attn_norm:
         m = L.norm(cfg, m, p["ln2_post"]["scale"])
     return x + m
@@ -288,8 +316,8 @@ def decode_step(cfg, params, cache, tokens):
 
 # --------------------------------------------------------------------------- #
 class TransformerLM(LanguageModel):
-    """The dense LM as an ``nn.Module``: ``LanguageModel`` on the dense
-    facade of ``cfg``."""
+    """The decoder LM (dense, MoE or VLM) as an ``nn.Module``:
+    ``LanguageModel`` on the decoder facade of ``cfg``."""
 
     def __init__(self, cfg, params: dict):
         from repro_torch.models.model_zoo import build_model

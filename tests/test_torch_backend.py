@@ -120,10 +120,13 @@ def test_spmd_packet_ramp_caps_early_chunks():
 
 
 def test_spmd_rejects_autotune_and_failure_scripts():
+    """autotune sweeps the CUDA kernel's launch: on a CPU store, whose
+    scans take the kernel's plain version, it raises at construction."""
     _, store = stores(n_events=32)
-    with pytest.raises(NotImplementedError, match="tune.py"):
-        SpmdBackend(MetadataCatalog(store.n_nodes), store, use_pallas=True,
-                    autotune=True, device="cpu")
+    for use_pallas in (True, False):
+        with pytest.raises(ValueError, match="CUDA kernel's launch shape"):
+            SpmdBackend(MetadataCatalog(store.n_nodes), store,
+                        use_pallas=use_pallas, autotune=True, device="cpu")
     spmd = SpmdBackend(MetadataCatalog(store.n_nodes), store, device="cpu")
     assert not spmd.supports_failure_injection
     jid = spmd.catalog.submit("e_total > 40", 0, tuple(sorted(store.bricks)))

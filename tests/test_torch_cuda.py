@@ -98,6 +98,78 @@ def test_batch_kernel_matches_plain_version(cuda, n, t, v, k, calib, cap):
     assert torch.equal(again, mask)
 
 
+@pytest.mark.parametrize("threads", [128, 256, 512])
+@pytest.mark.parametrize("n,t,v,k,calib,cap", [
+    (64, 4096, 63, 6, 0, False),        # the query path's chunk
+    (37, 1000, 63, 17, 4, True),        # ragged, calibrated, with a cap
+    (8, 8193, 3, 3, 0, False),          # more rounds than at 512 threads
+    (600, 70, 5, 600, 0, False)])       # K past 512: the epilogue's loop
+def test_batch_kernel_launch_shapes_match_plain_version(cuda, threads, n, t,
+                                                        v, k, calib, cap):
+    """Every block size the launch-shape sweep may pick, against the plain
+    version: masks equal at calib 0 without a cap, otherwise off only on
+    band events (the sum's tree follows the block size)."""
+    sc, tr, nt, th, vi = _operands(cuda, n, t, v, k, cap, seed=n + threads)
+    before = ef_kernel.LAUNCHES["event_filter_batch"]
+    mask, var = ef_ops.event_filter_batch(sc, tr, nt, th, vi,
+                                          calib_iters=calib, threads=threads)
+    torch.cuda.synchronize()
+    assert ef_kernel.LAUNCHES["event_filter_batch"] == before + 1
+    want, want_var = event_filter_batch_ref(sc, tr, nt, th, var_idx=vi,
+                                            calib_iters=calib)
+    assert torch.equal(var, want_var)
+    rows = (mask != want).any(dim=1)
+    if calib == 0 and not cap:
+        assert not bool(rows.any())
+    else:
+        assert not bool((rows & ~_band(tr, nt, th, calib)).any())
+    again, _ = ef_ops.event_filter_batch(sc, tr, nt, th, vi,
+                                         calib_iters=calib, threads=threads)
+    assert torch.equal(again, mask)
+
+
+def test_batch_kernel_refuses_other_launch_shapes(cuda):
+    sc, tr, nt, th, vi = _operands(cuda, 8, 16, 3, 2, False, seed=0)
+    before = ef_kernel.LAUNCHES["event_filter_batch"]
+    for threads in (64, 1024, 384):
+        with pytest.raises(ValueError, match="threads a block"):
+            ef_kernel.event_filter_batch_cuda(sc, tr, nt, th, vi,
+                                              calib_iters=0, threads=threads)
+    assert ef_kernel.LAUNCHES["event_filter_batch"] == before
+
+
+def test_autotuned_spmd_scan_is_identical_to_the_plain_path(cuda):
+    """SpmdBackend(autotune=True): one sweep per shape class (each
+    candidate: one warm-up and three timed launches), every kernel chunk
+    launched with the winner, finals identical to the plain path."""
+    from repro_torch.kernels.event_filter import tune
+    schema = ev.EventSchema.from_config(reduced())
+    store = create_store(schema, n_events=96, n_nodes=4,
+                         events_per_brick=16, seed=7)
+    exprs = ["e_total > 40 && count(pt > 15) >= 2",
+             "pt_lead > 60 || n_tracks >= 8", "e_t_miss > 25"]
+    tune.clear_cache()
+    out = []
+    for kw in ({"use_pallas": True, "autotune": True}, {}):
+        spmd = SpmdBackend(MetadataCatalog(store.n_nodes), store,
+                           chunk_events=32, **kw)
+        jids = [spmd.catalog.submit(e, 0, tuple(sorted(store.bricks)))
+                for e in exprs]
+        before = ef_kernel.LAUNCHES["event_filter_batch"]
+        merged, stats = spmd.run_batch(jids)
+        launched = ef_kernel.LAUNCHES["event_filter_batch"] - before
+        out.append(merged)
+        if kw:
+            tuned = spmd.last_autotune
+            assert tuned.threads in ef_kernel.LAUNCH_THREADS
+            assert tuned.speedup_vs_default >= 1.0
+            assert [t for t, _ in tuned.measurements] == [128, 256, 512]
+            assert launched == stats.packets + 3 * (1 + tune.REPEATS)
+    tune.clear_cache()
+    for a, b in zip(*out):
+        assert merge_lib.results_identical(a, b)
+
+
 @pytest.mark.parametrize("calib", [0, 4])
 def test_single_kernel_matches_plain_version(cuda, calib):
     sc, tr, nt, th, vi = _operands(cuda, 256, 512, 7, 1, False, seed=calib)
@@ -308,6 +380,15 @@ TC_CASES = [
     (2, 1, 2048, 16, 1, 256, {"window": 2048}, "decode"),   # split K, rg
     (1, 2, 300, 12, 2, 64, {"logit_cap": 20.0}, "decode"),  # 6 heads x 2
     (2, 1, 700, 16, 1, 128, {"window": 100}, "decode"),     # masked splits
+    # whisper-medium (16 heads of 64, full MHA): the non-causal 1500-frame
+    # encoder, cross-attention over 1500 keys at decode (ragged last tile,
+    # 4 splits) and in the decoder's 448-token forward
+    (2, 1500, 1500, 16, 16, 64, {"causal": False}, "wgmma"),
+    (2, 1, 1500, 16, 16, 64, {"causal": False}, "decode"),
+    (1, 448, 1500, 16, 16, 64, {"causal": False}, "wgmma"),
+    # pixtral-12b and phi3.5-moe: 32 q heads over 8 kv heads of 128
+    (1, 300, 300, 32, 8, 128, {}, "wgmma"),
+    (2, 1, 24, 32, 8, 128, {}, "decode"),
 ]
 
 
@@ -403,6 +484,70 @@ def test_bf16_models_take_the_tensor_core_kernels(cuda, monkeypatch, arch):
     got = {k: fa_kernel.VARIANT_CALLS[k] - before[k] for k in before}
     assert got == {"wgmma": n_fwd, "decode": len(calls) - n_fwd, "simt": 0}
     assert len(calls) - n_fwd == 6 * n_fwd
+
+
+@pytest.mark.parametrize("arch,head_dim", [("whisper-medium", 64),
+                                           ("phi3.5-moe-42b-a6.6b", 128)])
+def test_encdec_and_moe_models_take_the_tensor_core_kernels(cuda,
+                                                           monkeypatch,
+                                                           arch, head_dim):
+    """Reduced whisper (encoder, causal decoder, cross-attention) and
+    phi3.5-moe in bf16 at their head dims: every attention call of the
+    forward takes the wgmma kernel and every call of a decode step the
+    decode kernel, each within FA_TOL of the plain version in f32 on its
+    own inputs; whisper's cross-attention calls are non-causal."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo, transformer
+    cfg = reduced_config(arch, head_dim=head_dim, dtype="bfloat16",
+                         param_dtype="bfloat16", encoder_seq_len=300) \
+        if arch == "whisper-medium" else \
+        reduced_config(arch, head_dim=head_dim, dtype="bfloat16",
+                       param_dtype="bfloat16")
+    model = model_zoo.build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.table.init(gen, cuda)
+    # 128 tokens: two of phi3.5-moe's reduced routing groups of 64
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                         generator=gen)
+    kernel = transformer.flash_attention
+    calls = []
+
+    def checked(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.testing.assert_close(out.float(), want,
+                                   **FA_TOL[torch.bfloat16])
+        calls.append(kw["causal"])
+        return out
+
+    monkeypatch.setattr(transformer, "flash_attention", checked)
+    before = dict(fa_kernel.VARIANT_CALLS)
+    enc_dec = cfg.is_encoder_decoder
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        if enc_dec:
+            gen.manual_seed(1)
+            cache, batch["frames"] = serve.encoder_cache(
+                cfg, model, params, 2, gen, cache_len=32)
+        else:
+            cache = model.init_cache(2, 32, cuda)
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        n_fwd = len(calls)
+        # whisper: the encoder twice (the cross cache, then the forward's),
+        # then self- and cross-attention in each decoder layer
+        assert n_fwd == (2 * (cfg.num_encoder_layers + cfg.num_layers)
+                         if enc_dec else cfg.num_layers)
+        for s in range(6):
+            _, cache = model.decode_step(params, cache, toks[:, s:s + 1])
+        torch.cuda.synchronize()
+    got = {k: fa_kernel.VARIANT_CALLS[k] - before[k] for k in before}
+    per_step = (2 if enc_dec else 1) * cfg.num_layers
+    assert got == {"wgmma": n_fwd, "decode": 6 * per_step, "simt": 0}
+    if enc_dec:
+        # decode: the causal self-attention, then the non-causal cross
+        assert calls[n_fwd:n_fwd + 2] == [True, False]
 
 
 def test_dense_lm_on_the_card_goes_through_the_kernel(cuda, monkeypatch):

@@ -69,7 +69,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.serve\n"
         "from repro_torch.kernels.flash_attention import ops as fa_ops\n"
         "from repro_torch.models import model_zoo, transformer\n"
-        "for arch in ('qwen3-14b', 'recurrentgemma-9b', 'xlstm-350m'):\n"
+        "from repro_torch.models import encdec, moe\n"
+        "from repro_torch.kernels.event_filter import tune\n"
+        "for arch in ('qwen3-14b', 'recurrentgemma-9b', 'xlstm-350m',\n"
+        "             'pixtral-12b', 'phi3.5-moe-42b-a6.6b', 'grok-1-314b',\n"
+        "             'whisper-medium'):\n"
         "    repro_torch.launch.serve.main(['--mode', 'lm', '--arch', arch, "
         "'--reduced', '--device', 'cpu', '--new-tokens', '2'])\n"
         "from repro_torch.kernels.rglru_scan import ops as rg_ops, kernel\n"
@@ -223,14 +227,39 @@ def test_flash_wrapper_refuses_tensors_it_cannot_serve():
     assert fa_kernel.LAUNCHES == launches
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
-def test_recurrent_families_default_to_cuda_and_raise_without_it(arch):
+def test_autotune_defaults_to_cuda_and_raises_without_it():
+    """The autotuned backend and launcher default to the card like every
+    entry point; the sweep itself takes CUDA tensors only."""
+    _require_no_cuda()
+    from repro_torch.launch import serve
+    _, store = stores(n_events=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpmdBackend(MetadataCatalog(store.n_nodes), store, use_pallas=True,
+                    autotune=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--backend", "spmd", "--use-pallas", "--autotune",
+                    "--queries", "4", "--n-events", "32"])
+
+
+def _lm_entry_points_need_cuda(arch):
     _require_no_cuda()
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--mode", "lm", "--arch", arch, "--reduced"])
     with pytest.raises(RuntimeError, match="'cuda'"):
         params_from_reference(reduced_config_lm(arch), {})
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_recurrent_families_default_to_cuda_and_raise_without_it(arch):
+    _lm_entry_points_need_cuda(arch)
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "phi3.5-moe-42b-a6.6b",
+                                  "whisper-medium"])
+def test_vlm_moe_and_audio_families_default_to_cuda_and_raise_without_it(
+        arch):
+    _lm_entry_points_need_cuda(arch)
 
 
 def test_rglru_scan_wrapper_refuses_tensors_it_cannot_serve():

@@ -181,13 +181,6 @@ def test_params_from_reference_rejects_a_wrong_tree():
         params_from_reference(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "phi3.5-moe-42b-a6.6b",
-                                  "pixtral-12b", "whisper-medium"])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model_zoo.build_model(reduced_config(arch))
-
-
 def test_decode_refuses_a_cache_longer_than_the_window():
     cfg = reduced_config("starcoder2-3b")
     model = model_zoo.build_model(cfg)
