@@ -6,10 +6,10 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds the four CUDA sources, one nvcc each, started
+2. build   — nvcc builds the five CUDA sources, one nvcc each, started
    together; ptxas's registers and spills for every kernel instance (an
-   instance of flash_attention, mlstm or rglru_scan that spills fails the
-   run);
+   instance of flash_attention, its backward, mlstm or rglru_scan that
+   spills fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -33,7 +33,17 @@ Phases, each printing one JSON line:
    softcap, ragged tiles, f32, head dim 16), within |kernel - plain| <=
    atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with TF32 off (FA_TOL);
    bf16 cases also against the plain version in f32 on the same values.
-   Each row names the device kernel the wrapper's plan chose.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
+   Each row names the device kernel the wrapper's plan chose.
+   flash_attention's backward (flash_attention_bwd.cu) on the forward
+   kernel's output and a seeded incoming gradient: causal and not, Sq <
+   Sk, a window, a softcap, ragged tiles, GQA 16:1 and 6:1, head dims
+   64 / 128 / 256 in bf16 and f32 (f32 also at 16 and 32), rows whose
+   window masks every key (their dq must be 0), and starcoder2-3b's
+   training shape (2, 2048, 2048, 32 q heads over 2 kv heads of 128,
+   causal, bf16); dq, dk and dv each within BWD_TOL (2e-2 bf16, 2e-4 f32)
+   of the largest value of the plain backward (flash_attention_bwd_ref)
+   in f32 on the same values, autograd of the plain version in bf16
+   reported beside it, and two launches giving the same bits.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
    with and without h0, a ragged (3, 100, 48), S under one chunk (2, 8,
    4096), W no multiple of 4 (2, 77, 50, the cp.async load path) and 141
    chunks (1, 9000, 128),
@@ -144,7 +154,31 @@ Phases, each printing one JSON line:
    to end, the recurrent models' logits are reported beside the distance
    between two plain runs that differ only in rounding, not gated
    (E2E_GATED);
-7. timing  — each kernel at the shape the main path gave it, beside its
+7. train   — the LM stores freed, starcoder2-3b trained whole at full
+   width (30 layers, d_model 3072, 32 (24 real) q heads x 128 over 2 kv
+   heads, d_ff 12288, vocab 49152; 6.74 GB of bf16 params): f32 moments,
+   f32 accumulation over its 4 microbatches, remat "full", global batch
+   8 x 2048 from the brick pipeline, TRAIN_STEPS = 3 steps through
+   make_train_step.  flash_attention must launch 30 x 4 x 3 x 2 = 720
+   times (the remat recompute doubles the forward), all on
+   ``flash_attention.wgmma``, and its backward 30 x 4 x 3 = 360 times
+   (counts zeroed just before, read just after); every backward call of
+   step 1 is held against the plain backward in f32 (against its f64
+   value where that plain backward is off, shadow_backward); loss and
+   grad norm finite at every step; step 1's loss and grad norm against
+   the same step on the plain attention (bf16, and f32 on the same
+   values), gated within TRAIN_REL_TOL only where those two plain runs
+   agree (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
+   (about 59 GB reckoned, phase_train) and, for one more step, the busy
+   share under torch.profiler;
+   trainer — Trainer with starcoder2-3b at full width and 2 of its 30
+   layers (TRAINER_LAYERS), bf16, checkpoints every 2 steps into a
+   temporary directory (removed afterwards): a calm run of 4 steps; a run
+   of 2 steps resumed from its step-2 checkpoint to 4, which must end
+   with the calm run's params and moments bit for bit (bf16 leaves
+   restored, C-ref9's path); and a run with data node 1 killed at step 2
+   whose losses must equal the calm run's;
+8. timing  — each kernel at the shape the main path gave it, beside its
    plain version and its bound: device time (CUDA graph replay) and time
    per call (CUDA events around calls from the host); flash_attention at
    the decode shape with Sk = 24 and at the 2048 prefill (qwen3-14b), at
@@ -156,9 +190,13 @@ Phases, each printing one JSON line:
    window) as the library call; rglru_scan and mlstm with no library call
    (no PyTorch call computes either function); every row with its share of
    the bound, the event filter's also with the sector bound of the store's
-   strided pt, beside the launch floor (a one-element fill);
-8. the kernels line (flash_attention's launches summed over every LM
-   path), nvidia-smi's line, and the result line.
+   strided pt, beside the launch floor (a one-element fill); and the
+   backward at the training shape (bound: 10 flops a valid (query, key,
+   head, head-dim), ~0.174 ms) beside its plain version, SDPA's backward
+   (the library call, timed only) and the forward at the same shape;
+9. the kernels line (flash_attention's launches summed over every LM
+   path and the train phase; the backward's from the train phase),
+   nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -241,6 +279,21 @@ E2E_GATED = (LM_ARCH,)
 E2E_IF_STABLE = (PX_ARCH, MOE_ARCH, WH_ARCH)
 LM_REL_TOL = 5e-2     # max |logit difference| / spread of the plain logits
 LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
+# flash backward: max |kernel - plain| <= BWD_TOL * max |plain| for each of
+# dq, dk, dv, the plain backward (flash_attention_bwd_ref) in f32 on the
+# same values; where that plain backward is itself outside BWD_TOL of its
+# f64 evaluation (an ill-conditioned call), against the f64 value instead
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+BWD_ROWS = 256        # query rows a pass of the plain backward (memory)
+# training: starcoder2-3b whole at full width, its 4 microbatches
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
+TRAIN_LR = 3e-4
+# the trainer's restart and failure scenarios at full width, 2 of 30 layers
+TRAINER_LAYERS, TRAINER_STEPS = 2, 4
+# step-1 loss and grad norm of the kernel path against the plain path in
+# f32, gated where the two plain runs (bf16, f32) agree within it
+TRAIN_REL_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -691,6 +744,169 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
             **time_pair(kern, plain), "library_ms": device_time_ms(lib),
             "library_max_abs_err": lib_err, "bound_ms": bound,
             "bound_by": by, "max_abs_err": err}
+
+
+# --------------------------------------------------------------------- #
+# flash attention backward
+# --------------------------------------------------------------------- #
+# (case, B, Sq, Sk, H, K, D, flags), each in bf16 and f32: causal and not,
+# Sq < Sk, a window, a softcap, ragged tiles, GQA 16:1 (starcoder2-3b's
+# 32 padded q heads over 2) and 6:1, head dims 64 / 128 / 256, and rows
+# whose window masks every key; then f32 at head dim 16 and 32
+BWD_SMALL = [
+    ("causal", 2, 96, 96, 4, 2, 64, {}),
+    ("not causal", 1, 70, 70, 4, 2, 128, {"causal": False}),
+    ("sq<sk", 2, 37, 100, 4, 2, 128, {}),
+    ("window", 1, 130, 130, 4, 1, 128, {"window": 40}),
+    ("softcap", 1, 64, 64, 2, 2, 64, {"logit_cap": 5.0}),
+    ("ragged", 1, 300, 300, 8, 2, 128, {}),
+    ("gqa 16:1", 1, 200, 200, 32, 2, 128, {}),
+    ("gqa 6:1 d256", 1, 100, 100, 6, 1, 256, {"window": 33}),
+    ("masked rows", 1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),
+]
+BWD_CASES = [
+    *[(name, *shape, dt, kw) for name, *shape, kw in BWD_SMALL
+      for dt in (torch.bfloat16, torch.float32)],
+    ("d16", 2, 40, 40, 4, 2, 16, torch.float32, {}),
+    ("d32 softcap", 1, 45, 45, 2, 1, 32, torch.float32, {"logit_cap": 3.0}),
+    # starcoder2-3b's training shape: a microbatch of 2 x 2048, 32 (24
+    # real) q heads over 2 kv heads of 128, causal, its 4096 window
+    ("starcoder2 train", 2, TRAIN_SEQ, TRAIN_SEQ, 32, 2, 128,
+     torch.bfloat16, {"window": 4096}),
+]
+
+
+def bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw):
+    """q, k, v, the forward kernel's output on them and a seeded incoming
+    gradient: the inputs of one backward call."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    q, k, v = fa_operands(gen, b, sq, sk, h, kh, d, dtype)
+    out = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device=DEVICE).to(dtype)
+    return q, k, v, out, dout
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (inf if got is not finite)."""
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def bwd_check(got, want, dtype, name) -> list:
+    """dq, dk, dv each within BWD_TOL of the largest plain value; returns
+    the three relative errors, raises otherwise."""
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    if max(errs) > BWD_TOL[dtype]:
+        raise AssertionError(f"flash_attention backward {name} ({dtype}): "
+                             f"max |kernel - plain| / max |plain| for dq, "
+                             f"dk, dv = {errs} (BWD_TOL {BWD_TOL[dtype]})")
+    return errs
+
+
+def plain_grads(q, k, v, dout, **kw):
+    """autograd of the plain version in the operands' dtype (in bf16 it
+    rounds q * scale and P): the yardstick reported beside the kernel."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        out = flash_attention_ref(*xs, **kw)
+        return torch.autograd.grad(out, xs, dout)
+
+
+def phase_flash_backward(gen):
+    from repro_torch.kernels.flash_attention import backward as fa_backward
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    rows = []
+    for name, b, sq, sk, h, kh, d, dtype, kw in BWD_CASES:
+        q, k, v, out, dout = bwd_operands(gen, b, sq, sk, h, kh, d, dtype,
+                                          kw)
+        got = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+        again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                     **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_attention backward {name}: two runs "
+                                 "differ")
+        want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
+                                                            dout)),
+                                       rows=BWD_ROWS, **kw)
+        row = {"case": name, "shape": [b, sq, sk, h, kh, d],
+               "dtype": str(dtype).split(".")[-1], "flags": kw,
+               "rel_err_dq_dk_dv": bwd_check(got, want, dtype, name)}
+        if name == "masked rows" and \
+                float(got[0][:, 3:].float().abs().max()) != 0.0:
+            raise AssertionError("flash_attention backward: a query that "
+                                 "sees no key has a non-zero dq")
+        if dtype == torch.bfloat16:
+            row["plain_bf16_rel_err_dq_dk_dv"] = [
+                rel_err(x, w) for x, w in zip(plain_grads(q, k, v, dout,
+                                                          **kw), want)]
+        rows.append(row)
+        del q, k, v, out, dout, got, again, want
+    return rows
+
+
+def fa_bwd_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None,
+                    causal=True):
+    """Least time for attention's backward: q, k, v, out and dout read and
+    dq, dk, dv written once at the HBM rate, against 10 flops per (query,
+    valid key, head, head-dim) (the five products any backward needs: S,
+    dP, dV, dK, dQ) at the bf16 tensor-core rate; the larger, and which."""
+    nbytes = itemsize * (4 * b * sq * h * d + 4 * b * sk * kh * d)
+    if causal:
+        pairs = sum(min(sk, i + sk - sq + 1, window or sk)
+                    for i in range(sq))
+    else:
+        pairs = sq * sk
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = 10 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None):
+    """The backward at one main-path shape (bf16, causal) over
+    TIMING_ROTATION input sets: the kernel and its plain version
+    (flash_attention_bwd_ref) as in ``time_pair``, and the library call,
+    the backward of ``scaled_dot_product_attention(enable_gqa=True,
+    is_causal=True)`` (autograd.grad over a kept forward graph; CUDA
+    events around the calls, as ``call_time_ms``), timed only."""
+    from repro_torch.kernels.flash_attention import backward as fa_backward
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = {"window": window}
+    sets = [bwd_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16, kw)
+            for _ in range(TIMING_ROTATION // 2)]
+    kern = [functools.partial(fa_backward.flash_attention_bwd_cuda, *x, **kw)
+            for x in sets]
+    plain = [functools.partial(flash_attention_bwd_ref, *x, **kw)
+             for x in sets]
+    err = 0.0
+    for x, kc in zip(sets[:2], kern[:2]):
+        got = kc()
+        want = flash_attention_bwd_ref(*(t.float() for t in x),
+                                       rows=BWD_ROWS, **kw)
+        bwd_check(got, want, torch.bfloat16, "timing")
+        err = max([err] + [float((g.float() - w).abs().max())
+                           for g, w in zip(got, want)])
+
+    def sdpa_bwd(q, k, v, out, dout):
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        with torch.enable_grad():
+            o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        g = dout.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    lib = [sdpa_bwd(*x) for x in sets]
+    bound, by = fa_bwd_bound_ms(b, sq, sk, h, kh, d, 2, window)
+    return {**time_pair(kern, plain), "library_ms": call_time_ms(lib),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
 
 # --------------------------------------------------------------------- #
@@ -2022,6 +2238,256 @@ def phase_recurrent_tie(cfg, model, params):
 
 
 # --------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def shadow_backward():
+    """Inside the block every flash_attention backward call still launches
+    the backward kernel, whose gradients the step goes on with, and is then
+    held against the plain backward (``flash_attention_bwd_ref``) in f32 on
+    the same inputs: max |kernel - plain| <= BWD_TOL * max |plain| for each
+    of dq, dk, dv.  A call on which that plain backward is itself outside
+    BWD_TOL of the f64 evaluation is ill-conditioned and is held against
+    the f64 value instead.  Yields the tally."""
+    from repro_torch.kernels.flash_attention import backward as fa_backward
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    kern = fa_backward.flash_attention_bwd_cuda
+    tally = {"calls": 0, "outside": 0, "ill_conditioned_calls": 0,
+             "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0}
+
+    def bwd(q, k, v, out, dout, **kw):
+        got = kern(q, k, v, out, dout, **kw)
+        with torch.no_grad():
+            xs = (q, k, v, out, dout)
+            want = flash_attention_bwd_ref(*(x.float() for x in xs),
+                                           rows=BWD_ROWS, **kw)
+            exact = flash_attention_bwd_ref(*(x.double() for x in xs),
+                                            rows=BWD_ROWS, **kw)
+            tol = BWD_TOL[q.dtype]
+            plain_off = [rel_err(w, e) for w, e in zip(want, exact)]
+            ill = max(plain_off) > tol
+            errs = [rel_err(g, r) for g, r in zip(got, exact if ill
+                                                  else want)]
+        tally["calls"] += 1
+        tally["ill_conditioned_calls"] += int(ill)
+        tally["outside"] += sum(e > tol for e in errs)
+        tally["max_rel_err"] = max(tally["max_rel_err"], *errs)
+        tally["max_rel_err_plain_f32_vs_f64"] = max(
+            tally["max_rel_err_plain_f32_vs_f64"], *plain_off)
+        return got
+
+    fa_backward.flash_attention_bwd_cuda = bwd
+    try:
+        yield tally
+    finally:
+        fa_backward.flash_attention_bwd_cuda = kern
+
+
+def train_launches(cfg, steps):
+    """What ``steps`` train steps of ``cfg`` must launch: each attention
+    layer of each microbatch runs the forward twice (the step's forward
+    and remat "full"'s recompute in the backward), on the tensor-core
+    kernel, and the backward once."""
+    calls = cfg.num_layers * max(1, cfg.microbatches) * steps
+    return {**lm_launches(wgmma=2 * calls), "flash_attention_bwd": calls}
+
+
+def train_counted(run):
+    """``run()`` with flash_attention's launch counts (forward, by
+    variant, and backward) zeroed just before it and read just after."""
+    from repro_torch.kernels.flash_attention import backward as fa_backward
+    fa_backward.LAUNCHES["flash_attention_bwd"] = 0
+    out, launches = lm_counted(run)              # zeroes the others
+    launches["flash_attention_bwd"] = \
+        fa_backward.LAUNCHES["flash_attention_bwd"]
+    return out, launches
+
+
+def train_pipeline(cfg):
+    """The trainer's brick pipeline: 4 data nodes, 8 bricks of a whole
+    global batch each, TRAIN_BATCH x TRAIN_SEQ tokens a batch."""
+    from repro_torch.core.catalog import MetadataCatalog
+    from repro_torch.data.pipeline import BrickDataPipeline, TokenBrickStore
+    store = TokenBrickStore(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            n_bricks=8, seqs_per_brick=TRAIN_BATCH,
+                            n_nodes=4)
+    return BrickDataPipeline(store, MetadataCatalog(4),
+                             global_batch=TRAIN_BATCH, device=DEVICE)
+
+
+def phase_train():
+    """starcoder2-3b whole at full width, trained TRAIN_STEPS steps through
+    make_train_step: bf16 params, f32 moments, f32 accumulation over its
+    4 microbatches, remat "full", global batch 8 x 2048 from the brick
+    pipeline.  Peak memory reckoned: 6.74 GB bf16 params + 26.96 GB f32
+    moments + 13.48 GB f32 gradient sum + 6.74 GB bf16 microbatch grads =
+    53.9 GB of state, plus the logits' f32 copies (~0.8 GB each, a few) and
+    one layer's recompute: ~59 GB; measured and reported."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.adamw import AdamW, global_norm, init_opt_state
+    from repro_torch.train import steps as steps_lib
+    cfg = get_config(TRAIN_ARCH)
+    model = model_zoo.build_model(cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = model.table.init(gen, DEVICE)
+    n = model.table.num_params()
+    emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "q_heads": [cfg.num_heads, cfg.num_heads_padded],
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded,
+          "microbatches": cfg.microbatches, "remat": cfg.remat_policy,
+          "params": n, "param_gb": model.table.bytes() / 1e9,
+          "train_state_gb": n * (2 + 2 + 4 + 4 + 4) / 1e9})
+    pipe = train_pipeline(cfg)
+    batches = [pipe.next_device_batch() for _ in range(TRAIN_STEPS + 1)]
+
+    # step 1's loss and grad norm on the plain path, from the same params
+    # and batch: bf16 and f32 plain attention (the path's own sensitivity)
+    grads_fn = steps_lib.make_grads_fn(cfg, model)
+    plain = {}
+    for key, f32 in (("plain", False), ("plain_f32", True)):
+        with plain_kernels(f32=f32):
+            grads, _, met = grads_fn(params, batches[0])
+            plain[key] = {"loss": float(met["loss"]),
+                          "grad_norm": float(global_norm(grads))}
+        del grads
+        release()
+
+    opt = AdamW(moment_dtype=cfg.opt_moment_dtype)
+    opt_state = init_opt_state(params, opt)
+    step_fn = steps_lib.make_train_step(cfg, model, opt, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, shadow = [], [], {}
+
+    def run():
+        nonlocal params, opt_state
+        for i in range(TRAIN_STEPS):
+            ctx = shadow_backward() if i == 0 else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx as tally:
+                params, opt_state, m = step_fn(params, opt_state, batches[i])
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if tally is not None:
+                shadow.update(tally)
+            metrics.append({k: float(v) for k, v in m.items()})
+
+    _, launches = train_counted(run)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"{cfg.name} train", launches,
+                   train_launches(cfg, TRAIN_STEPS))
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{cfg.name} train step {i + 1}: {m}")
+    if shadow["outside"]:
+        raise AssertionError(f"{cfg.name} train: backward calls outside "
+                             f"BWD_TOL: {shadow}")
+    first = metrics[0]
+    ref = plain["plain_f32"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    e2e = {key: {"kernel": first[key], "plain": plain["plain"][key],
+                 "plain_f32": ref[key],
+                 "kernel_vs_plain_f32": rel(first[key], ref[key]),
+                 "plain_vs_plain_f32": rel(plain["plain"][key], ref[key])}
+           for key in ("loss", "grad_norm")}
+    gated = all(v["plain_vs_plain_f32"] <= TRAIN_REL_TOL
+                for v in e2e.values())
+    if gated:
+        off = {k: v for k, v in e2e.items()
+               if v["kernel_vs_plain_f32"] > TRAIN_REL_TOL}
+        if off:
+            raise AssertionError(f"{cfg.name} train step 1: kernel path off "
+                                 f"the plain path in f32 by more than "
+                                 f"{TRAIN_REL_TOL}: {off}")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    profile_run("train_profile", lambda: step_fn(params, opt_state,
+                                                 batches[-1]),
+                arch=cfg.name)
+    emit({"phase": "train", "arch": cfg.name, "steps": TRAIN_STEPS,
+          "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "microbatches": cfg.microbatches, "lr": TRAIN_LR,
+          "launches": launches, "metrics": metrics, "step_wall_s": walls,
+          "ms_per_step": step_s * 1e3,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+          "peak_memory_gb": peak / 1e9, "step1_vs_plain": e2e,
+          "end_to_end_gated": gated, "backward_per_call": shadow})
+    del params, opt_state, batches
+    return launches
+
+
+def phase_trainer():
+    """The Trainer with starcoder2-3b at full width and TRAINER_LAYERS of
+    its 30 layers, bf16, checkpointing every 2 steps into a temporary
+    directory (removed afterwards): a calm run of TRAINER_STEPS steps; a
+    run of 2 steps, then a new trainer resuming from its step-2 checkpoint
+    to TRAINER_STEPS, which must end with the calm run's params and
+    moments bit for bit (C-ref9's path: bf16 leaves restored); and a run
+    with data node 1 killed at step 2, whose losses must equal the calm
+    run's (the bricks' replicas are byte-identical)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAINER_LAYERS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+
+        def trainer(name, steps, hook=None):
+            return Trainer(cfg, TrainerConfig(
+                total_steps=steps, ckpt_every=2, ckpt_dir=f"{tmp}/{name}",
+                global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1),
+                device=DEVICE, failure_hook=hook)
+
+        calm = trainer("calm", TRAINER_STEPS)
+        calm.train()
+        shutil.rmtree(f"{tmp}/calm")
+        trainer("restart", 2).train()
+        resumed = trainer("restart", TRAINER_STEPS)
+        out = resumed.train()
+        if out["steps"] != TRAINER_STEPS - 2:
+            raise AssertionError(f"the restart ran {out['steps']} steps")
+        pairs = list(zip(_leaves({"p": calm.state[0], "s": calm.state[1]}),
+                         _leaves({"p": resumed.state[0],
+                                  "s": resumed.state[1]})))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+        dtypes = sorted({str(b.dtype) for _, b in pairs})
+        del resumed
+        shutil.rmtree(f"{tmp}/restart")
+        kills = {2: 1}
+        failed = trainer("failure", TRAINER_STEPS,
+                         hook=lambda step: kills.pop(step, None))
+        failed.train()
+        calm_losses = [h["loss"] for h in calm.history]
+        failed_losses = [h["loss"] for h in failed.history]
+    if differ:
+        raise AssertionError(f"restart: {differ} of {len(pairs)} state "
+                             "leaves differ from the uninterrupted run")
+    if failed_losses != calm_losses or 1 not in failed.catalog.dead_nodes():
+        raise AssertionError(f"data node failure: losses {failed_losses}, "
+                             f"calm {calm_losses}")
+    emit({"phase": "trainer", "arch": cfg.name, "layers": cfg.num_layers,
+          "published_layers": get_config(TRAIN_ARCH).num_layers,
+          "steps": TRAINER_STEPS, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "ckpt_every": 2, "tmp_free_gb": free_gb,
+          "restart_state_leaves_identical": len(pairs),
+          "restored_dtypes": dtypes, "losses": calm_losses,
+          "failure_losses_identical": True, "wall_s":
+          time.perf_counter() - t0})
+
+
+# --------------------------------------------------------------------- #
 def kernel_name(mangled) -> str:
     """A kernel's readable name from its mangled one: the name and its
     template arguments (a type as bf16 or f32, an int as itself)."""
@@ -2071,10 +2537,11 @@ def ptxas_report(source) -> list:
 def build_all():
     """One nvcc per source, all started together."""
     from repro_torch.kernels.event_filter import kernel as ef_kernel
+    from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
-    modules = (ef_kernel, fa_kernel, rg_kernel, ml_kernel)
+    modules = (ef_kernel, fa_kernel, fa_backward, rg_kernel, ml_kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         futures = [pool.submit(m.build) for m in modules]
@@ -2086,13 +2553,16 @@ def build_all():
     # the tensor-core kernels hold their state in registers by design, and
     # the chunked scan holds a few floats a thread: a spill is a fault of
     # the build, not a slowdown to report
-    spilled = [row for m in (fa_kernel, ml_kernel, rg_kernel)
+    spilled = [row for m in (fa_kernel, fa_backward, ml_kernel, rg_kernel)
                for row in ptxas[m.SOURCE.name]
                if row.get("spill_stores") or row.get("spill_loads")]
     if spilled:
         raise AssertionError(f"kernel instances spill: {spilled}")
     for m, name in ((ml_kernel, "mlstm_wgmma_kernel"),
-                    (rg_kernel, "rglru_chunked_kernel")):
+                    (rg_kernel, "rglru_chunked_kernel"),
+                    (fa_backward, "fa_bwd_dkdv_kernel"),
+                    (fa_backward, "fa_bwd_dq_kernel"),
+                    (fa_backward, "fa_bwd_stats_kernel")):
         if not any(row["kernel"].startswith(name)
                    for row in ptxas[m.SOURCE.name]):
             raise AssertionError(f"no {name} in the ptxas report")
@@ -2138,6 +2608,11 @@ def main(argv=None) -> int:
     emit({"phase": "flash_kernels", "cases": len(fa_rows),
           "tolerance": {str(k).split(".")[-1]: v for k, v in FA_TOL.items()},
           "rows": fa_rows})
+    bwd_rows = phase_flash_backward(gen)
+    emit({"phase": "flash_backward_kernels", "cases": len(bwd_rows),
+          "tolerance": {str(k).split(".")[-1]: v
+                        for k, v in BWD_TOL.items()},
+          "rows": bwd_rows})
     scan_rows = phase_scan_kernels(gen)
     emit({"phase": "scan_kernels", "cases": len(scan_rows),
           "tolerance": {"rglru_scan": SCAN_TOL,
@@ -2186,7 +2661,15 @@ def main(argv=None) -> int:
                        phase_prefill(*lm)["flash_attention"])
         del lm
         release()
-    launches["flash_attention"] = sum(sum(n) for n in flash.values())
+    # the training stack: starcoder2-3b trained whole, then the trainer's
+    # restart and failure scenarios
+    train = phase_train()
+    release()
+    phase_trainer()
+    release()
+    launches["flash_attention"] = sum(sum(n) for n in flash.values()) + \
+        train["flash_attention"]
+    launches["flash_attention_bwd"] = train["flash_attention_bwd"]
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -2211,6 +2694,16 @@ def main(argv=None) -> int:
     wh_cross = time_flash(gen, LM_BATCH, 1, 1500, 16, 16, 64, causal=False)
     wh_cross_fwd = time_flash(gen, 1, FORWARD_LEN[WH_ARCH], 1500, 16, 16, 64,
                               causal=False)
+    # the backward at starcoder2-3b's training shape (a microbatch), and
+    # the forward beside it
+    from repro_torch.configs.registry import get_config
+    tr_cfg = get_config(TRAIN_ARCH)
+    tr_shape = (TRAIN_BATCH // tr_cfg.microbatches, TRAIN_SEQ, TRAIN_SEQ,
+                tr_cfg.num_heads_padded, tr_cfg.num_kv_heads,
+                tr_cfg.head_dim)
+    timed["flash_attention_bwd"] = time_flash_bwd(
+        gen, *tr_shape, window=tr_cfg.sliding_window)
+    tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
     emit({"phase": "timing", "smi": smi,
           "launch_floor_ms": launch_floor_ms(),
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
@@ -2240,6 +2733,16 @@ def main(argv=None) -> int:
           "flash_attention_whisper_cross_forward": {
               "shape": [1, FORWARD_LEN[WH_ARCH], 1500, 16, 16, 64],
               "causal": False, **wh_cross_fwd},
+          "flash_attention_bwd": {
+              "shape": list(tr_shape), "window": tr_cfg.sliding_window,
+              "dtype": "bfloat16",
+              "launches_train": launches["flash_attention_bwd"],
+              "library": "scaled_dot_product_attention backward "
+                         "(enable_gqa, is_causal), CUDA events",
+              **with_share(timed["flash_attention_bwd"])},
+          "flash_attention_train_forward": {
+              "shape": list(tr_shape), "window": tr_cfg.sliding_window,
+              "launches_train": train["flash_attention"], **tr_forward},
           "flash_attention_launches_by_model": {
               arch: {"serve": n[0], "forward": n[1]}
               for arch, n in flash.items()},
@@ -2262,6 +2765,12 @@ def main(argv=None) -> int:
                             "flash_attention.cu",
                             "src/repro/kernels/flash_attention/"
                             "kernel.py:81"),
+        # no Pallas backward exists: the JAX package differentiates its
+        # plain attention; this is the gradient of the kernel replacing B3
+        "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/"
+                                "csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention/"
+                                "kernel.py:81"),
         "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/"
                        "rglru_scan.cu",
                        "src/repro/kernels/rglru_scan/kernel.py:42"),

@@ -3,9 +3,10 @@
 A copy of the JAX package's ``configs/base.py`` (no framework code).
 Every assigned architecture is expressed as a ``ModelConfig``; every
 input-shape cell as a ``ShapeConfig``.  Configs are frozen dataclasses.
-The TPU and mesh knobs (``remat_*``, ``scan_layers``, ``fsdp_params``,
-``seq_shard_norm``, ...) are kept as data; the port's one-card model
-reads none of them.
+The training stack reads ``remat_policy``, ``remat_segments``,
+``microbatches``, ``grad_accum_dtype`` and ``opt_moment_dtype``; the TPU
+and mesh knobs (``scan_layers``, ``fsdp_params``, ``seq_shard_norm``,
+...) are kept as data, and the port's one-card model reads none of them.
 """
 from __future__ import annotations
 

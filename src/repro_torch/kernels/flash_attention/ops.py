@@ -1,16 +1,49 @@
 """Device dispatch of flash attention: a CUDA tensor launches the
 hand-written kernel (``kernel.py``), a CPU tensor takes the plain version
 (``ref.py``), and any other device raises.  There is no switch that sends
-a CUDA tensor to the plain version.  The kernel has no backward yet: on
-CUDA operands that require grad, with grad mode on, the call raises
-(``repro_torch.kernels.refuse_autograd``)."""
+a CUDA tensor to the plain version.
+
+On CUDA operands of which one requires grad, with grad mode on, the call
+goes through ``FlashAttentionFn``: its forward is the same kernel and its
+backward the hand-written backward kernel (``backward.py``).  Otherwise
+the kernel runs as a plain call (serving).  On CPU tensors autograd
+differentiates the plain version."""
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.kernels import refuse_autograd
+import torch
+
+from repro_torch.kernels.flash_attention import backward as fa_backward
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient on the card: the forward launches
+    the kernel of the call's plan (``kernel.flash_attention_cuda``) and
+    saves q, k, v and the output; the backward launches the three backward
+    kernels (``backward.flash_attention_bwd_cuda``) and returns dq, dk, dv
+    in the operands' dtypes.  Both are looked up on their modules at call
+    time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, logit_cap):
+        opts = dict(causal=causal, window=window, scale=scale,
+                    logit_cap=logit_cap)
+        out = fa_kernel.flash_attention_cuda(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:      # e.g. the expanded gradient of a sum
+            dout = dout.contiguous()
+        dq, dk, dv = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                          **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -22,8 +55,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention operands are on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
-    if dev.type == "cuda":      # the wrapper validates
-        refuse_autograd("flash_attention", q, k, v)
+    if dev.type == "cuda":      # the wrappers validate
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                          logit_cap)
         return fa_kernel.flash_attention_cuda(
             q, k, v, causal=causal, window=window, scale=scale,
             logit_cap=logit_cap)

@@ -3,8 +3,12 @@ attention of ``models/attention.py`` with the kernel's signature (port of
 ``kernels/flash_attention/ref.py``).  A wrapper runs it for CPU tensors,
 and the CUDA kernels are held against it on the card.
 
-``flash_attention_split_ref`` is a plain model of the decode kernel's
-split over the keys, for the tests only: no path calls it."""
+``flash_attention_bwd_ref`` is the backward kernel's plain version: the
+gradient by its explicit formulas with P recomputed, for the tests and
+``chip_smoke.py`` (on the CPU autograd differentiates
+``flash_attention_ref`` itself).  ``flash_attention_split_ref`` is a plain
+model of the decode kernel's split over the keys, for the tests only: no
+path calls either."""
 from __future__ import annotations
 
 import torch
@@ -24,6 +28,63 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None,
     return attention(q, k, v, q_positions=q_pos, k_positions=k_pos,
                      causal=causal, window=window, scale=scale,
                      logit_cap=logit_cap)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, causal=True,
+                            window=None, scale=None, logit_cap=None,
+                            rows=None):
+    """dq (B,Sq,H,D), dk and dv (B,Sk,K,D) of ``flash_attention`` by the
+    backward kernel's formulas (``csrc/flash_attention_bwd.cu``), in the
+    operands' dtypes: the function the kernels compute (q * scale not
+    rounded, the 0.1 * NEG_INF guard, a row with no valid key 0), with P
+    recomputed as exp(s - lse), delta = sum(dout * out), dS = P (dP -
+    delta) through the cap's 1 - tanh^2 and the scale, and dk, dv summed
+    over each kv head's query heads.  Computed in f32, or in f64 for f64
+    operands; ``rows`` query rows at a time (all by default) bounds the
+    (B, H, rows, Sk) temporaries."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    scale = scale if scale is not None else d ** -0.5
+    kf = repeat_kv(k, h).to(ct)
+    vf = repeat_kv(v, h).to(ct)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    off = sk - sq if causal else 0
+    dq = torch.empty((b, sq, h, d), dtype=ct, device=q.device)
+    dk = torch.zeros((b, sk, h, d), dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    step = rows or sq
+    for i0 in range(0, sq, step):
+        qf = q[:, i0:i0 + step].to(ct)
+        do = dout[:, i0:i0 + step].to(ct)
+        delta = (do * out[:, i0:i0 + step].to(ct)).sum(-1)     # (B, r, H)
+        raw = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        t = torch.tanh(raw / logit_cap) if logit_cap is not None else None
+        s = raw if t is None else logit_cap * t
+        q_pos = torch.arange(i0, i0 + qf.shape[1],
+                             device=q.device)[:, None] + off
+        valid = torch.ones_like(s[0, 0], dtype=torch.bool)
+        if causal:
+            valid &= k_pos <= q_pos
+        if window is not None:
+            valid &= k_pos > q_pos - window
+        masked = torch.where(valid, s, NEG_INF)
+        m = torch.clamp(masked.amax(-1, keepdim=True), min=0.1 * NEG_INF)
+        l = torch.exp(masked - m).sum(-1, keepdim=True)
+        lse = torch.where(l > 0, m + torch.log(l), float("inf"))
+        p = torch.where(valid, torch.exp(s - lse), 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+        ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+        if t is not None:
+            ds = ds * (1 - t * t)
+        ds = ds * scale
+        dq[:, i0:i0 + step] = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, do)
+    # the transpose of repeat_kv: each kv head sums its query heads
+    dk = dk.view(b, sk, kh, h // kh, d).sum(3)
+    dv = dv.view(b, sk, kh, h // kh, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_split_ref(q, k, v, *, splits, causal=True, window=None,

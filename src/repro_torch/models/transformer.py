@@ -1,9 +1,14 @@
 """Decoder-only transformer LM on torch tensors (dense / MoE / VLM
 backbone; port of ``models/transformer.py``).
 
-Layers run in a Python loop over the stacked layer parameters; the
-reference's ``scan_layers``, remat and ``Sharder`` are TPU and mesh
-devices with no port.  Every attention call goes through
+Layers run in a Python loop over the stacked layer parameters (the
+reference's ``scan_layers`` and ``Sharder`` are TPU and mesh devices with
+no port).  With grad mode on, ``run_layers`` applies the reference's
+remat: ``remat_policy`` ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+products without batch dims and recomputes the rest, and
+``remat_segments`` G > 1 checkpoints G segments of L / G layers around
+them; serving (grad mode off) runs the plain loop.  Every attention call goes through
 ``kernels/flash_attention/ops.py``: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain version.  A config
 with experts runs ``models/moe.py`` in place of the MLP (forward returns
@@ -20,9 +25,11 @@ Param paths (all stacked with leading L), as the reference:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
@@ -152,7 +159,8 @@ def self_attention(cfg, p, x, positions, *, window=None):
 # Layer body + forward
 # --------------------------------------------------------------------------- #
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked layer parameters (views)."""
+    """Layer ``i``'s slice of the stacked layer parameters (views), or its
+    entry where a path holds a list of per-layer tensors."""
     return {key: layer_params(val, i) if isinstance(val, dict) else val[i]
             for key, val in layers.items()}
 
@@ -179,6 +187,77 @@ def _layer(cfg, p, x, positions):
     if cfg.post_attn_norm:
         m = L.norm(cfg, m, p["ln2_post"]["scale"])
     return x + m, aux
+
+
+def _dots_policy():
+    """Selective-checkpoint contexts that keep the outputs of products
+    without batch dims (the reference's
+    ``checkpoint_dots_with_no_batch_dims``: the projections, which einsum
+    runs as ``mm`` or as ``bmm`` over one batch) and recompute the rest."""
+    aten = torch.ops.aten
+
+    def policy(ctx, op, *args, **kwargs):
+        dot = op in (aten.mm.default, aten.addmm.default) or (
+            op == aten.bmm.default and args[0].shape[0] == 1)
+        return (ckpt.CheckpointPolicy.MUST_SAVE if dot
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return ckpt.create_selective_checkpoint_contexts(policy)
+
+
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat_policy``: ``"none"`` as it is, ``"dots"``
+    checkpointed keeping the products without batch dims, ``"full"``
+    checkpointed whole (its activations recomputed in the backward)."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=_dots_policy)
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+
+def run_layers(cfg, layers: dict, x, positions, layer_fn=None):
+    """The layers over x, in order: (x, summed aux loss).
+
+    ``layers`` holds the stacked layer parameters (or, as the trainer
+    gives them, a list of per-layer tensors at each path).  With grad mode
+    on each layer runs under ``_remat``, and with ``cfg.remat_segments`` =
+    G > 1 the L layers are G checkpointed segments of L / G (sqrt remat:
+    the backward keeps G segment inputs instead of L layer inputs).  With
+    grad mode off (serving) no layer is checkpointed."""
+    fn = layer_fn or _layer
+    n = cfg.num_layers
+
+    def layer(p_i, x):
+        return fn(cfg, p_i, x, positions)
+
+    if not torch.is_grad_enabled():
+        body = layer
+    else:
+        body = _remat(cfg, layer)
+
+    def run(lo, hi, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(lo, hi):
+            x, aux_i = body(layer_params(layers, i), x)
+            aux = aux + aux_i
+        return x, aux
+
+    g = cfg.remat_segments
+    if not torch.is_grad_enabled() or g <= 1:
+        return run(0, n, x)
+    if n % g:
+        raise ValueError(f"{n} layers do not split into {g} segments")
+    k = n // g
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(g):
+        x, aux_s = ckpt.checkpoint(run, s * k, (s + 1) * k, x,
+                                   use_reentrant=False)
+        aux = aux + aux_s
+    return x, aux
 
 
 def embed_tokens(cfg, params, tokens, patch_embeds=None):
@@ -208,11 +287,7 @@ def forward(cfg, params, tokens, patch_embeds=None):
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int64, device=tokens.device)
     x = embed_tokens(cfg, params, tokens, patch_embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, aux_i = _layer(cfg, layer_params(params["layers"], i), x,
-                          positions)
-        aux = aux + aux_i
+    x, aux = run_layers(cfg, params["layers"], x, positions)
     x = L.norm(cfg, x, params["final_norm"]["scale"],
                params["final_norm"].get("bias"))
     return unembed(cfg, params, x), aux

@@ -1,19 +1,26 @@
 """The LM kernels' dispatchers and autograd, on the CPU.
 
-The CUDA kernels have no backward yet, so on a CUDA operand that requires
-grad, with grad mode on, ``flash_attention``, ``rglru_scan`` and ``mlstm``
-raise (``repro_torch.kernels.refuse_autograd``; the card side is in
+On a CUDA operand that requires grad, with grad mode on,
+``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
+the hand-written backward kernel, while ``rglru_scan`` and ``mlstm``,
+whose kernels have no backward yet, raise
+(``repro_torch.kernels.refuse_autograd``; the card side is in
 ``tests/test_torch_cuda.py``).  On CPU tensors they take their plain
 versions, which stay differentiable: the gradients through ``ops`` equal
 those through the plain version, bit for bit, on inputs made from a numpy
-seed."""
+seed; and ``FlashAttentionFn`` with its kernels swapped for their plain
+twins gives the plain version's gradient (within 1e-5 of the largest:
+the twin sums by explicit formulas)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels.flash_attention import backward as fa_backward
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -77,3 +84,30 @@ def test_refuse_autograd_lets_the_kernel_run(mode):
             refuse_autograd("mlstm", x)
     else:
         refuse_autograd("mlstm", x, None)
+
+
+def test_flash_attention_differentiates_where_rglru_and_mlstm_refuse():
+    """ops.flash_attention no longer calls the guard (FlashAttentionFn
+    carries its gradient); rglru_scan's and mlstm's still do."""
+    import inspect
+    assert "refuse_autograd" not in inspect.getsource(fa_ops)
+    assert "refuse_autograd(\"rglru_scan\"" in inspect.getsource(rg_ops)
+    assert "refuse_autograd(\"mlstm\"" in inspect.getsource(ml_ops)
+
+
+def test_flash_attention_fn_gives_the_plain_versions_gradient(monkeypatch):
+    monkeypatch.setattr(fa_kernel, "flash_attention_cuda",
+                        flash_attention_ref)
+    monkeypatch.setattr(fa_backward, "flash_attention_bwd_cuda",
+                        flash_attention_bwd_ref)
+    xs = _inputs("flash_attention", seed=2)
+    out = fa_ops.FlashAttentionFn.apply(*xs, True, None, None, None)
+    weight = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tuple(out.shape)).astype(np.float32))
+    # a non-contiguous incoming gradient (the expanded one of a sum)
+    got = torch.autograd.grad((out * weight).sum() + out.sum(), xs)
+    want = torch.autograd.grad(
+        (flash_attention_ref(*xs) * weight).sum() +
+        flash_attention_ref(*xs).sum(), xs)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

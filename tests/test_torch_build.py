@@ -76,6 +76,11 @@ def test_the_shared_header_directory_is_the_packages():
      "lllii", "event_filter_batch_kernel"),
     ("_ZN46_GLOBAL__N__3f0a9c21_13_rglru_scan_cu_5e1b2c7a20rglru_chunked_"
      "kernelENS_6ParamsE", "rglru_chunked_kernel"),
+    ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_04843d3018fa_bwd_"
+     "dkdv_kernelIfLi32EEEvNS_6ParamsE", "fa_bwd_dkdv_kernel<f32,32>"),
+    ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_04843d3016fa_bwd_"
+     "dq_kernelI13__nv_bfloat16Li128EEEvNS_6ParamsE",
+     "fa_bwd_dq_kernel<bf16,128>"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from

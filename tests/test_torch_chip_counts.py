@@ -102,3 +102,37 @@ def test_end_to_end_gate_follows_the_plain_baseline(arch, base, top1, gated):
     cmp = {"plain_vs_plain_f32": {"max_rel_logit_diff": base,
                                   "top1_agreement": top1}}
     assert chip_smoke.e2e_gated(get_config(arch), cmp) is gated
+
+
+def test_train_launch_counts():
+    """starcoder2-3b's train phase: 30 layers x 4 microbatches x 3 steps,
+    each layer's forward twice (the step's and remat "full"'s recompute
+    in the backward), all on the tensor-core kernel, and the backward
+    once: 720 forward and 360 backward launches."""
+    cfg = get_config(chip_smoke.TRAIN_ARCH)
+    assert (cfg.num_layers, cfg.microbatches, cfg.remat_policy) == \
+        (30, 4, "full")
+    got = chip_smoke.train_launches(cfg, chip_smoke.TRAIN_STEPS)
+    assert got["flash_attention"] == 30 * 4 * 3 * 2 == 720
+    assert got["flash_attention.wgmma"] == 720
+    assert got["flash_attention_bwd"] == 30 * 4 * 3 == 360
+    assert got["rglru_scan"] == got["mlstm"] == 0
+    # each forward call of a microbatch (2 rows of 2048) takes wgmma
+    mb = chip_smoke.TRAIN_BATCH // cfg.microbatches
+    seq = chip_smoke.TRAIN_SEQ
+    pl = fa_kernel.plan(mb, seq, seq, cfg.num_heads_padded,
+                        cfg.num_kv_heads, cfg.head_dim, torch.bfloat16,
+                        True, cfg.sliding_window)
+    assert (mb, pl.variant) == (2, "wgmma")
+
+
+def test_backward_bound_counts_ten_flops_a_valid_pair():
+    """10 * B * H * pairs * D at 989 TFLOP/s: about 0.174 ms at starcoder2's
+    (2, 2048^2, 32, 128) causal; its 4096 window masks nothing there."""
+    ms, by = chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2, 4096)
+    pairs = 2048 * 2049 // 2
+    assert by == "operations"
+    assert ms == pytest.approx(10 * 2 * 32 * pairs * 128 /
+                               chip_smoke.BF16_FLOPS_PER_S * 1e3)
+    assert ms == pytest.approx(0.174, abs=5e-4)
+    assert chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2)[0] == ms

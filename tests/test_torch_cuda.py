@@ -19,9 +19,11 @@ from repro_torch.kernels.event_filter import ops as ef_ops
 from repro_torch.kernels.event_filter.ref import (calibrate_tracks,
                                                   event_filter_batch_ref,
                                                   event_filter_ref)
+from repro_torch.kernels.flash_attention import backward as fa_backward
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
@@ -861,7 +863,139 @@ def test_recurrent_lm_on_the_card_goes_through_its_kernels(cuda, monkeypatch,
     torch.testing.assert_close(steps, plain_steps, rtol=0, atol=atol)
 
 
-# ------------------------- no backward on the card ------------------------ #
+# --------------------------- flash backward ----------------------------- #
+# max |kernel - plain| <= BWD_TOL * max |plain| per gradient, the plain
+# backward (flash_attention_bwd_ref) evaluated in f32 on the same values:
+# bf16 rounds the gradients (and the forward's output, which delta reads),
+# f32 sums in another order with TF32 off
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+BWD_CASES = [
+    (2, 96, 96, 4, 2, 64, {}),                     # causal, ragged tiles
+    (1, 70, 70, 4, 2, 64, {"causal": False}),
+    (2, 37, 100, 4, 2, 128, {}),                   # sq < sk
+    (1, 130, 130, 4, 1, 128, {"window": 40}),
+    (1, 64, 64, 2, 2, 64, {"logit_cap": 5.0}),
+    (1, 33, 33, 32, 2, 128, {}),                   # GQA 16:1
+    (1, 40, 40, 6, 1, 256, {"window": 17}),        # GQA 6:1, D 256
+    (1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),  # masked rows
+    (2, 19, 19, 4, 2, 16, {}),
+    (1, 45, 45, 2, 1, 32, {"logit_cap": 3.0}),
+]
+
+
+def _bwd(q, k, v, **kw):
+    """(out, dq, dk, dv) through ops.flash_attention under autograd, with
+    a seeded incoming gradient, and that gradient."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    g = torch.Generator(device=q.device).manual_seed(7)
+    dout = torch.randn(out.shape, generator=g, device=q.device).to(q.dtype)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    return out, grads, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,kw", BWD_CASES)
+def test_flash_backward_kernel_matches_plain_version(cuda, b, sq, sk, h, kh,
+                                                     d, kw, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, dtype, seed=sq * 3 + d)
+    before = dict(fa_backward.LAUNCHES)
+    out, got, dout = _bwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_backward.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
+                                                        dout)), **kw)
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == dtype and bool(torch.isfinite(x).all()), name
+        err = float((x.detach().float() - w).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.abs().max()) + 1e-30, \
+            (name, err, float(w.abs().max()))
+    # run to run the kernel gives the same bits
+    again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_flash_backward_of_a_row_with_no_key_is_zero(cuda):
+    """Non-causal, window 1, Sq 5 over Sk 3: queries 3 and 4 see no key;
+    their out and dq are 0, never NaN, and they add nothing to dk, dv."""
+    q, k, v = _fa_inputs(cuda, 1, 5, 3, 2, 1, 64, torch.float32, seed=3)
+    out, (dq, dk, dv), dout = _bwd(q, k, v, causal=False, window=1)
+    assert bool(torch.isfinite(dq).all()) and bool(torch.isfinite(dk).all())
+    assert float(out[:, 3:].abs().max()) == 0.0
+    assert float(dq[:, 3:].abs().max()) == 0.0
+    _, (_, dk3, dv3), _ = _bwd(q[:, :3], k, v, causal=False, window=1)
+    torch.testing.assert_close(dk, dk3, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv3, rtol=0, atol=0)
+
+
+def test_flash_backward_wrapper_checks_its_operands(cuda):
+    q, k, v = _fa_inputs(cuda, 1, 8, 8, 2, 1, 64, torch.bfloat16, seed=1)
+    out = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        fa_backward.flash_attention_bwd_cuda(q.cpu(), k.cpu(), v.cpu(),
+                                             out.cpu(), out.cpu())
+    with pytest.raises(ValueError, match="dout is"):
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out, out.float())
+    with pytest.raises(ValueError, match="must have q's shape"):
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out[:, :4], out)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fa_backward.flash_attention_bwd_cuda(
+            q, k, v, out, out.transpose(1, 3).contiguous().transpose(1, 3))
+
+
+def test_reduced_train_step_on_the_card(cuda, monkeypatch):
+    """One train step of reduced qwen3-14b at head dim 64 in bf16 (the
+    tensor-core forward and the backward kernel; two microbatches, remat
+    "full"): every attention layer launches the forward twice (the remat
+    recompute) and the backward once per microbatch; the loss and grad
+    norm are finite and within 2e-2 of the same step with the plain
+    attention evaluated in f32 on the same values (qk-norm keeps the
+    scores small, so the model is not chaotic; reduced starcoder2-3b is,
+    C-ref5)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo, transformer
+    from repro_torch.optim.adamw import init_opt_state, AdamW
+    from repro_torch.train.steps import make_train_step
+    cfg = reduced_config("qwen3-14b", head_dim=64, dtype="bfloat16",
+                         param_dtype="bfloat16", microbatches=2)
+    model = model_zoo.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128), device=cuda,
+                         generator=g)
+    batch = {"tokens": toks, "labels": toks}
+
+    def step():
+        params = model.table.init(
+            torch.Generator(device=cuda).manual_seed(0), cuda)
+        fn = make_train_step(cfg, model, AdamW())
+        _, _, metrics = fn(params, init_opt_state(params, AdamW()), batch)
+        return {k: float(v) for k, v in metrics.items()}
+
+    fwd, bwd = fa_kernel.LAUNCHES["flash_attention"], \
+        fa_backward.LAUNCHES["flash_attention_bwd"]
+    got = step()
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] - fwd == \
+        cfg.num_layers * 2 * 2
+    assert fa_backward.LAUNCHES["flash_attention_bwd"] - bwd == \
+        cfg.num_layers * 2
+
+    def plain_f32(q, k, v, **kw):
+        return flash_attention_ref(q.float(), k.float(), v.float(),
+                                   **kw).to(q.dtype)
+
+    monkeypatch.setattr(transformer, "flash_attention", plain_f32)
+    want = step()
+    for key in ("loss", "grad_norm"):
+        assert np.isfinite(got[key])
+        assert abs(got[key] - want[key]) <= 2e-2 * abs(want[key]), \
+            (key, got[key], want[key])
+
+
+# ----------------- backward on the card: B3 yes, B4/B5 no ----------------- #
 def _lm_kernel_call(name, dev):
     """(dispatcher call, its LAUNCHES dict and key) on small operands."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -884,16 +1018,29 @@ def _lm_kernel_call(name, dev):
 
 @pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "mlstm"])
 def test_lm_kernels_refuse_autograd_on_the_card(cuda, name):
-    """With grad mode on, a CUDA operand that requires grad raises (the
-    kernel's output would carry no grad_fn); under inference_mode the same
-    call launches the kernel once."""
+    """With grad mode on and a CUDA operand that requires grad,
+    flash_attention goes through FlashAttentionFn (the kernel forward, a
+    grad_fn whose backward launches the backward kernel) while rglru_scan
+    and mlstm raise (their kernels have no backward yet: the output would
+    carry no grad_fn); under inference_mode each call launches its kernel
+    once."""
     call, operands, launches = _lm_kernel_call(name, cuda)
     operands[0].requires_grad_(True)
     before = launches[name]
-    with pytest.raises(RuntimeError, match=f"{name} CUDA kernel has no "
-                                           f"backward"):
-        call()
-    assert launches[name] == before
+    if name == "flash_attention":
+        bwd = fa_backward.LAUNCHES["flash_attention_bwd"]
+        out = call()
+        assert out.grad_fn is not None and launches[name] == before + 1
+        (grad,) = torch.autograd.grad(out.float().sum(), operands[0])
+        torch.cuda.synchronize()
+        assert fa_backward.LAUNCHES["flash_attention_bwd"] == bwd + 1
+        assert bool(torch.isfinite(grad.float()).all())
+        before += 1
+    else:
+        with pytest.raises(RuntimeError, match=f"{name} CUDA kernel has no "
+                                               f"backward"):
+            call()
+        assert launches[name] == before
     with torch.inference_mode():
         out = call()
     torch.cuda.synchronize()

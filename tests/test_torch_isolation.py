@@ -71,6 +71,10 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.models import model_zoo, transformer\n"
         "from repro_torch.models import encdec, moe\n"
         "from repro_torch.kernels.event_filter import tune\n"
+        "import repro_torch.optim, repro_torch.checkpoint\n"
+        "from repro_torch.data import pipeline\n"
+        "from repro_torch.train import steps, trainer\n"
+        "from repro_torch.kernels.flash_attention import backward\n"
         "for arch in ('qwen3-14b', 'recurrentgemma-9b', 'xlstm-350m',\n"
         "             'pixtral-12b', 'phi3.5-moe-42b-a6.6b', 'grok-1-314b',\n"
         "             'whisper-medium'):\n"
@@ -324,3 +328,43 @@ def test_kernel_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)exit 3.*no sm_90a here"):
         kernels.build_cuda_library(ef_kernel.SOURCE)
     assert list(build.iterdir()) == []   # no half-written library left
+
+
+def test_train_launcher_loads_no_jax(tmp_path):
+    """The training stack end to end on the CPU (the launcher, the
+    trainer, AdamW, the brick pipeline, checkpoints and a resume) loads
+    neither JAX nor the JAX package."""
+    argv = ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
+            "--steps", "2", "--ckpt-every", "1", "--seq-len", "16",
+            "--global-batch", "4", "--ckpt-dir", str(tmp_path / "ck")]
+    for steps in ("2", "3"):
+        argv[6] = steps
+        proc = _run_module_isolated("repro_torch.launch.train", argv,
+                                    tmp_path)
+        assert proc.returncode == 0, proc.stderr
+        assert "done (cpu)" in proc.stdout
+        assert proc.stdout.strip().endswith("isolated ok")
+    assert "'steps': 1" in proc.stdout          # resumed at step 2
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    _require_no_cuda()
+    from repro_torch.checkpoint.ckpt import restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.data.pipeline import BrickDataPipeline, TokenBrickStore
+    from repro_torch.optim.adamw import opt_state_from_reference
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.launch import train
+    cfg = reduced_config_lm("qwen3-14b")
+    save_checkpoint(tmp_path, 1, {"x": torch.zeros(2)})
+    store = TokenBrickStore(vocab_size=16, seq_len=4, n_bricks=2,
+                            seqs_per_brick=4, n_nodes=2)
+    for build in (lambda: Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path))),
+                  lambda: BrickDataPipeline(store, MetadataCatalog(2),
+                                            global_batch=2),
+                  lambda: restore_checkpoint(tmp_path),
+                  lambda: opt_state_from_reference(cfg, {}),
+                  lambda: train.main(["--arch", "qwen3-14b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
