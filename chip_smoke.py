@@ -167,8 +167,8 @@ Phases, each printing one JSON line:
    value where that plain backward is off, shadow_backward); loss and
    grad norm finite at every step; step 1's loss and grad norm against
    the same step on the plain attention (bf16, and f32 on the same
-   values), gated within TRAIN_REL_TOL only where those two plain runs
-   agree (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
+   values), each metric gated within TRAIN_REL_TOL on its own where the
+   two plain runs agree on it (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
    (about 59 GB reckoned, phase_train) and, for one more step, the busy
    share under torch.profiler;
    trainer — Trainer with starcoder2-3b at full width and 2 of its 30
@@ -2399,15 +2399,14 @@ def phase_train():
                  "kernel_vs_plain_f32": rel(first[key], ref[key]),
                  "plain_vs_plain_f32": rel(plain["plain"][key], ref[key])}
            for key in ("loss", "grad_norm")}
-    gated = all(v["plain_vs_plain_f32"] <= TRAIN_REL_TOL
-                for v in e2e.values())
-    if gated:
-        off = {k: v for k, v in e2e.items()
-               if v["kernel_vs_plain_f32"] > TRAIN_REL_TOL}
-        if off:
-            raise AssertionError(f"{cfg.name} train step 1: kernel path off "
-                                 f"the plain path in f32 by more than "
-                                 f"{TRAIN_REL_TOL}: {off}")
+    gated = {k: v["plain_vs_plain_f32"] <= TRAIN_REL_TOL
+             for k, v in e2e.items()}
+    off = {k: v for k, v in e2e.items()
+           if gated[k] and v["kernel_vs_plain_f32"] > TRAIN_REL_TOL}
+    if off:
+        raise AssertionError(f"{cfg.name} train step 1: kernel path off "
+                             f"the plain path in f32 by more than "
+                             f"{TRAIN_REL_TOL}: {off}")
     step_s = sum(walls[1:]) / len(walls[1:])
     profile_run("train_profile", lambda: step_fn(params, opt_state,
                                                  batches[-1]),

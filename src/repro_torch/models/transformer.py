@@ -219,7 +219,7 @@ def _remat(cfg, fn):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
 
 
-def run_layers(cfg, layers: dict, x, positions, layer_fn=None):
+def run_layers(cfg, layers: dict, x, positions):
     """The layers over x, in order: (x, summed aux loss).
 
     ``layers`` holds the stacked layer parameters (or, as the trainer
@@ -228,11 +228,10 @@ def run_layers(cfg, layers: dict, x, positions, layer_fn=None):
     G > 1 the L layers are G checkpointed segments of L / G (sqrt remat:
     the backward keeps G segment inputs instead of L layer inputs).  With
     grad mode off (serving) no layer is checkpointed."""
-    fn = layer_fn or _layer
     n = cfg.num_layers
 
     def layer(p_i, x):
-        return fn(cfg, p_i, x, positions)
+        return _layer(cfg, p_i, x, positions)
 
     if not torch.is_grad_enabled():
         body = layer

@@ -4,6 +4,8 @@ Marked ``cuda``: without a CUDA device every test here skips.  On the
 card run ``python -m pytest -m cuda tests/test_torch_cuda.py``; the file
 imports neither JAX nor the JAX package, so it runs where only the port
 is installed."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -946,20 +948,31 @@ def test_flash_backward_wrapper_checks_its_operands(cuda):
             q, k, v, out, out.transpose(1, 3).contiguous().transpose(1, 3))
 
 
-def test_reduced_train_step_on_the_card(cuda, monkeypatch):
-    """One train step of reduced qwen3-14b at head dim 64 in bf16 (the
+# reduced models whose end-to-end train check holds a metric only where
+# two plain runs (attention in bf16 and in f32) agree on it
+TRAIN_IF_STABLE = ("starcoder2-3b",)
+TRAIN_REL_TOL = 2e-2
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-3b"])
+def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
+    """One train step of a reduced model at head dim 64 in bf16 (the
     tensor-core forward and the backward kernel; two microbatches, remat
     "full"): every attention layer launches the forward twice (the remat
-    recompute) and the backward once per microbatch; the loss and grad
-    norm are finite and within 2e-2 of the same step with the plain
-    attention evaluated in f32 on the same values (qk-norm keeps the
-    scores small, so the model is not chaotic; reduced starcoder2-3b is,
-    C-ref5)."""
+    recompute) and the backward once per microbatch, and the loss and grad
+    norm are finite.  They are held within TRAIN_REL_TOL of the same step
+    with the plain attention evaluated in f32 on the same values.  For
+    qwen3-14b always: qk-norm keeps the scores small.  Reduced
+    starcoder2-3b has no qk-norm and the reference's initialisation makes
+    it chaotic (C-ref5), so a metric is held only where the plain
+    attention in bf16 agrees with it in f32 within TRAIN_REL_TOL
+    (chip_smoke's E2E_IF_STABLE rule).  The readings are printed as one
+    JSON line (``-s`` shows them)."""
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models import model_zoo, transformer
     from repro_torch.optim.adamw import init_opt_state, AdamW
     from repro_torch.train.steps import make_train_step
-    cfg = reduced_config("qwen3-14b", head_dim=64, dtype="bfloat16",
+    cfg = reduced_config(arch, head_dim=64, dtype="bfloat16",
                          param_dtype="bfloat16", microbatches=2)
     model = model_zoo.build_model(cfg)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -989,10 +1002,22 @@ def test_reduced_train_step_on_the_card(cuda, monkeypatch):
 
     monkeypatch.setattr(transformer, "flash_attention", plain_f32)
     want = step()
+    monkeypatch.setattr(transformer, "flash_attention", flash_attention_ref)
+    plain = step()
+    readings = {}
     for key in ("loss", "grad_norm"):
-        assert np.isfinite(got[key])
-        assert abs(got[key] - want[key]) <= 2e-2 * abs(want[key]), \
-            (key, got[key], want[key])
+        assert np.isfinite(got[key]), (key, got[key])
+        readings[key] = {
+            "kernel": got[key], "plain": plain[key], "plain_f32": want[key],
+            "kernel_vs_plain_f32": abs(got[key] - want[key]) / abs(want[key]),
+            "plain_vs_plain_f32":
+                abs(plain[key] - want[key]) / abs(want[key])}
+    print(json.dumps({"reduced_train_step": arch, **readings}))
+    for key, r in readings.items():
+        if arch in TRAIN_IF_STABLE and \
+                r["plain_vs_plain_f32"] > TRAIN_REL_TOL:
+            continue
+        assert r["kernel_vs_plain_f32"] <= TRAIN_REL_TOL, (key, r)
 
 
 # ----------------- backward on the card: B3 yes, B4/B5 no ----------------- #

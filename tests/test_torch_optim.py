@@ -98,9 +98,10 @@ def test_global_norm():
 
 def test_c_ref13_the_reference_norm_overflows_where_the_port_does_not():
     """Gradients of ~1e21, as starcoder2-3b's first step at full width has
-    (scripts/train_step_grads.py): the reference's f32 sum of squares is
-    inf, so its clip factor is 0 and the step moves by weight decay
-    alone; the port's norm is finite and its clipped step is not 0."""
+    (chip_smoke.py's train phase reads a norm of ~1e23): the reference's
+    f32 sum of squares is inf, so its clip factor is 0 and the step moves
+    by weight decay alone; the port's norm is finite and its clipped step
+    is not 0."""
     rng = np.random.default_rng(5)
     tree = _tree(lambda s: (rng.normal(size=s) * 1e21).astype(np.float32))
     want = float(jax_adamw.global_norm(jax.tree.map(jnp.asarray, tree)))
