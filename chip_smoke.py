@@ -34,19 +34,23 @@ Phases, each printing one JSON line:
    atol + rtol |plain|: 2e-2 in bf16, 2e-4 in f32 with TF32 off (FA_TOL);
    bf16 cases also against the plain version in f32 on the same values.
    Each row names the device kernel the wrapper's plan chose.
-   flash_attention's backward (flash_attention_bwd.cu) on the forward
-   kernel's output and a seeded incoming gradient: causal and not, Sq <
-   Sk, a window, a softcap, ragged tiles, GQA 16:1 and 6:1, head dims
-   64 / 128 / 256 in bf16 and f32 (f32 also at 16 and 32), rows whose
-   window masks every key (their dq must be 0), and starcoder2-3b's
-   training shape (2, 2048, 2048, 32 q heads over 2 kv heads of 128,
-   causal, bf16); dq, dk and dv each within BWD_TOL (2e-2 bf16, 2e-4 f32)
-   of the largest value of the plain backward (flash_attention_bwd_ref)
-   in f32 on the same values, autograd of the plain version in bf16
-   reported beside it, and two launches giving the same bits.  rglru_scan at recurrentgemma-9b's (1, 4096, 4096)
-   with and without h0, a ragged (3, 100, 48), S under one chunk (2, 8,
-   4096), W no multiple of 4 (2, 77, 50, the cp.async load path) and 141
-   chunks (1, 9000, 128),
+   flash_attention's backward (flash_attention_bwd.cu) on the output and
+   the lse of one forward launch (with_lse) and a seeded incoming
+   gradient: causal and not, Sq < Sk, a window, a softcap, ragged tiles,
+   GQA 16:1, 5:1 and 6:1, head dims 64 / 128 / 256 in bf16 and f32 (f32
+   also at 16 and 32), rows whose window masks every key (their dq must
+   be 0), and starcoder2-3b's training shape (2, 2048, 2048, 32 q heads
+   over 2 kv heads of 128, causal, bf16); bf16 at head dim 64 and 128
+   must take the tensor-core variant (flash_bwd_wgmma.cuh), the rest the
+   CUDA-core one; dq, dk and dv each within BWD_TOL (2e-2 bf16, 2e-4 f32)
+   of the largest value of the plain backward (flash_attention_bwd_ref,
+   which computes its own lse) in f32 on the same values, the forward's
+   lse within LSE_TOL of the plain lse (+inf exactly where a row sees no
+   key), autograd of the plain version in bf16 reported beside it, and
+   two launches giving the same bits.  rglru_scan at recurrentgemma-9b's
+   (1, 4096, 4096) with and without h0, a ragged (3, 100, 48), S under
+   one chunk (2, 8, 4096), W no multiple of 4 (2, 77, 50, the cp.async
+   load path) and 141 chunks (1, 9000, 128),
    within 1e-5 (SCAN_TOL) of the plain version and equal bit for bit to
    the chunked kernel's order of operations in plain PyTorch
    (rglru_scan_chunked_ref at the plan's chunk), each row with its plan
@@ -161,8 +165,9 @@ Phases, each printing one JSON line:
    8 x 2048 from the brick pipeline, TRAIN_STEPS = 3 steps through
    make_train_step.  flash_attention must launch 30 x 4 x 3 x 2 = 720
    times (the remat recompute doubles the forward), all on
-   ``flash_attention.wgmma``, and its backward 30 x 4 x 3 = 360 times
-   (counts zeroed just before, read just after); every backward call of
+   ``flash_attention.wgmma``, and its backward 30 x 4 x 3 = 360 times, all
+   on ``flash_attention_bwd.wgmma`` (counts zeroed just before, read just
+   after); every backward call of
    step 1 is held against the plain backward in f32 (against its f64
    value where that plain backward is off, shadow_backward); loss and
    grad norm finite at every step; step 1's loss and grad norm against
@@ -170,7 +175,8 @@ Phases, each printing one JSON line:
    values), each metric gated within TRAIN_REL_TOL on its own where the
    two plain runs agree on it (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
    (about 59 GB reckoned, phase_train) and, for one more step, the busy
-   share under torch.profiler;
+   share under torch.profiler, with the flash kernels listed by name
+   (the forward; the backward's delta pre-pass, dK/dV, sum and dQ);
    trainer — Trainer with starcoder2-3b at full width and 2 of its 30
    layers (TRAINER_LAYERS), bf16, checkpoints every 2 steps into a
    temporary directory (removed afterwards): a calm run of 4 steps; a run
@@ -193,10 +199,13 @@ Phases, each printing one JSON line:
    strided pt, beside the launch floor (a one-element fill); and the
    backward at the training shape (bound: 10 flops a valid (query, key,
    head, head-dim), ~0.174 ms) beside its plain version, SDPA's backward
-   (the library call, timed only) and the forward at the same shape;
+   (the library call, timed only) and the forward at the same shape; the
+   backward's CUDA-core variant on f32 operands of that shape (bound at
+   67 TFLOP/s, SDPA's backward in f32 beside it);
 9. the kernels line (flash_attention's launches summed over every LM
-   path and the train phase; the backward's from the train phase),
-   nvidia-smi's line, and the result line.
+   path and the train phase; the backward's from the train phase, with
+   its two variants listed under ``variants``), nvidia-smi's line, and
+   the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -285,6 +294,9 @@ LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 # f64 evaluation (an ill-conditioned call), against the f64 value instead
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 BWD_ROWS = 256        # query rows a pass of the plain backward (memory)
+# the lse the forward writes for the backward against the plain lse in f32
+# on the same values (rtol, atol): the scores' sums in another order
+LSE_TOL = (1e-5, 1e-4)
 # training: starcoder2-3b whole at full width, its 4 microbatches
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
@@ -422,14 +434,14 @@ def device_time_ms(calls, iters=TIMING_ITERS) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def time_pair(kern, plain):
+def time_pair(kern, plain, iters=TIMING_ITERS):
     """Device ms (graph replay) and ms per call of a kernel and its plain
     version, each the mean of two runs taken plain, kernel, kernel,
-    plain."""
+    plain, of ``iters`` calls each."""
     out = {}
     for key, timer in (("ms", device_time_ms), ("call_ms", call_time_ms)):
-        p1, k1, k2, p2 = (timer(plain), timer(kern), timer(kern),
-                          timer(plain))
+        p1, k1, k2, p2 = (timer(plain, iters), timer(kern, iters),
+                          timer(kern, iters), timer(plain, iters))
         out[key] = (k1 + k2) / 2
         out["plain_" + key] = (p1 + p2) / 2
     return out
@@ -751,8 +763,10 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
 # --------------------------------------------------------------------- #
 # (case, B, Sq, Sk, H, K, D, flags), each in bf16 and f32: causal and not,
 # Sq < Sk, a window, a softcap, ragged tiles, GQA 16:1 (starcoder2-3b's
-# 32 padded q heads over 2) and 6:1, head dims 64 / 128 / 256, and rows
-# whose window masks every key; then f32 at head dim 16 and 32
+# 32 padded q heads over 2), 5:1 and 6:1, head dims 64 / 128 / 256, and
+# rows whose window masks every key; then f32 at head dim 16 and 32.  The
+# bf16 cases at head dim 64 and 128 take the tensor-core variant, the rest
+# the CUDA-core one (backward.plan; each row names its variant)
 BWD_SMALL = [
     ("causal", 2, 96, 96, 4, 2, 64, {}),
     ("not causal", 1, 70, 70, 4, 2, 128, {"causal": False}),
@@ -761,6 +775,7 @@ BWD_SMALL = [
     ("softcap", 1, 64, 64, 2, 2, 64, {"logit_cap": 5.0}),
     ("ragged", 1, 300, 300, 8, 2, 128, {}),
     ("gqa 16:1", 1, 200, 200, 32, 2, 128, {}),
+    ("gqa 5:1", 1, 130, 200, 10, 2, 128, {"window": 90}),
     ("gqa 6:1 d256", 1, 100, 100, 6, 1, 256, {"window": 33}),
     ("masked rows", 1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),
 ]
@@ -777,13 +792,33 @@ BWD_CASES = [
 
 
 def bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw):
-    """q, k, v, the forward kernel's output on them and a seeded incoming
-    gradient: the inputs of one backward call."""
+    """q, k, v, the forward kernel's output on them, a seeded incoming
+    gradient and the lse of the same forward launch: the inputs of one
+    backward call, in its argument order."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     q, k, v = fa_operands(gen, b, sq, sk, h, kh, d, dtype)
-    out = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
     dout = torch.randn(out.shape, generator=gen, device=DEVICE).to(dtype)
-    return q, k, v, out, dout
+    return q, k, v, out, dout, lse
+
+
+def lse_check(lse, q, k, name, **kw) -> float:
+    """Max |lse - plain| over the finite entries, the plain lse
+    (flash_attention_lse_ref) in f32 on the same values; raises unless
+    +inf stands exactly where a row sees no key and the rest lies within
+    LSE_TOL."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_lse_ref
+    want = flash_attention_lse_ref(q.float(), k.float(), rows=BWD_ROWS, **kw)
+    inf = torch.isinf(want)
+    rtol, atol = LSE_TOL
+    err = (lse - want)[~inf].abs()
+    if not torch.equal(torch.isinf(lse), inf) or bool(
+            (err > atol + rtol * want[~inf].abs()).any()):
+        raise AssertionError(f"flash_attention {name}: the forward's lse is "
+                             f"off the plain one (max err "
+                             f"{float(err.max()) if err.numel() else 0.0})")
+    return float(err.max()) if err.numel() else 0.0
 
 
 def rel_err(got, want) -> float:
@@ -823,20 +858,35 @@ def phase_flash_backward(gen):
         flash_attention_bwd_ref
     rows = []
     for name, b, sq, sk, h, kh, d, dtype, kw in BWD_CASES:
-        q, k, v, out, dout = bwd_operands(gen, b, sq, sk, h, kh, d, dtype,
-                                          kw)
-        got = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-        again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout,
+        q, k, v, out, dout, lse = bwd_operands(gen, b, sq, sk, h, kh, d,
+                                               dtype, kw)
+        pl = fa_backward.plan(b, sq, sk, h, kh, d, dtype)
+        want_variant = "wgmma" if dtype == torch.bfloat16 and \
+            d in fa_backward.TC_HEAD_DIMS else "simt"
+        if pl.variant != want_variant:
+            raise AssertionError(f"flash_attention backward {name}: plan "
+                                 f"{pl}, expected {want_variant}")
+        calls = fa_backward.VARIANT_CALLS[pl.variant]
+        got = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                   **kw)
+        again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                                      **kw)
         torch.cuda.synchronize()
+        if fa_backward.VARIANT_CALLS[pl.variant] != calls + 2:
+            raise AssertionError(f"flash_attention backward {name}: the "
+                                 f"calls did not take {pl.variant}")
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"flash_attention backward {name}: two runs "
                                  "differ")
+        # the plain backward computes its own lse: the forward's is held
+        # against the plain one apart
         want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
                                                             dout)),
                                        rows=BWD_ROWS, **kw)
         row = {"case": name, "shape": [b, sq, sk, h, kh, d],
                "dtype": str(dtype).split(".")[-1], "flags": kw,
+               "variant": pl.variant, "splits": pl.splits,
+               "lse_max_abs_err": lse_check(lse, q, k, name, **kw),
                "rel_err_dq_dk_dv": bwd_check(got, want, dtype, name)}
         if name == "masked rows" and \
                 float(got[0][:, 3:].float().abs().max()) != 0.0:
@@ -847,16 +897,17 @@ def phase_flash_backward(gen):
                 rel_err(x, w) for x, w in zip(plain_grads(q, k, v, dout,
                                                           **kw), want)]
         rows.append(row)
-        del q, k, v, out, dout, got, again, want
+        del q, k, v, out, dout, lse, got, again, want
     return rows
 
 
 def fa_bwd_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None,
-                    causal=True):
+                    causal=True, flops_per_s=None):
     """Least time for attention's backward: q, k, v, out and dout read and
     dq, dk, dv written once at the HBM rate, against 10 flops per (query,
     valid key, head, head-dim) (the five products any backward needs: S,
-    dP, dV, dK, dQ) at the bf16 tensor-core rate; the larger, and which."""
+    dP, dV, dK, dQ) at the bf16 tensor-core rate (``flops_per_s``: another
+    type's); the larger, and which."""
     nbytes = itemsize * (4 * b * sq * h * d + 4 * b * sk * kh * d)
     if causal:
         pairs = sum(min(sk, i + sk - sq + 1, window or sk)
@@ -864,23 +915,26 @@ def fa_bwd_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None,
     else:
         pairs = sq * sk
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 10 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+    f_ms = 10 * b * h * pairs * d / (flops_per_s or BF16_FLOPS_PER_S) * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
-def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None):
-    """The backward at one main-path shape (bf16, causal) over
-    TIMING_ROTATION input sets: the kernel and its plain version
-    (flash_attention_bwd_ref) as in ``time_pair``, and the library call,
-    the backward of ``scaled_dot_product_attention(enable_gqa=True,
-    is_causal=True)`` (autograd.grad over a kept forward graph; CUDA
-    events around the calls, as ``call_time_ms``), timed only."""
+def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None,
+                   dtype=torch.bfloat16, iters=TIMING_ITERS):
+    """The backward at one main-path shape (causal; bf16 takes the
+    tensor-core variant, f32 the CUDA-core one) over TIMING_ROTATION / 2
+    input sets: the kernels and their plain version
+    (flash_attention_bwd_ref, given the forward's lse) as in
+    ``time_pair``, and the library call, the backward of
+    ``scaled_dot_product_attention(enable_gqa=True, is_causal=True)``
+    (autograd.grad over a kept forward graph; CUDA events around the
+    calls, as ``call_time_ms``), timed only."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kw = {"window": window}
-    sets = [bwd_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16, kw)
+    sets = [bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw)
             for _ in range(TIMING_ROTATION // 2)]
     kern = [functools.partial(fa_backward.flash_attention_bwd_cuda, *x, **kw)
             for x in sets]
@@ -889,13 +943,13 @@ def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None):
     err = 0.0
     for x, kc in zip(sets[:2], kern[:2]):
         got = kc()
-        want = flash_attention_bwd_ref(*(t.float() for t in x),
+        want = flash_attention_bwd_ref(*(t.float() for t in x[:5]),
                                        rows=BWD_ROWS, **kw)
-        bwd_check(got, want, torch.bfloat16, "timing")
+        bwd_check(got, want, dtype, "timing")
         err = max([err] + [float((g.float() - w).abs().max())
                            for g, w in zip(got, want)])
 
-    def sdpa_bwd(q, k, v, out, dout):
+    def sdpa_bwd(q, k, v, out, dout, lse):
         leaves = [x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v)]
         with torch.enable_grad():
@@ -904,9 +958,16 @@ def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None):
         return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
 
     lib = [sdpa_bwd(*x) for x in sets]
-    bound, by = fa_bwd_bound_ms(b, sq, sk, h, kh, d, 2, window)
-    return {**time_pair(kern, plain), "library_ms": call_time_ms(lib),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    pl = fa_backward.plan(b, sq, sk, h, kh, d, dtype)
+    f32 = dtype == torch.float32
+    bound, by = fa_bwd_bound_ms(b, sq, sk, h, kh, d, 4 if f32 else 2,
+                                window, flops_per_s=FP32_FLOPS_PER_S
+                                if f32 else None)
+    return {"variant": pl.variant, "splits": pl.splits,
+            "dtype": str(dtype).split(".")[-1],
+            **time_pair(kern, plain, iters),
+            "library_ms": call_time_ms(lib, iters), "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err}
 
 
 # --------------------------------------------------------------------- #
@@ -1158,9 +1219,11 @@ def serve_workload(svc, n_queries=64, tenants=4, window=16):
     return tids
 
 
-def profile_run(phase, run, **extra):
+def profile_run(phase, run, breakdown=(), **extra):
     """Device time by kernel over one ``run()``, from torch.profiler; the
-    profiler's own cost is in ``wall_s``.  ``extra`` goes into the line."""
+    profiler's own cost is in ``wall_s``.  Every kernel whose name holds
+    one of the ``breakdown`` strings is also listed on its own, whatever
+    its rank.  ``extra`` goes into the line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1181,7 +1244,10 @@ def profile_run(phase, run, **extra):
           "device_busy_share": busy_s / wall,
           "device_launches": sum(n for _, _, n in rows),
           "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
-                  for us, key, n in rows[:12]]})
+                  for us, key, n in rows[:12]],
+          "breakdown": [{"name": key[:100], "device_ms": us / 1e3,
+                         "count": n} for us, key, n in rows
+                        if any(b in key for b in breakdown)]})
 
 
 def profile_serve(make_service):
@@ -2256,8 +2322,8 @@ def shadow_backward():
     tally = {"calls": 0, "outside": 0, "ill_conditioned_calls": 0,
              "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0}
 
-    def bwd(q, k, v, out, dout, **kw):
-        got = kern(q, k, v, out, dout, **kw)
+    def bwd(q, k, v, out, dout, lse, **kw):
+        got = kern(q, k, v, out, dout, lse, **kw)
         with torch.no_grad():
             xs = (q, k, v, out, dout)
             want = flash_attention_bwd_ref(*(x.float() for x in xs),
@@ -2288,19 +2354,26 @@ def train_launches(cfg, steps):
     """What ``steps`` train steps of ``cfg`` must launch: each attention
     layer of each microbatch runs the forward twice (the step's forward
     and remat "full"'s recompute in the backward), on the tensor-core
-    kernel, and the backward once."""
+    kernel, and the backward once, on the tensor-core variant."""
     calls = cfg.num_layers * max(1, cfg.microbatches) * steps
-    return {**lm_launches(wgmma=2 * calls), "flash_attention_bwd": calls}
+    return {**lm_launches(wgmma=2 * calls), "flash_attention_bwd": calls,
+            "flash_attention_bwd.wgmma": calls,
+            "flash_attention_bwd.simt": 0}
 
 
 def train_counted(run):
-    """``run()`` with flash_attention's launch counts (forward, by
-    variant, and backward) zeroed just before it and read just after."""
+    """``run()`` with flash_attention's launch counts (forward and
+    backward, each also by variant) zeroed just before it and read just
+    after."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
     fa_backward.LAUNCHES["flash_attention_bwd"] = 0
+    for key in fa_backward.VARIANT_CALLS:
+        fa_backward.VARIANT_CALLS[key] = 0
     out, launches = lm_counted(run)              # zeroes the others
     launches["flash_attention_bwd"] = \
         fa_backward.LAUNCHES["flash_attention_bwd"]
+    launches.update({f"flash_attention_bwd.{key}": n
+                     for key, n in fa_backward.VARIANT_CALLS.items()})
     return out, launches
 
 
@@ -2408,9 +2481,11 @@ def phase_train():
                              f"the plain path in f32 by more than "
                              f"{TRAIN_REL_TOL}: {off}")
     step_s = sum(walls[1:]) / len(walls[1:])
+    # the flash kernels by name: the forward, and the backward's delta
+    # pre-pass, dK/dV, the sum of the head runs' partials and dQ
     profile_run("train_profile", lambda: step_fn(params, opt_state,
                                                  batches[-1]),
-                arch=cfg.name)
+                breakdown=("fa_bwd_", "flash_wgmma_kernel"), arch=cfg.name)
     emit({"phase": "train", "arch": cfg.name, "steps": TRAIN_STEPS,
           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
@@ -2559,9 +2634,12 @@ def build_all():
         raise AssertionError(f"kernel instances spill: {spilled}")
     for m, name in ((ml_kernel, "mlstm_wgmma_kernel"),
                     (rg_kernel, "rglru_chunked_kernel"),
+                    (fa_backward, "fa_bwd_delta_kernel"),
+                    (fa_backward, "fa_bwd_dkdv_wgmma_kernel"),
+                    (fa_backward, "fa_bwd_sum_kernel"),
+                    (fa_backward, "fa_bwd_dq_wgmma_kernel"),
                     (fa_backward, "fa_bwd_dkdv_kernel"),
-                    (fa_backward, "fa_bwd_dq_kernel"),
-                    (fa_backward, "fa_bwd_stats_kernel")):
+                    (fa_backward, "fa_bwd_dq_kernel")):
         if not any(row["kernel"].startswith(name)
                    for row in ptxas[m.SOURCE.name]):
             raise AssertionError(f"no {name} in the ptxas report")
@@ -2668,7 +2746,9 @@ def main(argv=None) -> int:
     release()
     launches["flash_attention"] = sum(sum(n) for n in flash.values()) + \
         train["flash_attention"]
-    launches["flash_attention_bwd"] = train["flash_attention_bwd"]
+    for key in ("flash_attention_bwd", "flash_attention_bwd.wgmma",
+                "flash_attention_bwd.simt"):
+        launches[key] = train[key]
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -2702,6 +2782,11 @@ def main(argv=None) -> int:
                 tr_cfg.head_dim)
     timed["flash_attention_bwd"] = time_flash_bwd(
         gen, *tr_shape, window=tr_cfg.sliding_window)
+    # the CUDA-core variant, which no model path takes, on f32 operands of
+    # the same shape (fewer calls: ~30 ms each)
+    bwd_simt = time_flash_bwd(gen, *tr_shape, window=tr_cfg.sliding_window,
+                              dtype=torch.float32, iters=8)
+    release()
     tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
     emit({"phase": "timing", "smi": smi,
           "launch_floor_ms": launch_floor_ms(),
@@ -2734,11 +2819,16 @@ def main(argv=None) -> int:
               "causal": False, **wh_cross_fwd},
           "flash_attention_bwd": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
-              "dtype": "bfloat16",
-              "launches_train": launches["flash_attention_bwd"],
+              "launches_train": launches["flash_attention_bwd.wgmma"],
               "library": "scaled_dot_product_attention backward "
                          "(enable_gqa, is_causal), CUDA events",
               **with_share(timed["flash_attention_bwd"])},
+          "flash_attention_bwd_simt": {
+              "shape": list(tr_shape), "window": tr_cfg.sliding_window,
+              "launches_train": launches["flash_attention_bwd.simt"],
+              "library": "scaled_dot_product_attention backward in f32 "
+                         "(enable_gqa, is_causal), CUDA events",
+              **with_share(bwd_simt)},
           "flash_attention_train_forward": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
               "launches_train": train["flash_attention"], **tr_forward},
@@ -2776,15 +2866,32 @@ def main(argv=None) -> int:
         "mlstm": ("src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
                   "src/repro/kernels/mlstm_scan/kernel.py:70"),
     }
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": timed[name]["max_abs_err"],
-         "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
-         "bound_ms": timed[name]["bound_ms"],
-         "bound_by": timed[name]["bound_by"],
-         "library_ms": timed[name].get("library_ms")}
-        for name, (src, replaces) in sources.items()]})
+    def entry(name, src, replaces, row, n):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
+
+    kernels = [entry(name, src, replaces, timed[name], launches[name])
+               for name, (src, replaces) in sources.items()]
+    # the backward's two variants, each with its own source, launches on
+    # the train path (all on the tensor cores) and timing at the training
+    # shape (the CUDA-core one on f32 operands)
+    bwd_src, bwd_replaces = sources["flash_attention_bwd"]
+    tc_src = bwd_src.replace("flash_attention_bwd.cu", "flash_bwd_wgmma.cuh")
+    for kern in kernels:
+        if kern["name"] == "flash_attention_bwd":
+            kern["variants"] = [
+                {"variant": "wgmma", "dtype": "bfloat16",
+                 **entry("flash_attention_bwd", tc_src, bwd_replaces,
+                         timed["flash_attention_bwd"],
+                         launches["flash_attention_bwd.wgmma"])},
+                {"variant": "simt", "dtype": "float32",
+                 **entry("flash_attention_bwd", bwd_src, bwd_replaces,
+                         bwd_simt, launches["flash_attention_bwd.simt"])}]
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

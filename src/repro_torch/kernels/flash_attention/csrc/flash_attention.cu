@@ -37,6 +37,12 @@
 //    mantissa), which cannot hold the 2e-4 tolerance the port keeps for
 //    f32 against its plain version with TF32 off.  No model path calls it.
 //
+// A training call asks for each row's lse, the backward's input
+// (flash_attention_bwd.cu): the prefill kernels (1 and 3) write it in
+// their epilogue from the row's running max and sum, in natural log of
+// the scaled (capped) scores, +inf for a row with no valid key; the
+// decode kernel writes none, so the plan never gives it such a call.
+//
 // In bf16 the tensor-core kernels feed P to P.V as two bf16 terms,
 // bf16(P) and bf16(P - bf16(P)), so P keeps ~16 bits; q * scale is never
 // rounded: the scores stay unscaled in f32 and exp runs in base 2 on
@@ -92,6 +98,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                     // (B, H, Sq) f32 for the backward, or null
   int64_t sq, sk, h, kh;
   int64_t q_sb, q_ss, q_sh;                       // strides, in elements
   int64_t k_sb, k_ss, k_sh;
@@ -265,6 +272,11 @@ flash_attention_kernel(const Params p) {
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int64_t row = q0 + warp + kWarps * r;
     if (row >= p.sq) continue;
+    // the backward's lse (every lane holds the row's m and l): +inf for a
+    // row that saw no valid key
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(bb * p.h + hh) * p.sq + row] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);
     const float den = fmaxf(l[r], 1e-30f);
     T* orow = o + ((bb * p.sq + row) * p.h + hh) * D;
 #pragma unroll
@@ -320,10 +332,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // cudaGetLastError() (so a refused launch is seen) or a negative hopper::
 // status code when a TMA descriptor cannot be made.
 //
+// With `lse` not null the prefill kernels also write each row's lse
+// ((B, H, Sq) f32, natural log of the scaled scores, +inf for a row with
+// no valid key), which the backward reads.
+//
 // The CUDA-core kernel: dtype 0 is float32, 1 is bfloat16 (head dim 16,
 // 32).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype,
     int head_dim, long long b, long long sq, long long sk, long long h,
     long long kh, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
@@ -331,9 +348,9 @@ extern "C" int flash_attention_launch(
     long long window, int has_cap, float cap, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || kh <= 0 || h % kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,    k,    v,    o,    sq,    sk,     h,          kh,
-           q_sb, q_ss, q_sh, k_sb, k_ss,  k_sh,   v_sb,       v_ss,
-           v_sh, scale, causal, has_window, window, has_cap, cap};
+  Params p{q,    k,    v,    o,    lse,   sq,     sk,         h,
+           kh,   q_sb, q_ss, q_sh, k_sb,  k_ss,   k_sh,       v_sb,
+           v_ss, v_sh, scale, causal, has_window, window, has_cap, cap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(p, head_dim, b, s);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, s);
@@ -343,7 +360,8 @@ extern "C" int flash_attention_launch(
 // The tensor-core prefill kernel: bf16, head dim 64, 128 or 256; base and
 // strides 16-byte aligned (the wrapper checks).
 extern "C" int flash_attention_wgmma_launch(
-    const void* q, const void* k, const void* v, void* o, int head_dim,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int head_dim,
     long long b, long long sq, long long sk, long long h, long long kh,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
@@ -354,6 +372,7 @@ extern "C" int flash_attention_wgmma_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   fa_wgmma::Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.sq = static_cast<int>(sq);
   p.sk = static_cast<int>(sk);
   p.h = static_cast<int>(h);

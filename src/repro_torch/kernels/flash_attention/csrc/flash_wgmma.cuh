@@ -66,6 +66,7 @@ namespace fa_wgmma {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kGuard = 0.1f * kNegInf;          // masked-block guard
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -88,6 +89,7 @@ struct Cfg {
 
 struct Params {
   __nv_bfloat16* o;                               // (B, Sq, H, D) contiguous
+  float* lse;                 // (B, H, Sq) f32 for the backward, or null
   int sq, sk, h, kh;
   // to base 2 from the units the softmax runs in: scale * log2(e), or
   // log2(e) with a cap (x = cap * tanh(s * scale / cap) is then scaled)
@@ -139,6 +141,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         p.o[((static_cast<int64_t>(bb) * p.sq + row) * p.h + hh) * D +
             idx % D] = __float2bfloat16_rn(0.0f);
     }
+    if (p.lse != nullptr && tid < C::kRows && q0 + tid < p.sq)
+      p.lse[(static_cast<int64_t>(bb) * p.h + hh) * p.sq + q0 + tid] =
+          __int_as_float(0x7f800000);
     return;
   }
 
@@ -335,13 +340,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   if (!active) return;
 
-  // epilogue: the row sums over the 4 lanes of a row, then out = acc / l
+  // epilogue: the row sums over the 4 lanes of a row, then out = acc / l.
+  // The backward's lse is in natural units of the scaled (capped) scores:
+  // lse = (m c + log2 l) ln 2, c = to_log2 (m is unscaled without a cap);
+  // +inf for a row that saw no valid key (l = 0)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
   }
+  if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < p.sq)
+        p.lse[(static_cast<int64_t>(bb) * p.h + hh) * p.sq + row] =
+            l[r] > 0.0f ? fmaf(m[r], p.to_log2, log2f(l[r])) * kLn2
+                        : __int_as_float(0x7f800000);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;

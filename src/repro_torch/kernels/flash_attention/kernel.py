@@ -13,6 +13,11 @@ three device kernels, one chosen per call by :func:`plan`:
 - ``"simt"``: f32 at every head dim and bf16 at head dim 16/32, the
   CUDA-core kernel (no model path calls it).
 
+A training call asks for each row's lse as well (``with_lse``): the
+prefill kernels write it, and the plan never sends such a call to the
+decode kernel, so lse comes from the launch whose output the backward
+differentiates.
+
 The wrapper takes CUDA tensors only: it validates shapes, device, dtype,
 the head-dim stride and, for the tensor-core kernels, 16-byte alignment
 (it raises, never copies), allocates the output and the split scratch,
@@ -87,20 +92,21 @@ def key_range(sq: int, sk: int, causal: bool,
 
 def plan(b: int, sq: int, sk: int, h: int, kh: int, d: int, dtype,
          causal: bool = True, window: Optional[int] = None,
-         sms: int = H100_SMS) -> Plan:
+         sms: int = H100_SMS, with_lse: bool = False) -> Plan:
     """Which device kernel a call takes, and its key splits.
 
     f32 (tensor cores would run it in TF32) and head dims under 64 take
     the CUDA-core kernel; bf16 calls whose G = H / K heads times Sq rows
     fit one 16-row tile take the decode kernel, the rest the tensor-core
-    prefill.  A decode call over at least ``SPLIT_MIN_TILES`` tiles of
-    keys is split into as many splits as keep B * K * splits blocks
-    within one wave of ``sms`` (one block an SM), each split a whole
-    number of tiles."""
+    prefill, and so does every bf16 call ``with_lse`` (the decode kernel
+    writes no lse).  A decode call over at least ``SPLIT_MIN_TILES``
+    tiles of keys is split into as many splits as keep B * K * splits
+    blocks within one wave of ``sms`` (one block an SM), each split a
+    whole number of tiles."""
     lo, hi = key_range(sq, sk, causal, window)
     if dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
         return Plan("simt", ((lo, hi),))
-    if (h // kh) * sq > DECODE_ROWS:
+    if with_lse or (h // kh) * sq > DECODE_ROWS:
         return Plan("wgmma", ((lo, hi),))
     tiles = math.ceil((hi - lo) / DECODE_TILE)
     n = 1
@@ -143,9 +149,9 @@ def _launchers():
         ctypes.c_float
     tail = [f, i, i, ll, i, f]       # scale, causal, window, cap
     simt = lib.flash_attention_launch
-    simt.argtypes = [p, p, p, p, i, i] + [ll] * 14 + tail + [p]
+    simt.argtypes = [p] * 5 + [i, i] + [ll] * 14 + tail + [p]
     wgmma = lib.flash_attention_wgmma_launch
-    wgmma.argtypes = [p, p, p, p, i] + [ll] * 14 + tail + [p]
+    wgmma.argtypes = [p] * 5 + [i] + [ll] * 14 + tail + [p]
     decode = lib.flash_attention_decode_launch
     decode.argtypes = [p] * 6 + [i] + [ll] * 14 + tail + [ll, ll, ll, i, p]
     for fn in (simt, wgmma, decode):
@@ -189,21 +195,27 @@ def _check_operands(q, k, v) -> None:
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
-                         logit_cap: Optional[float] = None):
+                         logit_cap: Optional[float] = None,
+                         with_lse: bool = False):
     """Flash attention on the card: q (B,Sq,H,D), k/v (B,Sk,K,D), float32
     or bfloat16 CUDA tensors on one device, head dim in ``HEAD_DIMS`` and
     contiguous.  Returns a contiguous (B,Sq,H,D) in q's dtype, still being
-    computed on the current stream."""
+    computed on the current stream; ``with_lse`` returns (out, lse), lse
+    the (B, H, Sq) f32 log-sum-exp of each row's scaled (capped) valid
+    scores in natural log, +inf for a row with no valid key, written by
+    the same launch (the backward's input)."""
     validate(q, k, v)
     _check_operands(q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     dev = q.device
     pl = plan(b, sq, sk, h, kh, d, q.dtype, causal, window,
-              sm_count(dev.index))
+              sm_count(dev.index), with_lse=with_lse)
     if pl.variant != "simt":
         check_tma_aligned("the tensor-core kernels", q=q, k=k, v=v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
     scale = float(scale if scale is not None else d ** -0.5)
     flags = (scale, int(causal), int(window is not None), int(window or 0),
              int(logit_cap is not None), float(logit_cap or 0.0))
@@ -214,12 +226,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     launch = _launchers()[pl.variant]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        lse_ptr = None if lse is None else lse.data_ptr()
         if pl.variant == "simt":
-            rc = launch(*ptrs, DTYPE_CODES[q.dtype], d, b, sq, sk, h, kh,
-                        *strides, *flags, stream)
+            rc = launch(*ptrs, lse_ptr, DTYPE_CODES[q.dtype], d, b, sq, sk,
+                        h, kh, *strides, *flags, stream)
         elif pl.variant == "wgmma":
-            rc = launch(*ptrs, d, b, sq, sk, h, kh, *strides, *flags,
-                        stream)
+            rc = launch(*ptrs, lse_ptr, d, b, sq, sk, h, kh, *strides,
+                        *flags, stream)
         else:
             n = len(pl.splits)
             ws_acc = ws_ml = None
@@ -242,4 +255,4 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                            f"{tuple(k.shape)}, {q.dtype})")
     LAUNCHES["flash_attention"] += 1
     VARIANT_CALLS[pl.variant] += 1
-    return out
+    return (out, lse) if with_lse else out

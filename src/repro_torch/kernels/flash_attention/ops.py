@@ -21,28 +21,30 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its gradient on the card: the forward launches
-    the kernel of the call's plan (``kernel.flash_attention_cuda``) and
-    saves q, k, v and the output; the backward launches the three backward
-    kernels (``backward.flash_attention_bwd_cuda``) and returns dq, dk, dv
-    in the operands' dtypes.  Both are looked up on their modules at call
-    time."""
+    the kernel of the call's plan with its lse requested
+    (``kernel.flash_attention_cuda(with_lse=True)``) and saves q, k, v, the
+    output and the (B, H, Sq) f32 lse; the backward launches the backward
+    kernels of its plan (``backward.flash_attention_bwd_cuda``) on them and
+    returns dq, dk, dv in the operands' dtypes.  Both are looked up on
+    their modules at call time."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, logit_cap):
         opts = dict(causal=causal, window=window, scale=scale,
                     logit_cap=logit_cap)
-        out = fa_kernel.flash_attention_cuda(q, k, v, **opts)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True,
+                                                  **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        if dout.stride(-1) != 1:      # e.g. the expanded gradient of a sum
-            dout = dout.contiguous()
+        q, k, v, out, lse = ctx.saved_tensors
+        if not dout.is_contiguous():  # e.g. the expanded gradient of a
+            dout = dout.contiguous()  # sum; the tensor cores read it by TMA
         dq, dk, dv = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout,
-                                                          **ctx.opts)
+                                                          lse, **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 

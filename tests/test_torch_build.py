@@ -81,6 +81,13 @@ def test_the_shared_header_directory_is_the_packages():
     ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_04843d3016fa_bwd_"
      "dq_kernelI13__nv_bfloat16Li128EEEvNS_6ParamsE",
      "fa_bwd_dq_kernel<bf16,128>"),
+    ("_ZN12fa_bwd_wgmma24fa_bwd_dkdv_wgmma_kernelILi128EEEv14CUtensorMap_"
+     "stS1_S1_S1_NS_6ParamsE", "fa_bwd_dkdv_wgmma_kernel<128>"),
+    ("_ZN12fa_bwd_wgmma17fa_bwd_sum_kernelEPKfP13__nv_bfloat16S3_xi",
+     "fa_bwd_sum_kernel"),
+    ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_63886b0a19fa_bwd_"
+     "delta_kernelI13__nv_bfloat16Li128EEEvPKvS3_PKfPfS6_llllllllll",
+     "fa_bwd_delta_kernel<bf16,128>"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from

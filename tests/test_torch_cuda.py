@@ -24,8 +24,8 @@ from repro_torch.kernels.event_filter.ref import (calibrate_tracks,
 from repro_torch.kernels.flash_attention import backward as fa_backward
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
 from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
@@ -896,28 +896,127 @@ def _bwd(q, k, v, **kw):
     return out, grads, dout
 
 
+def _bwd_variant(q, k):
+    """The backward variant ``backward.plan`` gives these operands."""
+    return fa_backward.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                            k.shape[2], q.shape[3], q.dtype).variant
+
+
+def _held_to_plain(got, want, dtype):
+    """dq, dk, dv each within BWD_TOL of the largest plain value."""
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == dtype and bool(torch.isfinite(x).all()), name
+        err = float((x.detach().float() - w).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.abs().max()) + 1e-30, \
+            (name, err, float(w.abs().max()))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,sq,sk,h,kh,d,kw", BWD_CASES)
 def test_flash_backward_kernel_matches_plain_version(cuda, b, sq, sk, h, kh,
                                                      d, kw, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, dtype, seed=sq * 3 + d)
+    variant = _bwd_variant(q, k)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                       else "simt")
     before = dict(fa_backward.LAUNCHES)
+    calls = dict(fa_backward.VARIANT_CALLS)
     out, got, dout = _bwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa_backward.LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
+    assert fa_backward.VARIANT_CALLS[variant] == calls[variant] + 1
     want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
                                                         dout)), **kw)
-    for name, x, w in zip("qkv", got, want):
-        assert x.dtype == dtype and bool(torch.isfinite(x).all()), name
-        err = float((x.detach().float() - w).abs().max())
-        assert err <= BWD_TOL[dtype] * float(w.abs().max()) + 1e-30, \
-            (name, err, float(w.abs().max()))
-    # run to run the kernel gives the same bits
-    again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    _held_to_plain(got, want, dtype)
+    # run to run the kernels give the same bits
+    out2, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert torch.equal(out2, out)
+    again = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                 **kw)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+# the tensor-core backward off the models' shapes: head dim 64 and 128,
+# Sq and Sk no multiple of the 64/128-row tiles, Sq < Sk, windows, caps,
+# not causal, G = 1 (one run: bf16 straight from the dK/dV kernel), 5 and
+# 16 (runs of heads summed by the sum kernel), rows that see no key, and a
+# run through many query tiles of the ring
+TC_BWD_CASES = [
+    (2, 100, 100, 4, 4, 64, {}),
+    (1, 130, 200, 10, 2, 128, {}),
+    (1, 300, 300, 32, 2, 128, {"window": 70}),
+    (2, 77, 77, 16, 1, 64, {"logit_cap": 5.0}),
+    (1, 150, 150, 5, 1, 128, {"causal": False}),
+    (1, 200, 200, 16, 1, 128, {"window": 33, "logit_cap": 20.0}),
+    (1, 190, 190, 4, 2, 64, {"causal": False, "window": 50}),
+    (1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),
+    (1, 7, 3, 16, 1, 128, {"causal": False, "window": 1}),
+    (2, 1024, 1024, 8, 2, 128, {}),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,kw", TC_BWD_CASES)
+def test_tensor_core_backward_matches_plain_version(cuda, b, sq, sk, h, kh,
+                                                    d, kw):
+    """The wgmma variant against the plain backward in f32 on the same
+    values (BWD_TOL bf16), its lse from the forward launch; rows that see
+    no key get a dq of exactly 0; two launches give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, torch.bfloat16,
+                         seed=sq + 7 * h + d)
+    assert _bwd_variant(q, k) == "wgmma"
+    calls = fa_backward.VARIANT_CALLS["wgmma"]
+    out, got, dout = _bwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_backward.VARIANT_CALLS["wgmma"] == calls + 1
+    want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
+                                                        dout)), **kw)
+    _held_to_plain(got, want, torch.bfloat16)
+    if kw.get("window") == 1:      # queries from Sk on see no key
+        assert float(got[0][:, sk:].float().abs().max()) == 0.0
+    _, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    a = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    b2 = fa_backward.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    for x, y, z in zip(got, a, b2):
+        assert torch.equal(x, y) and torch.equal(y, z)
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,h,kh,d,kw", [
+    (torch.bfloat16, 1, 300, 300, 32, 2, 128, {}),          # wgmma
+    (torch.bfloat16, 2, 1, 24, 48, 8, 128, {}),             # decode shape
+    (torch.bfloat16, 1, 200, 200, 8, 4, 64, {"window": 70,
+                                              "logit_cap": 30.0}),
+    (torch.bfloat16, 1, 100, 100, 6, 1, 256, {"window": 33}),
+    (torch.bfloat16, 1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),
+    (torch.bfloat16, 2, 37, 100, 4, 2, 16, {}),             # simt, bf16
+    (torch.float32, 1, 130, 130, 4, 1, 128, {"window": 40}),
+    (torch.float32, 1, 45, 45, 2, 1, 32, {"logit_cap": 3.0}),
+])
+def test_forward_lse_matches_plain_version(cuda, dtype, b, sq, sk, h, kh, d,
+                                           kw):
+    """The lse the forward writes for the backward, against
+    flash_attention_lse_ref in f32 on the same values: +inf exactly where
+    a row sees no key, elsewhere within 1e-4 + 1e-5 |lse|.  A bf16 call
+    that would take the decode kernel takes the prefill kernel when lse
+    is asked for; its output is the plain call's within FA_TOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, dtype, seed=sq + d)
+    pl = fa_kernel.plan(b, sq, sk, h, kh, d, dtype, kw.get("causal", True),
+                        kw.get("window"), with_lse=True)
+    assert pl.variant == ("simt" if dtype == torch.float32 or d < 64
+                          else "wgmma")
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    want = flash_attention_lse_ref(q.float(), k.float(), **kw)
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
+    torch.testing.assert_close(lse[~inf], want[~inf], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q.float(), k.float(), v.float(),
+                                         **kw), **FA_TOL[dtype])
 
 
 def test_flash_backward_of_a_row_with_no_key_is_zero(cuda):
@@ -936,16 +1035,24 @@ def test_flash_backward_of_a_row_with_no_key_is_zero(cuda):
 def test_flash_backward_wrapper_checks_its_operands(cuda):
     q, k, v = _fa_inputs(cuda, 1, 8, 8, 2, 1, 64, torch.bfloat16, seed=1)
     out = torch.zeros_like(q)
+    lse = torch.zeros((1, 2, 8), device=cuda)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         fa_backward.flash_attention_bwd_cuda(q.cpu(), k.cpu(), v.cpu(),
-                                             out.cpu(), out.cpu())
+                                             out.cpu(), out.cpu(), lse.cpu())
     with pytest.raises(ValueError, match="dout is"):
-        fa_backward.flash_attention_bwd_cuda(q, k, v, out, out.float())
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out, out.float(), lse)
     with pytest.raises(ValueError, match="must have q's shape"):
-        fa_backward.flash_attention_bwd_cuda(q, k, v, out[:, :4], out)
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out[:, :4], out, lse)
     with pytest.raises(ValueError, match="contiguous head dim"):
         fa_backward.flash_attention_bwd_cuda(
-            q, k, v, out, out.transpose(1, 3).contiguous().transpose(1, 3))
+            q, k, v, out, out.transpose(1, 3).contiguous().transpose(1, 3),
+            lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out, out, lse[:, :1])
+    wide = torch.zeros((1, 8, 2, 68), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="misaligned"):   # stride 136 bytes
+        fa_backward.flash_attention_bwd_cuda(q, k, v, out, wide[..., :64],
+                                             lse)
 
 
 # reduced models whose end-to-end train check holds a metric only where
@@ -989,12 +1096,15 @@ def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
 
     fwd, bwd = fa_kernel.LAUNCHES["flash_attention"], \
         fa_backward.LAUNCHES["flash_attention_bwd"]
+    tc = fa_backward.VARIANT_CALLS["wgmma"]
     got = step()
     torch.cuda.synchronize()
     assert fa_kernel.LAUNCHES["flash_attention"] - fwd == \
         cfg.num_layers * 2 * 2
     assert fa_backward.LAUNCHES["flash_attention_bwd"] - bwd == \
         cfg.num_layers * 2
+    # every backward call on the tensor cores (bf16, head dim 64)
+    assert fa_backward.VARIANT_CALLS["wgmma"] - tc == cfg.num_layers * 2
 
     def plain_f32(q, k, v, **kw):
         return flash_attention_ref(q.float(), k.float(), v.float(),

@@ -144,9 +144,11 @@ def test_backward_twin_equals_torch_autograd(case):
 
 
 def _forward_f64(q, k, v, *, causal=True, window=None, scale=None,
-                 logit_cap=None):
+                 logit_cap=None, with_lse=False):
     """The kernels' forward formulas (guarded max, a row with no valid key
-    0) in float64: the plain twin of the forward for gradcheck."""
+    0) in float64: the plain twin of the forward for gradcheck; with
+    ``with_lse`` also each row's lse (+inf with no valid key), as the
+    kernels write it for the backward."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -164,8 +166,12 @@ def _forward_f64(q, k, v, *, causal=True, window=None, scale=None,
     masked = torch.where(valid, s, NEG_INF)
     m = torch.clamp(masked.amax(-1, keepdim=True), min=0.1 * NEG_INF)
     p = torch.where(valid, torch.exp(masked - m), 0.0)
-    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    l = p.sum(-1, keepdim=True)
+    p = p / torch.clamp(l, min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    if not with_lse:
+        return out
+    return out, torch.where(l > 0, m + torch.log(l), float("inf"))[..., 0]
 
 
 @pytest.mark.parametrize("case", ["causal", "sq_lt_sk", "softcap",
