@@ -6,9 +6,9 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds the five CUDA sources, one nvcc each, started
+2. build   — nvcc builds the six CUDA sources, one nvcc each, started
    together; ptxas's registers and spills for every kernel instance (an
-   instance of flash_attention, its backward, mlstm or rglru_scan that
+   instance of flash_attention, mlstm, rglru_scan or a backward that
    spills fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
@@ -63,7 +63,18 @@ Phases, each printing one JSON line:
    f32 on the same values (the kernel's arithmetic): 2e-2 for a bf16
    output, 5e-4 in f32 (MLSTM_TOL); the distance from the plain version in
    bf16 is reported, and each row names the device kernel the wrapper's
-   plan chose.  Two launches of every case must give the same bits;
+   plan chose.  Then the B4 and B5 backward kernels (SCAN_BWD_CASES,
+   MLSTM_BWD_CASES): rglru_scan's backward at recurrentgemma-9b's
+   training microbatch (1, 2048, 4096) without and with h0 and dh_last, a
+   ragged S, S under one chunk, the cp.async path and 141 chunks, equal
+   bit for bit to rglru_scan_bwd_chunked_ref and within BWD_TOL of the
+   plain backward; the mLSTM forward's row stats (L = m + log n, sg)
+   against the plain ones in f32 (mlstm_stats_check), and its backward at
+   xlstm-350m's training microbatch (2, 2048, 4, 512) bf16 and at small
+   and f32 cases, dq, dk, dv, d log_i and d log_f each within BWD_TOL of
+   the largest value of the plain backward (mlstm_bwd_ref) in f32 on the
+   same values and stats.  Two launches of every case must give the same
+   bits;
 4. serve   — the paper's event workload (64 scalars, 4096 tracks x 63
    vars, 256 events per brick, replication 2) on 4 nodes, resident on the
    card; the serve workload (64 queries, 4 tenants, window 16, streamed)
@@ -158,32 +169,42 @@ Phases, each printing one JSON line:
    to end, the recurrent models' logits are reported beside the distance
    between two plain runs that differ only in rounding, not gated
    (E2E_GATED);
-7. train   — the LM stores freed, starcoder2-3b trained whole at full
-   width (30 layers, d_model 3072, 32 (24 real) q heads x 128 over 2 kv
-   heads, d_ff 12288, vocab 49152; 6.74 GB of bf16 params): f32 moments,
-   f32 accumulation over its 4 microbatches, remat "full", global batch
-   8 x 2048 from the brick pipeline, TRAIN_STEPS = 3 steps through
-   make_train_step.  flash_attention must launch 30 x 4 x 3 x 2 = 720
-   times (the remat recompute doubles the forward), all on
-   ``flash_attention.wgmma``, and its backward 30 x 4 x 3 = 360 times, all
-   on ``flash_attention_bwd.wgmma`` (counts zeroed just before, read just
-   after); every backward call of
-   step 1 is held against the plain backward in f32 (against its f64
-   value where that plain backward is off, shadow_backward); loss and
-   grad norm finite at every step; step 1's loss and grad norm against
-   the same step on the plain attention (bf16, and f32 on the same
-   values), each metric gated within TRAIN_REL_TOL on its own where the
-   two plain runs agree on it (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
-   (about 59 GB reckoned, phase_train) and, for one more step, the busy
-   share under torch.profiler, with the flash kernels listed by name
-   (the forward; the backward's delta pre-pass, dK/dV, sum and dQ);
-   trainer — Trainer with starcoder2-3b at full width and 2 of its 30
-   layers (TRAINER_LAYERS), bf16, checkpoints every 2 steps into a
-   temporary directory (removed afterwards): a calm run of 4 steps; a run
-   of 2 steps resumed from its step-2 checkpoint to 4, which must end
-   with the calm run's params and moments bit for bit (bf16 leaves
-   restored, C-ref9's path); and a run with data node 1 killed at step 2
-   whose losses must equal the calm run's;
+7. train   — the LM stores freed, three models trained at full width
+   through make_train_step, one after the other (TRAIN_ARCHS), bf16
+   params, f32 moments, f32 accumulation over their microbatches, global
+   batches of 2048-token rows from the brick pipeline: starcoder2-3b
+   whole (30 layers, d_model 3072, 32 (24 real) q heads x 128 over 2 kv
+   heads, d_ff 12288, vocab 49152; 6.74 GB of bf16 params; 4
+   microbatches, remat "full", 8 x 2048, 3 steps), recurrentgemma-9b at 3
+   of its 12 (rec, rec, attn) units (9 of 38 layers, 2.83 B params; 8
+   microbatches of 1 x 2048, 3 steps) and xlstm-350m whole (global batch
+   cut to 2 x 2048, one microbatch, 2 steps).  Launch counts by kernel
+   and variant (train_launches; zeroed just before, read just after):
+   starcoder2-3b's flash forward 30 x 4 x 3 x 2 = 720 (the remat
+   recompute doubles it) on ``flash_attention.wgmma`` and its backward
+   360 on ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 3 x 8 x 3 =
+   72 flash forwards (wgmma) and backwards (``flash_attention_bwd.simt``,
+   head dim 256) and 6 x 8 x 3 = 144 RG-LRU scans and backwards;
+   xlstm-350m's 21 x 2 = 42 mLSTM forwards (``mlstm.wgmma``) and
+   backwards.  Every backward call of step 1 (B3, B4, B5) is held
+   against its plain backward in f32 (against its f64 value where that
+   plain backward is off; the RG-LRU backward also bit-equal to its
+   chunked order; the mLSTM's on its forward's row stats, held against
+   the plain ones: shadow_backward); loss and grad norm finite at every
+   step; step 1's loss and grad norm against the same step on the plain
+   versions (bf16, and f32 on the same values), each metric gated within
+   TRAIN_REL_TOL on its own where the two plain runs agree on it
+   (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
+   (reckoned in phase_train) and, for one more step, the busy share
+   under torch.profiler, with each family's kernels listed by name
+   (TRAIN_BREAKDOWN);
+   trainer — Trainer with starcoder2-3b at full width and 1 of its 30
+   layers (TRAINER_LAYERS), bf16, checkpoints into a temporary directory
+   (removed afterwards): a calm run of 4 steps; a run of 2 steps resumed
+   from its step-2 checkpoint to 4, which must end with the calm run's
+   params and moments bit for bit (bf16 leaves restored, C-ref9's path);
+   and a run with data node 1 killed at step 2 whose losses must equal
+   the calm run's; four checkpoints in all;
 8. timing  — each kernel at the shape the main path gave it, beside its
    plain version and its bound: device time (CUDA graph replay) and time
    per call (CUDA events around calls from the host); flash_attention at
@@ -200,12 +221,17 @@ Phases, each printing one JSON line:
    backward at the training shape (bound: 10 flops a valid (query, key,
    head, head-dim), ~0.174 ms) beside its plain version, SDPA's backward
    (the library call, timed only) and the forward at the same shape; the
-   backward's CUDA-core variant on f32 operands of that shape (bound at
-   67 TFLOP/s, SDPA's backward in f32 beside it);
-9. the kernels line (flash_attention's launches summed over every LM
-   path and the train phase; the backward's from the train phase, with
-   its two variants listed under ``variants``), nvidia-smi's line, and
-   the result line.
+   backward's CUDA-core variant at recurrentgemma-9b's training
+   microbatch (1, 2048^2, 16/1 heads of 256, bf16); the B4 backward at
+   (1, 2048, 4096) f32 (bound: 20 bytes an element at 3.35 TB/s) and the
+   B5 backward at (2, 2048, 4, 512) bf16 (bound: 10 flops a valid (query,
+   key, head, head-dim) at 989 TFLOP/s, ~0.087 ms), each beside its plain
+   backward, with no library call (no PyTorch call computes either); and
+   the mLSTM forward writing its row stats, beside the row without;
+9. the kernels line (flash_attention's, rglru_scan's and mlstm's
+   launches summed over every LM path and the train phase; the
+   backwards' from the train phase, flash's two variants listed under
+   ``variants``), nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -301,8 +327,19 @@ LSE_TOL = (1e-5, 1e-4)
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
 TRAIN_LR = 3e-4
-# the trainer's restart and failure scenarios at full width, 2 of 30 layers
-TRAINER_LAYERS, TRAINER_STEPS = 2, 4
+# the models trained at full width, each with its cuts: recurrentgemma-9b
+# at 3 of its 12 (rec, rec, attn) units (9 of 38 layers: 2.83 B params,
+# ~45 GB of training state and ~12 GB of activations and logits, where 4
+# units reckon ~69 GB) over its 8 microbatches of 1 x 2048; xlstm-350m
+# whole, its global batch cut from 8 to 2 rows (one microbatch of 2 x
+# 2048, the shape its 4 microbatches of 8 give) and 2 steps: the sLSTM's
+# Python loop over 2048 steps under autograd takes seconds a microbatch
+TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
+               RG_ARCH: {"batch": 8, "steps": 3, "layers": 9},
+               XL_ARCH: {"batch": 2, "steps": 2, "microbatches": 1}}
+# the trainer's restart and failure scenarios at full width, 1 of 30
+# layers; only the restart run checkpoints before its last step
+TRAINER_LAYERS, TRAINER_STEPS = 1, 4
 # step-1 loss and grad norm of the kernel path against the plain path in
 # f32, gated where the two plain runs (bf16, f32) agree within it
 TRAIN_REL_TOL = 2e-2
@@ -1127,6 +1164,139 @@ def phase_scan_kernels(gen):
     return rows
 
 
+# (B, S, W, with h0, with dh_last): the B4 backward at recurrentgemma-9b's
+# training microbatch without and with h0 and dh_last, a ragged S, S under
+# one chunk, W no multiple of 4 (the cp.async path) and 141 chunks
+SCAN_BWD_CASES = [(1, TRAIN_SEQ, 4096, False, False),
+                  (1, TRAIN_SEQ, 4096, True, True),
+                  (3, 100, 48, True, False), (2, 8, 4096, False, True),
+                  (2, 77, 50, True, True), (1, 9000, 128, True, True)]
+# (B, S, H, D, dtype, flags): the B5 backward at xlstm-350m's training
+# microbatch (its forward on the tensor cores), the tensor-core forward
+# off it (a ragged S under low input gates, q, k, v as views of one fused
+# projection), then the CUDA-core forward at small head dims and in f32
+MLSTM_BWD_CASES = [(2, TRAIN_SEQ, 4, 512, torch.bfloat16, {}),
+                   (1, 300, 4, 512, torch.bfloat16, {"i_shift": -3.0}),
+                   (2, 200, 4, 512, torch.bfloat16, {"fused": True}),
+                   (2, 100, 2, 16, torch.float32, {}),
+                   (2, 96, 4, 32, torch.float32, {}),
+                   (1, 100, 1, 64, torch.float32, {}),
+                   (2, 37, 4, 64, torch.bfloat16, {}),
+                   (2, 70, 2, 512, torch.float32, {"i_shift": -3.0})]
+
+
+def mlstm_stats_check(q, k, v, log_i, log_f, lse, sg, name):
+    """The forward launch's row stats against the plain version's in f32
+    on the same values: L = m + log n within 1e-4 (1 + cond_t), cond_t =
+    sum_s |a_ts| / n_t (n sums signed terms: where they cancel, log n is
+    as ill-conditioned), and sg equal on every row whose |den| and
+    exp(-m) lie further apart than that band.  Returns the largest
+    |L - plain| over its band and the rows inside the band; raises
+    otherwise."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+    b, s, h, d = q.shape
+    _, want_lse, want_sg = mlstm_ref(q.float(), k.float(), v.float(),
+                                     log_i, log_f, with_stats=True)
+    fcum = torch.cumsum(log_f, dim=1)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logw = torch.where(causal[None, :, :, None], fcum[:, :, None] -
+                       fcum[:, None] + log_i[:, None], -1e30)
+    m = logw.amax(dim=2)
+    a = torch.exp(logw - m[:, :, None]) * torch.einsum(
+        "bthd,bshd->btsh", q.float(), k.float()) * d ** -0.5
+    den, mass = a.sum(dim=2), a.abs().sum(dim=2)
+    del logw, a
+    norm = torch.maximum(den.abs(), torch.exp(-m))
+    band = 1e-4 * (norm + mass)
+    ratio = float(((lse - want_lse).abs() / (band / norm)).max())
+    tie = (den.abs() - torch.exp(-m)).abs() <= band
+    if ratio > 1 or not torch.equal(sg[~tie], want_sg[~tie]):
+        raise AssertionError(f"{name}: row stats off the plain ones: "
+                             f"|L - plain| / band {ratio}, sg differing "
+                             f"on {int((sg != want_sg)[~tie].sum())} rows")
+    return ratio, int(tie.sum())
+
+
+def phase_scan_backward(gen):
+    """The B4 and B5 backward kernels against their plain versions: the
+    RG-LRU backward bit-equal to its order of operations in plain PyTorch
+    (rglru_scan_bwd_chunked_ref) and within BWD_TOL (f32) of the plain
+    backward (rglru_scan_bwd_ref); the mLSTM forward's row stats against
+    the plain ones (mlstm_stats_check) and its backward's dq, dk, dv, d
+    log_i, d log_f each within BWD_TOL of the largest value of the plain
+    backward (mlstm_bwd_ref) in f32 on the same values and stats; two
+    launches of every case give the same bits."""
+    from repro_torch.kernels.mlstm_scan import backward as ml_backward
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref
+    from repro_torch.kernels.rglru_scan import backward as rg_backward
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan.ref import (
+        rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref)
+    rows = []
+    for b, s, w, with_h0, with_dl in SCAN_BWD_CASES:
+        a, x, h0 = scan_operands(gen, b, s, w, with_h0)
+        dy = torch.randn((b, s, w), generator=gen, device=DEVICE)
+        dl = torch.randn((b, w), generator=gen, device=DEVICE) \
+            if with_dl else None
+        h, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
+        got = rg_backward.rglru_scan_bwd_cuda(a, h, dy, dl, h0)
+        again = rg_backward.rglru_scan_bwd_cuda(a, h, dy, dl, h0)
+        torch.cuda.synchronize()
+        name = f"rglru_scan backward {(b, s, w)} h0 {with_h0} dh_last " \
+            f"{with_dl}"
+        pl = rg_kernel.plan(b, s, w)
+        emul = rglru_scan_bwd_chunked_ref(a, h, dy, dl, h0, chunk=pl.chunk)
+        for g, g2, e in zip(got, again, emul):
+            if g is None and e is None:
+                continue
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{name}: two runs differ")
+            if not torch.equal(g, e):
+                raise AssertionError(
+                    f"{name}: not bit-equal to rglru_scan_bwd_chunked_ref "
+                    f"at chunk {pl.chunk}: {int((g != e).sum())} elements")
+        want = rglru_scan_bwd_ref(a, h, dy, dl, h0)
+        errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
+        if max(errs) > BWD_TOL[torch.float32]:
+            raise AssertionError(f"{name}: off the plain backward: {errs}")
+        rows.append({"kernel": "rglru_scan_bwd", "shape": [b, s, w],
+                     "h0": with_h0, "dh_last": with_dl, "chunk": pl.chunk,
+                     "load": pl.load, "bit_equal_chunked_ref": True,
+                     "rel_err_da_db_dh0": errs})
+    for b, s, h, d, dtype, kw in MLSTM_BWD_CASES:
+        ops = mlstm_operands(gen, b, s, h, d, dtype, **kw)
+        out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+        dout = torch.randn(out.shape, generator=gen,
+                           device=DEVICE).to(dtype)
+        got = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+        again = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+        torch.cuda.synchronize()
+        name = f"mlstm backward {(b, s, h, d)} {dtype} {kw}"
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}: two runs differ")
+        q, k, v, log_i, log_f = ops
+        ratio, ties = mlstm_stats_check(q, k, v, log_i, log_f, lse, sg,
+                                        name)
+        want = mlstm_bwd_ref(q.float(), k.float(), v.float(), log_i, log_f,
+                             out.float(), dout.float(), (lse, sg),
+                             rows=BWD_ROWS)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if max(errs) > BWD_TOL[dtype]:
+            raise AssertionError(f"{name}: max |kernel - plain| / max "
+                                 f"|plain| for dq, dk, dv, d log_i, d log_f "
+                                 f"= {errs} (BWD_TOL {BWD_TOL[dtype]})")
+        rows.append({"kernel": "mlstm_bwd", "shape": [b, s, h, d],
+                     "dtype": str(dtype).split(".")[-1], "flags": kw,
+                     "forward_variant": ml_kernel.plan(b, s, h, d,
+                                                       dtype).variant,
+                     "sg_zero_share": float((sg == 0).float().mean()),
+                     "stats_err_over_band": ratio, "stats_tie_rows": ties,
+                     "rel_err_dq_dk_dv_dli_dlf": errs})
+        del ops, out, lse, sg, dout, got, again, want
+    return rows
+
+
 def scan_bound_ms(b, s, w):
     """Least time for the recurrence without h0, as the forward calls it:
     a and b read and h written once at the HBM rate, against 2 flops an
@@ -1171,15 +1341,22 @@ def time_scan(gen, b, s, w):
                        "bound_by": by, "max_abs_err": err})
 
 
-def time_mlstm(gen, b, s, h, d):
+def time_mlstm(gen, b, s, h, d, with_stats=False):
     """mlstm at xlstm-350m's forward shape (bf16) over TIMING_ROTATION
     operand sets; the plain version in bf16, as the model's plain path.
     No library call: scaled_dot_product_attention cannot apply the gate
-    decay or the max(|den|, exp(-m)) normaliser."""
+    decay or the max(|den|, exp(-m)) normaliser.  ``with_stats``: the
+    kernel writing its row stats, as training calls it (device and call
+    ms only)."""
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
     sets = [mlstm_operands(gen, b, s, h, d, torch.bfloat16)
             for _ in range(TIMING_ROTATION)]
+    if with_stats:
+        kern = [functools.partial(ml_kernel.mlstm_cuda, *ops,
+                                  with_stats=True) for ops in sets]
+        return {"ms": (device_time_ms(kern) + device_time_ms(kern)) / 2,
+                "call_ms": call_time_ms(kern)}
     kern = [functools.partial(ml_kernel.mlstm_cuda, *ops) for ops in sets]
     plain = [functools.partial(mlstm_ref, *ops) for ops in sets]
     err = 0.0
@@ -1193,6 +1370,108 @@ def time_mlstm(gen, b, s, h, d):
                        **time_pair(kern, plain), "library_ms": None,
                        "bound_ms": bound, "bound_by": by,
                        "max_abs_err": err})
+
+
+def scan_bwd_bound_ms(b, s, w):
+    """Least time for the RG-LRU backward without h0 or dh_last, as
+    training calls it: a, dy and h read and db and da written once at the
+    HBM rate, against 3 flops an element at the fp32 rate; the larger,
+    and which one it is."""
+    b_ms = 4 * 5 * b * s * w / HBM_BYTES_PER_S * 1e3
+    f_ms = 3 * b * s * w / FP32_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def mlstm_bwd_bound_ms(b, s, h, d, itemsize):
+    """Least time for the mLSTM backward: q, k, v, out, dout read and dq,
+    dk, dv written once (and the f32 gates, stats and their gradients) at
+    the HBM rate, against 10 flops per (query, causal key, head, head-dim)
+    (the five products any backward needs: S, dP, dV, dK, dQ) at the
+    bf16 tensor-core rate; the larger, and which one it is."""
+    nbytes = itemsize * 8 * b * s * h * d + 4 * 6 * b * s * h
+    pairs = s * (s + 1) // 2
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = 10 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def time_scan_bwd(gen, b, s, w):
+    """The RG-LRU backward at recurrentgemma-9b's training microbatch (no
+    h0, no dh_last, as the model calls it) over TIMING_ROTATION / 4
+    operand sets, beside its plain version (rglru_scan_bwd_ref, a doubling
+    scan); each checked first against the plain backward and its chunked
+    order.  No library call: no PyTorch call computes a linear
+    recurrence's gradient."""
+    from repro_torch.kernels.rglru_scan import backward as rg_backward
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan.ref import (
+        rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref)
+    sets = []
+    for _ in range(TIMING_ROTATION // 4):
+        a, x, _ = scan_operands(gen, b, s, w, False)
+        h, _ = rg_kernel.rglru_scan_cuda(a, x)
+        sets.append((a, h, torch.randn((b, s, w), generator=gen,
+                                       device=DEVICE)))
+    kern = [functools.partial(rg_backward.rglru_scan_bwd_cuda, *x)
+            for x in sets]
+    plain = [functools.partial(rglru_scan_bwd_ref, *x) for x in sets]
+    err = 0.0
+    for x, kc, pc in zip(sets[:2], kern[:2], plain[:2]):
+        got, want = kc(), pc()
+        emul = rglru_scan_bwd_chunked_ref(*x, chunk=rg_kernel.plan(
+            b, s, w).chunk)
+        if not all(torch.equal(g, e) for g, e in zip(got[:2], emul[:2])):
+            raise AssertionError("rglru_scan backward timing: not "
+                                 "bit-equal to its chunked order")
+        if max(rel_err(g, w) for g, w in zip(got[:2], want[:2])) > \
+                BWD_TOL[torch.float32]:
+            raise AssertionError("rglru_scan backward timing: off the "
+                                 "plain backward")
+        err = max([err] + [float((g - w).abs().max())
+                           for g, w in zip(got[:2], want[:2])])
+    bound, by = scan_bwd_bound_ms(b, s, w)
+    pl = rg_kernel.plan(b, s, w)
+    return with_share({"chunk": pl.chunk, "blocks": pl.blocks,
+                       "load": pl.load, **time_pair(kern, plain),
+                       "library_ms": None, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err})
+
+
+def time_mlstm_bwd(gen, b, s, h, d, iters=16):
+    """The mLSTM backward at xlstm-350m's training microbatch (bf16, the
+    stats and output of one tensor-core forward launch a set) over
+    TIMING_ROTATION / 4 operand sets, beside its plain version
+    (mlstm_bwd_ref in f32 on the same values, given the kernel's stats,
+    as the checks evaluate it); each checked first against the plain
+    backward.  No library call: no PyTorch call computes the mLSTM or its
+    gradient."""
+    from repro_torch.kernels.mlstm_scan import backward as ml_backward
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref
+    sets = []
+    for _ in range(TIMING_ROTATION // 4):
+        ops = mlstm_operands(gen, b, s, h, d, torch.bfloat16)
+        out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+        dout = torch.randn(out.shape, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+        sets.append((*ops, out, dout, lse, sg))
+    kern = [functools.partial(ml_backward.mlstm_bwd_cuda, *x) for x in sets]
+    f32 = [tuple(t.float() for t in x[:7]) + ((x[7], x[8]),) for x in sets]
+    plain = [functools.partial(mlstm_bwd_ref, *x, rows=BWD_ROWS)
+             for x in f32]
+    err = 0.0
+    for kc, pc in zip(kern[:2], plain[:2]):
+        got, want = kc(), pc()
+        if max(rel_err(g, w) for g, w in zip(got, want)) > \
+                BWD_TOL[torch.bfloat16]:
+            raise AssertionError("mlstm backward timing: off the plain "
+                                 "backward")
+        err = max([err] + [float((g.float() - w).abs().max())
+                           for g, w in zip(got, want)])
+    bound, by = mlstm_bwd_bound_ms(b, s, h, d, 2)
+    return with_share({**time_pair(kern, plain, iters),
+                       "library_ms": None, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err})
 
 
 # --------------------------------------------------------------------- #
@@ -1219,26 +1498,40 @@ def serve_workload(svc, n_queries=64, tenants=4, window=16):
     return tids
 
 
-def profile_run(phase, run, breakdown=(), **extra):
+def profile_run(phase, run, breakdown=(), host_ops=True, **extra):
     """Device time by kernel over one ``run()``, from torch.profiler; the
     profiler's own cost is in ``wall_s``.  Every kernel whose name holds
     one of the ``breakdown`` strings is also listed on its own, whatever
-    its rank.  ``extra`` goes into the line."""
+    its rank.  ``host_ops=False`` records the device activity alone (for a
+    run of hundreds of thousands of launches, whose host ops add millions
+    of events to collect).  ``extra`` goes into the line, with the seconds
+    the events took to sum (``analysis_s``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side activities only (kernels, copies): a host op's device
-    # time is its children's, so counting both would count it twice
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU
-                   and e.self_device_time_total > 0), reverse=True)
+    # time is its children's, so counting both would count it twice.  The
+    # profiler's raw events, summed by name: key_averages() gives the
+    # same sums but takes ~0.5 ms a host op to build them
+    t0 = time.perf_counter()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU or e.duration_ns() <= 0:
+            continue
+        row = by_name.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / 1e3
+        row[1] += 1
+    rows = sorted(((us, key, n) for key, (us, n) in by_name.items()),
+                  reverse=True)
+    extra["analysis_s"] = time.perf_counter() - t0
     busy_s = sum(us for us, _, _ in rows) / 1e6
     emit({"phase": phase, **extra, "wall_s": wall, "device_busy_s": busy_s,
           "device_busy_share": busy_s / wall,
@@ -2308,118 +2601,235 @@ def phase_recurrent_tie(cfg, model, params):
 # --------------------------------------------------------------------- #
 @contextlib.contextmanager
 def shadow_backward():
-    """Inside the block every flash_attention backward call still launches
-    the backward kernel, whose gradients the step goes on with, and is then
-    held against the plain backward (``flash_attention_bwd_ref``) in f32 on
-    the same inputs: max |kernel - plain| <= BWD_TOL * max |plain| for each
-    of dq, dk, dv.  A call on which that plain backward is itself outside
-    BWD_TOL of the f64 evaluation is ill-conditioned and is held against
-    the f64 value instead.  Yields the tally."""
+    """Inside the block every backward kernel call of B3, B4 and B5 still
+    launches its kernel, whose gradients the step goes on with, and is
+    then held against its plain backward in f32 on the same inputs: max
+    |kernel - plain| <= BWD_TOL * max |plain| for each gradient
+    (``flash_attention_bwd_ref``: dq, dk, dv; ``rglru_scan_bwd_ref``: da,
+    db, dh0, the kernel also bit-equal to ``rglru_scan_bwd_chunked_ref``;
+    ``mlstm_bwd_ref``: dq, dk, dv, d log_i, d log_f, evaluated on the
+    forward launch's row stats, which are held against the plain ones
+    first, ``mlstm_stats_check``: where |den| and exp(-m) tie the two sides
+    of max(|den|, exp(-m)) give different gradients, and the backward
+    follows the side its forward took).  A call on which that plain
+    backward is itself outside BWD_TOL of the f64 evaluation is
+    ill-conditioned and is held against the f64 value instead.  Yields
+    the tally, one entry a kernel."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_ref
-    kern = fa_backward.flash_attention_bwd_cuda
-    tally = {"calls": 0, "outside": 0, "ill_conditioned_calls": 0,
-             "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0}
+    from repro_torch.kernels.mlstm_scan import backward as ml_backward
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref
+    from repro_torch.kernels.rglru_scan import backward as rg_backward
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan.ref import (
+        rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref)
+    tally = {name: {"calls": 0, "outside": 0, "ill_conditioned_calls": 0,
+                    "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0}
+             for name in ("flash_attention_bwd", "rglru_scan_bwd",
+                          "mlstm_bwd")}
+    tally["rglru_scan_bwd"]["not_bit_equal_chunked_ref"] = 0
+    tally["mlstm_bwd"].update(stats_err_over_band=0.0, stats_tie_rows=0)
 
-    def bwd(q, k, v, out, dout, lse, **kw):
-        got = kern(q, k, v, out, dout, lse, **kw)
+    def record(name, got, plain, dtype):
+        """plain(cast) evaluates the plain backward on the call's inputs
+        cast to f32 or f64; the kernel's gradients against it."""
         with torch.no_grad():
-            xs = (q, k, v, out, dout)
-            want = flash_attention_bwd_ref(*(x.float() for x in xs),
-                                           rows=BWD_ROWS, **kw)
-            exact = flash_attention_bwd_ref(*(x.double() for x in xs),
-                                            rows=BWD_ROWS, **kw)
-            tol = BWD_TOL[q.dtype]
-            plain_off = [rel_err(w, e) for w, e in zip(want, exact)]
+            want = plain(lambda x: None if x is None else x.float())
+            exact = plain(lambda x: None if x is None else x.double())
+            tol = BWD_TOL[dtype]
+            pairs = [(w, e) for w, e in zip(want, exact) if w is not None]
+            plain_off = [rel_err(w, e) for w, e in pairs]
             ill = max(plain_off) > tol
-            errs = [rel_err(g, r) for g, r in zip(got, exact if ill
-                                                  else want)]
-        tally["calls"] += 1
-        tally["ill_conditioned_calls"] += int(ill)
-        tally["outside"] += sum(e > tol for e in errs)
-        tally["max_rel_err"] = max(tally["max_rel_err"], *errs)
-        tally["max_rel_err_plain_f32_vs_f64"] = max(
-            tally["max_rel_err_plain_f32_vs_f64"], *plain_off)
+            errs = [rel_err(g, r) for g, r in zip(
+                [g for g in got if g is not None],
+                [e if ill else w for w, e in pairs])]
+        t = tally[name]
+        t["calls"] += 1
+        t["ill_conditioned_calls"] += int(ill)
+        t["outside"] += sum(e > tol for e in errs)
+        t["max_rel_err"] = max(t["max_rel_err"], *errs)
+        t["max_rel_err_plain_f32_vs_f64"] = max(
+            t["max_rel_err_plain_f32_vs_f64"], *plain_off)
+
+    kern_fa = fa_backward.flash_attention_bwd_cuda
+    kern_rg = rg_backward.rglru_scan_bwd_cuda
+    kern_ml = ml_backward.mlstm_bwd_cuda
+
+    def fa_bwd(q, k, v, out, dout, lse, **kw):
+        got = kern_fa(q, k, v, out, dout, lse, **kw)
+        record("flash_attention_bwd", got, lambda c: flash_attention_bwd_ref(
+            *(c(x) for x in (q, k, v, out, dout)), rows=BWD_ROWS, **kw),
+            q.dtype)
         return got
 
-    fa_backward.flash_attention_bwd_cuda = bwd
+    def rg_bwd(a, h, dy, dh_last=None, h0=None):
+        got = kern_rg(a, h, dy, dh_last, h0)
+        record("rglru_scan_bwd", got, lambda c: rglru_scan_bwd_ref(
+            *(c(x) for x in (a, h, dy, dh_last, h0))), torch.float32)
+        emul = rglru_scan_bwd_chunked_ref(
+            a, h, dy, dh_last, h0, chunk=rg_kernel.plan(*a.shape).chunk)
+        tally["rglru_scan_bwd"]["not_bit_equal_chunked_ref"] += sum(
+            not torch.equal(g, e) for g, e in zip(got, emul)
+            if g is not None)
+        return got
+
+    def ml_bwd(q, k, v, log_i, log_f, out, dout, lse, sg):
+        got = kern_ml(q, k, v, log_i, log_f, out, dout, lse, sg)
+        ratio, ties = mlstm_stats_check(q, k, v, log_i, log_f, lse, sg,
+                                        "mlstm train call")
+        t = tally["mlstm_bwd"]
+        t["stats_err_over_band"] = max(t["stats_err_over_band"], ratio)
+        t["stats_tie_rows"] += ties
+        record("mlstm_bwd", got, lambda c: mlstm_bwd_ref(
+            *(c(x) for x in (q, k, v, log_i, log_f, out, dout)),
+            (c(lse), c(sg)), rows=BWD_ROWS), q.dtype)
+        return got
+
+    swaps = ((fa_backward, "flash_attention_bwd_cuda", fa_bwd),
+             (rg_backward, "rglru_scan_bwd_cuda", rg_bwd),
+             (ml_backward, "mlstm_bwd_cuda", ml_bwd))
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield tally
     finally:
-        fa_backward.flash_attention_bwd_cuda = kern
+        fa_backward.flash_attention_bwd_cuda = kern_fa
+        rg_backward.rglru_scan_bwd_cuda = kern_rg
+        ml_backward.mlstm_bwd_cuda = kern_ml
+
+
+def train_config(arch):
+    """The config ``arch`` trains at in the train phase (TRAIN_ARCHS): full
+    width, its depth and microbatches as cut there."""
+    from repro_torch.configs.registry import get_config
+    spec = TRAIN_ARCHS[arch]
+    cfg = get_config(arch)
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    if "microbatches" in spec:
+        cfg = dataclasses.replace(cfg, microbatches=spec["microbatches"])
+    return cfg
 
 
 def train_launches(cfg, steps):
-    """What ``steps`` train steps of ``cfg`` must launch: each attention
-    layer of each microbatch runs the forward twice (the step's forward
-    and remat "full"'s recompute in the backward), on the tensor-core
-    kernel, and the backward once, on the tensor-core variant."""
-    calls = cfg.num_layers * max(1, cfg.microbatches) * steps
-    return {**lm_launches(wgmma=2 * calls), "flash_attention_bwd": calls,
-            "flash_attention_bwd.wgmma": calls,
-            "flash_attention_bwd.simt": 0}
+    """What ``steps`` train steps of ``cfg`` must launch, each kernel and
+    each variant.  The dense family: each attention layer of each
+    microbatch runs the forward twice (the step's forward and remat
+    "full"'s recompute in the backward), on the tensor-core kernel, and
+    the backward once, on the tensor-core variant.  The hybrid and ssm
+    families run no remat: per microbatch each attention layer runs the
+    flash forward (tensor cores, lse) and backward (the CUDA-core variant
+    at head dim 256) once, each recurrent layer the RG-LRU scan and its
+    backward once, each mLSTM layer the mLSTM (tensor cores, stats) and
+    its backward once."""
+    from repro_torch.models import hybrid, xlstm
+    calls = max(1, cfg.microbatches) * steps
+    bwd = {"flash_attention_bwd.wgmma": 0, "flash_attention_bwd.simt": 0,
+           "rglru_scan_bwd": 0, "mlstm_bwd": 0}
+    if cfg.family == "hybrid":
+        unit, n_super, tail = hybrid._pattern(cfg)
+        attn = n_super * unit.count("attn") * calls
+        rec = (n_super * unit.count("rec") + tail.count("rec")) * calls
+        return {**lm_launches(rglru_scan=rec, wgmma=attn), **bwd,
+                "flash_attention_bwd": attn,
+                "flash_attention_bwd.simt": attn, "rglru_scan_bwd": rec}
+    if cfg.family == "ssm":
+        unit, n_super = xlstm._pattern(cfg)
+        ml = n_super * unit.count("mlstm") * calls
+        return {**lm_launches(mlstm=ml), **bwd, "flash_attention_bwd": 0,
+                "mlstm_bwd": ml}
+    calls *= cfg.num_layers
+    return {**lm_launches(wgmma=2 * calls), **bwd,
+            "flash_attention_bwd": calls,
+            "flash_attention_bwd.wgmma": calls}
 
 
 def train_counted(run):
-    """``run()`` with flash_attention's launch counts (forward and
-    backward, each also by variant) zeroed just before it and read just
-    after."""
+    """``run()`` with the LM kernels' launch counts (forwards and
+    backwards, flash_attention's also by variant) zeroed just before it
+    and read just after."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
-    fa_backward.LAUNCHES["flash_attention_bwd"] = 0
-    for key in fa_backward.VARIANT_CALLS:
-        fa_backward.VARIANT_CALLS[key] = 0
+    from repro_torch.kernels.mlstm_scan import backward as ml_backward
+    from repro_torch.kernels.rglru_scan import backward as rg_backward
+    counters = (fa_backward.LAUNCHES, fa_backward.VARIANT_CALLS,
+                rg_backward.LAUNCHES, ml_backward.LAUNCHES)
+    for c in counters:
+        for key in c:
+            c[key] = 0
     out, launches = lm_counted(run)              # zeroes the others
     launches["flash_attention_bwd"] = \
         fa_backward.LAUNCHES["flash_attention_bwd"]
     launches.update({f"flash_attention_bwd.{key}": n
                      for key, n in fa_backward.VARIANT_CALLS.items()})
+    launches.update(rg_backward.LAUNCHES)
+    launches.update(ml_backward.LAUNCHES)
     return out, launches
 
 
-def train_pipeline(cfg):
+def train_pipeline(cfg, batch):
     """The trainer's brick pipeline: 4 data nodes, 8 bricks of a whole
-    global batch each, TRAIN_BATCH x TRAIN_SEQ tokens a batch."""
+    global batch each, ``batch`` x TRAIN_SEQ tokens a batch."""
     from repro_torch.core.catalog import MetadataCatalog
     from repro_torch.data.pipeline import BrickDataPipeline, TokenBrickStore
     store = TokenBrickStore(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                            n_bricks=8, seqs_per_brick=TRAIN_BATCH,
-                            n_nodes=4)
+                            n_bricks=8, seqs_per_brick=batch, n_nodes=4)
     return BrickDataPipeline(store, MetadataCatalog(4),
-                             global_batch=TRAIN_BATCH, device=DEVICE)
+                             global_batch=batch, device=DEVICE)
 
 
-def phase_train():
-    """starcoder2-3b whole at full width, trained TRAIN_STEPS steps through
-    make_train_step: bf16 params, f32 moments, f32 accumulation over its
-    4 microbatches, remat "full", global batch 8 x 2048 from the brick
-    pipeline.  Peak memory reckoned: 6.74 GB bf16 params + 26.96 GB f32
-    moments + 13.48 GB f32 gradient sum + 6.74 GB bf16 microbatch grads =
-    53.9 GB of state, plus the logits' f32 copies (~0.8 GB each, a few) and
-    one layer's recompute: ~59 GB; measured and reported."""
-    from repro_torch.configs.registry import get_config
+#: kernels listed on their own in each family's profiled step
+TRAIN_BREAKDOWN = {"dense": ("fa_bwd_", "flash_wgmma_kernel"),
+                   "hybrid": ("fa_bwd_", "flash_wgmma_kernel",
+                              "rglru_chunked_kernel"),
+                   "ssm": ("mlstm_bwd_", "mlstm_wgmma_kernel",
+                           "mlstm_gates_kernel")}
+
+
+def phase_train(arch):
+    """``arch`` trained at full width (TRAIN_ARCHS: its depth, global batch
+    and steps as cut there) through make_train_step: bf16 params, f32
+    moments, f32 accumulation over its microbatches, global batches of
+    TRAIN_SEQ tokens a row from the brick pipeline.  Launch counts by
+    kernel and variant (train_launches); every backward kernel call of
+    step 1 held against its plain backward (shadow_backward); loss and
+    grad norm finite every step; step 1's loss and grad norm against the
+    same step on the plain versions (bf16, and f32 on the same values),
+    each gated within TRAIN_REL_TOL where the two plain runs agree on it.
+    Peak memory reckoned for starcoder2-3b: 6.74 GB bf16 params + 26.96
+    GB f32 moments + 13.48 GB f32 gradient sum + 6.74 GB bf16 microbatch
+    grads = 53.9 GB of state, plus the logits' f32 copies (~0.8 GB each,
+    a few) and one layer's recompute: ~59 GB; for recurrentgemma-9b at 9
+    layers ~45 GB of state and ~12 GB of activations (no remat) and
+    logits (~2.1 GB an f32 copy at 2048 x 256,000); measured and
+    reported."""
     from repro_torch.models import model_zoo
     from repro_torch.optim.adamw import AdamW, global_norm, init_opt_state
     from repro_torch.train import steps as steps_lib
-    cfg = get_config(TRAIN_ARCH)
+    spec = TRAIN_ARCHS[arch]
+    batch, steps = spec["batch"], spec["steps"]
+    cfg = train_config(arch)
     model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = model.table.init(gen, DEVICE)
     n = model.table.num_params()
+    from repro_torch.configs.registry import get_config
     emit({"phase": "model", "arch": cfg.name, "family": cfg.family,
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "layers": cfg.num_layers,
+          "published_layers": get_config(arch).num_layers,
+          "d_model": cfg.d_model,
           "q_heads": [cfg.num_heads, cfg.num_heads_padded],
           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
           "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded,
           "microbatches": cfg.microbatches, "remat": cfg.remat_policy,
           "params": n, "param_gb": model.table.bytes() / 1e9,
           "train_state_gb": n * (2 + 2 + 4 + 4 + 4) / 1e9})
-    pipe = train_pipeline(cfg)
-    batches = [pipe.next_device_batch() for _ in range(TRAIN_STEPS + 1)]
+    pipe = train_pipeline(cfg, batch)
+    batches = [pipe.next_device_batch() for _ in range(steps + 1)]
 
     # step 1's loss and grad norm on the plain path, from the same params
-    # and batch: bf16 and f32 plain attention (the path's own sensitivity)
+    # and batch: bf16 and f32 plain versions (the path's own sensitivity)
     grads_fn = steps_lib.make_grads_fn(cfg, model)
     plain = {}
     for key, f32 in (("plain", False), ("plain_f32", True)):
@@ -2439,7 +2849,7 @@ def phase_train():
 
     def run():
         nonlocal params, opt_state
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             ctx = shadow_backward() if i == 0 else contextlib.nullcontext()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2453,12 +2863,12 @@ def phase_train():
 
     _, launches = train_counted(run)
     peak = torch.cuda.max_memory_allocated()
-    check_launches(f"{cfg.name} train", launches,
-                   train_launches(cfg, TRAIN_STEPS))
+    check_launches(f"{cfg.name} train", launches, train_launches(cfg, steps))
     for i, m in enumerate(metrics):
         if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
             raise AssertionError(f"{cfg.name} train step {i + 1}: {m}")
-    if shadow["outside"]:
+    if any(t["outside"] for t in shadow.values()) or \
+            shadow["rglru_scan_bwd"]["not_bit_equal_chunked_ref"]:
         raise AssertionError(f"{cfg.name} train: backward calls outside "
                              f"BWD_TOL: {shadow}")
     first = metrics[0]
@@ -2481,17 +2891,21 @@ def phase_train():
                              f"the plain path in f32 by more than "
                              f"{TRAIN_REL_TOL}: {off}")
     step_s = sum(walls[1:]) / len(walls[1:])
-    # the flash kernels by name: the forward, and the backward's delta
-    # pre-pass, dK/dV, the sum of the head runs' partials and dQ
+    # the kernels by name: the flash forward and the backward's kernels,
+    # the RG-LRU scan's two instances, the mLSTM's forward and backward
+    # xlstm-350m's step launches ~630,000 kernels (the sLSTM's loop): its
+    # profile records the device activity alone
+    host_ops = cfg.family != "ssm"
     profile_run("train_profile", lambda: step_fn(params, opt_state,
                                                  batches[-1]),
-                breakdown=("fa_bwd_", "flash_wgmma_kernel"), arch=cfg.name)
-    emit({"phase": "train", "arch": cfg.name, "steps": TRAIN_STEPS,
-          "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                breakdown=TRAIN_BREAKDOWN[cfg.family], host_ops=host_ops,
+                arch=cfg.name, host_ops_recorded=host_ops)
+    emit({"phase": "train", "arch": cfg.name, "steps": steps,
+          "global_batch": batch, "seq_len": TRAIN_SEQ,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
           "launches": launches, "metrics": metrics, "step_wall_s": walls,
           "ms_per_step": step_s * 1e3,
-          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+          "tokens_per_s": batch * TRAIN_SEQ / step_s,
           "peak_memory_gb": peak / 1e9, "step1_vs_plain": e2e,
           "end_to_end_gated": gated, "backward_per_call": shadow})
     del params, opt_state, batches
@@ -2500,13 +2914,14 @@ def phase_train():
 
 def phase_trainer():
     """The Trainer with starcoder2-3b at full width and TRAINER_LAYERS of
-    its 30 layers, bf16, checkpointing every 2 steps into a temporary
-    directory (removed afterwards): a calm run of TRAINER_STEPS steps; a
-    run of 2 steps, then a new trainer resuming from its step-2 checkpoint
-    to TRAINER_STEPS, which must end with the calm run's params and
-    moments bit for bit (C-ref9's path: bf16 leaves restored); and a run
-    with data node 1 killed at step 2, whose losses must equal the calm
-    run's (the bricks' replicas are byte-identical)."""
+    its 30 layers, bf16, checkpointing into a temporary directory (removed
+    afterwards): a calm run of TRAINER_STEPS steps; a run of 2 steps, then
+    a new trainer resuming from its step-2 checkpoint to TRAINER_STEPS,
+    which must end with the calm run's params and moments bit for bit
+    (C-ref9's path: bf16 leaves restored); and a run with data node 1
+    killed at step 2, whose losses must equal the calm run's (the bricks'
+    replicas are byte-identical).  The calm and failure runs save only
+    their last step: four checkpoints in all."""
     import shutil
     import tempfile
     from repro_torch.configs.registry import get_config
@@ -2518,17 +2933,18 @@ def phase_trainer():
     with tempfile.TemporaryDirectory() as tmp:
         free_gb = shutil.disk_usage(tmp).free / 1e9
 
-        def trainer(name, steps, hook=None):
+        def trainer(name, steps, hook=None, every=TRAINER_STEPS):
             return Trainer(cfg, TrainerConfig(
-                total_steps=steps, ckpt_every=2, ckpt_dir=f"{tmp}/{name}",
+                total_steps=steps, ckpt_every=every,
+                ckpt_dir=f"{tmp}/{name}",
                 global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=1),
                 device=DEVICE, failure_hook=hook)
 
         calm = trainer("calm", TRAINER_STEPS)
         calm.train()
         shutil.rmtree(f"{tmp}/calm")
-        trainer("restart", 2).train()
-        resumed = trainer("restart", TRAINER_STEPS)
+        trainer("restart", 2, every=2).train()
+        resumed = trainer("restart", TRAINER_STEPS, every=2)
         out = resumed.train()
         if out["steps"] != TRAINER_STEPS - 2:
             raise AssertionError(f"the restart ran {out['steps']} steps")
@@ -2554,7 +2970,7 @@ def phase_trainer():
     emit({"phase": "trainer", "arch": cfg.name, "layers": cfg.num_layers,
           "published_layers": get_config(TRAIN_ARCH).num_layers,
           "steps": TRAINER_STEPS, "global_batch": TRAIN_BATCH,
-          "seq_len": TRAIN_SEQ, "ckpt_every": 2, "tmp_free_gb": free_gb,
+          "seq_len": TRAIN_SEQ, "checkpoints": 4, "tmp_free_gb": free_gb,
           "restart_state_leaves_identical": len(pairs),
           "restored_dtypes": dtypes, "losses": calm_losses,
           "failure_losses_identical": True, "wall_s":
@@ -2613,9 +3029,12 @@ def build_all():
     from repro_torch.kernels.event_filter import kernel as ef_kernel
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import backward as ml_backward
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
-    modules = (ef_kernel, fa_kernel, fa_backward, rg_kernel, ml_kernel)
+    # rglru_scan's backward is an instance of the forward's source
+    modules = (ef_kernel, fa_kernel, fa_backward, rg_kernel, ml_kernel,
+               ml_backward)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         futures = [pool.submit(m.build) for m in modules]
@@ -2627,13 +3046,20 @@ def build_all():
     # the tensor-core kernels hold their state in registers by design, and
     # the chunked scan holds a few floats a thread: a spill is a fault of
     # the build, not a slowdown to report
-    spilled = [row for m in (fa_kernel, fa_backward, ml_kernel, rg_kernel)
+    spilled = [row for m in (fa_kernel, fa_backward, ml_kernel, rg_kernel,
+                             ml_backward)
                for row in ptxas[m.SOURCE.name]
                if row.get("spill_stores") or row.get("spill_loads")]
     if spilled:
         raise AssertionError(f"kernel instances spill: {spilled}")
     for m, name in ((ml_kernel, "mlstm_wgmma_kernel"),
-                    (rg_kernel, "rglru_chunked_kernel"),
+                    (rg_kernel, "rglru_chunked_kernel<0>"),
+                    (rg_kernel, "rglru_chunked_kernel<1>"),
+                    (ml_backward, "mlstm_bwd_cumsum_kernel"),
+                    (ml_backward, "mlstm_bwd_prep_kernel"),
+                    (ml_backward, "mlstm_bwd_dkdv_kernel"),
+                    (ml_backward, "mlstm_bwd_dq_kernel"),
+                    (ml_backward, "mlstm_bwd_finish_kernel"),
                     (fa_backward, "fa_bwd_delta_kernel"),
                     (fa_backward, "fa_bwd_dkdv_wgmma_kernel"),
                     (fa_backward, "fa_bwd_sum_kernel"),
@@ -2660,6 +3086,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    # seconds each group of phases took, emitted before the kernels line
+    seconds, last = {}, [time.perf_counter()]
+
+    def took(name):
+        now = time.perf_counter()
+        seconds[name] = now - last[0]
+        last[0] = now
+
     # 1. device
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2669,6 +3103,7 @@ def main(argv=None) -> int:
 
     # 2. build
     build_all()
+    took("build")
 
     # 3. kernels against their plain versions (f32 plain path without
     # TF32)
@@ -2690,12 +3125,15 @@ def main(argv=None) -> int:
           "tolerance": {str(k).split(".")[-1]: v
                         for k, v in BWD_TOL.items()},
           "rows": bwd_rows})
-    scan_rows = phase_scan_kernels(gen)
+    scan_rows = phase_scan_kernels(gen) + phase_scan_backward(gen)
     emit({"phase": "scan_kernels", "cases": len(scan_rows),
           "tolerance": {"rglru_scan": SCAN_TOL,
                         "mlstm": {str(k).split(".")[-1]: v
-                                  for k, v in MLSTM_TOL.items()}},
+                                  for k, v in MLSTM_TOL.items()},
+                        "backward": {str(k).split(".")[-1]: v
+                                     for k, v in BWD_TOL.items()}},
           "rows": scan_rows})
+    took("kernels")
 
     # 4. serve and lockstep (the query paths; launch counts read around
     # each), then the fleet and failover paths on the same resident store
@@ -2706,6 +3144,7 @@ def main(argv=None) -> int:
     phase_failover(store)
     del store
     release()
+    took("query_paths")
 
     # 5, 6. each LM at full width: serve and one forward (launch counts
     # read around each path), one model on the card at a time
@@ -2716,6 +3155,7 @@ def main(argv=None) -> int:
                       phase_prefill(*lm)["flash_attention"])
     del lm
     release()
+    took(f"lm {LM_ARCH}")
     lm = build_lm(RG_ARCH)
     rg_serve = phase_lm(*lm)
     rg_forward = phase_prefill(*lm)
@@ -2724,12 +3164,14 @@ def main(argv=None) -> int:
     launches["rglru_scan"] = rg_forward["rglru_scan"]
     del lm
     release()
+    took(f"lm {RG_ARCH}")
     lm = build_lm(XL_ARCH)
     phase_lm(*lm)
     launches["mlstm"] = phase_prefill(*lm)["mlstm"]
     phase_recurrent_tie(*lm)
     del lm
     release()
+    took(f"lm {XL_ARCH}")
     # the vlm, moe and audio families: pixtral-12b, phi3.5-moe at 16 of
     # its 32 layers, whisper-medium
     for arch in (PX_ARCH, MOE_ARCH, WH_ARCH):
@@ -2738,17 +3180,25 @@ def main(argv=None) -> int:
                        phase_prefill(*lm)["flash_attention"])
         del lm
         release()
-    # the training stack: starcoder2-3b trained whole, then the trainer's
-    # restart and failure scenarios
-    train = phase_train()
-    release()
+        took(f"lm {arch}")
+    # the training stack: starcoder2-3b whole, recurrentgemma-9b at 9
+    # layers, xlstm-350m whole, then the trainer's restart and failure
+    # scenarios
+    train = {}
+    for arch in TRAIN_ARCHS:
+        train[arch] = phase_train(arch)
+        release()
+        took(f"train {arch}")
     phase_trainer()
     release()
+    took("trainer")
     launches["flash_attention"] = sum(sum(n) for n in flash.values()) + \
-        train["flash_attention"]
+        sum(t["flash_attention"] for t in train.values())
+    for key in ("rglru_scan", "mlstm"):
+        launches[key] += sum(t[key] for t in train.values())
     for key in ("flash_attention_bwd", "flash_attention_bwd.wgmma",
-                "flash_attention_bwd.simt"):
-        launches[key] = train[key]
+                "flash_attention_bwd.simt", "rglru_scan_bwd", "mlstm_bwd"):
+        launches[key] = sum(t[key] for t in train.values())
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -2782,12 +3232,24 @@ def main(argv=None) -> int:
                 tr_cfg.head_dim)
     timed["flash_attention_bwd"] = time_flash_bwd(
         gen, *tr_shape, window=tr_cfg.sliding_window)
-    # the CUDA-core variant, which no model path takes, on f32 operands of
-    # the same shape (fewer calls: ~30 ms each)
-    bwd_simt = time_flash_bwd(gen, *tr_shape, window=tr_cfg.sliding_window,
-                              dtype=torch.float32, iters=8)
+    # the CUDA-core variant at recurrentgemma-9b's training microbatch (1,
+    # 2048^2, 16/1 heads of 256, its 2048 window masking nothing there;
+    # fewer calls: ~10 ms each)
+    rg_cfg = train_config(RG_ARCH)
+    rg_train_shape = (1, TRAIN_SEQ, TRAIN_SEQ, rg_cfg.num_heads_padded,
+                      rg_cfg.num_kv_heads, rg_cfg.head_dim)
+    bwd_simt = time_flash_bwd(gen, *rg_train_shape,
+                              window=rg_cfg.attention_window, iters=8)
     release()
     tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
+    # the B4 and B5 backward kernels at their training microbatches
+    xl_train_shape = (TRAIN_ARCHS[XL_ARCH]["batch"] //
+                      train_config(XL_ARCH).microbatches, TRAIN_SEQ, 4, 512)
+    timed["rglru_scan_bwd"] = time_scan_bwd(gen, 1, TRAIN_SEQ, 4096)
+    timed["mlstm_bwd"] = time_mlstm_bwd(gen, *xl_train_shape)
+    mlstm_stats = time_mlstm(gen, 1, FORWARD_LEN[XL_ARCH], 4, 512,
+                             with_stats=True)
+    release()
     emit({"phase": "timing", "smi": smi,
           "launch_floor_ms": launch_floor_ms(),
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
@@ -2824,14 +3286,16 @@ def main(argv=None) -> int:
                          "(enable_gqa, is_causal), CUDA events",
               **with_share(timed["flash_attention_bwd"])},
           "flash_attention_bwd_simt": {
-              "shape": list(tr_shape), "window": tr_cfg.sliding_window,
+              "shape": list(rg_train_shape),
+              "window": rg_cfg.attention_window,
               "launches_train": launches["flash_attention_bwd.simt"],
-              "library": "scaled_dot_product_attention backward in f32 "
+              "library": "scaled_dot_product_attention backward "
                          "(enable_gqa, is_causal), CUDA events",
               **with_share(bwd_simt)},
           "flash_attention_train_forward": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
-              "launches_train": train["flash_attention"], **tr_forward},
+              "launches_train": train[TRAIN_ARCH]["flash_attention"],
+              **tr_forward},
           "flash_attention_launches_by_model": {
               arch: {"serve": n[0], "forward": n[1]}
               for arch, n in flash.items()},
@@ -2840,8 +3304,16 @@ def main(argv=None) -> int:
                          **timed["rglru_scan"]},
           "mlstm": {"shape": [1, FORWARD_LEN[XL_ARCH], 4, 512],
                     "dtype": "bfloat16",
-                    "launches_forward": launches["mlstm"],
-                    **timed["mlstm"]}})
+                    "launches_forward_and_train": launches["mlstm"],
+                    **timed["mlstm"]},
+          "mlstm_with_stats": {"shape": [1, FORWARD_LEN[XL_ARCH], 4, 512],
+                               "dtype": "bfloat16", **mlstm_stats},
+          "rglru_scan_bwd": {"shape": [1, TRAIN_SEQ, 4096],
+                             "launches_train": launches["rglru_scan_bwd"],
+                             **timed["rglru_scan_bwd"]},
+          "mlstm_bwd": {"shape": list(xl_train_shape), "dtype": "bfloat16",
+                        "launches_train": launches["mlstm_bwd"],
+                        **timed["mlstm_bwd"]}})
 
     # 8. kernels line, nvidia-smi line, result line
     ef_src = "src/repro_torch/kernels/event_filter/csrc/event_filter.cu"
@@ -2865,6 +3337,14 @@ def main(argv=None) -> int:
                        "src/repro/kernels/rglru_scan/kernel.py:42"),
         "mlstm": ("src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
                   "src/repro/kernels/mlstm_scan/kernel.py:70"),
+        # no Pallas backward either: the gradients of the kernels replacing
+        # B4 (the same source, its reversed instance) and B5
+        "rglru_scan_bwd": ("src/repro_torch/kernels/rglru_scan/csrc/"
+                           "rglru_scan.cu",
+                           "src/repro/kernels/rglru_scan/kernel.py:42"),
+        "mlstm_bwd": ("src/repro_torch/kernels/mlstm_scan/csrc/"
+                      "mlstm_scan_bwd.cu",
+                      "src/repro/kernels/mlstm_scan/kernel.py:70"),
     }
     def entry(name, src, replaces, row, n):
         return {"name": name, "route": "cuda", "source": src,
@@ -2888,9 +3368,12 @@ def main(argv=None) -> int:
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          timed["flash_attention_bwd"],
                          launches["flash_attention_bwd.wgmma"])},
-                {"variant": "simt", "dtype": "float32",
+                {"variant": "simt", "dtype": "bfloat16",
                  **entry("flash_attention_bwd", bwd_src, bwd_replaces,
                          bwd_simt, launches["flash_attention_bwd.simt"])}]
+    took("timing")
+    emit({"phase": "durations", "seconds": seconds,
+          "total_s": sum(seconds.values())})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -92,27 +92,6 @@ def check_tma_aligned(what: str, **tensors) -> None:
                 f"of 16 bytes)")
 
 
-def refuse_autograd(kernel: str, *operands) -> None:
-    """Raises ``RuntimeError`` when grad mode is on and a CUDA operand
-    requires grad.  For the kernels that have no backward kernel yet,
-    ``rglru_scan`` (B4) and ``mlstm`` (B5): they write their outputs
-    through ctypes, so an output would carry no ``grad_fn`` and every
-    gradient upstream of the call would be lost without a word.  Their
-    backward kernels come next (ROADMAP.md, queue A item 10);
-    ``flash_attention`` has one and differentiates through
-    ``FlashAttentionFn``.  Under ``torch.no_grad()`` or
-    ``torch.inference_mode()`` the kernel runs.  Not called for CPU
-    operands: the plain versions are differentiable."""
-    if not torch.is_grad_enabled():
-        return
-    if any(x is not None and x.requires_grad for x in operands):
-        raise RuntimeError(
-            f"the {kernel} CUDA kernel has no backward yet (the B4 and B5 "
-            f"backward kernels are next, ROADMAP.md queue A item 10): call "
-            f"it under torch.no_grad() or torch.inference_mode(), or on CPU "
-            f"tensors, whose plain version is differentiable")
-
-
 def find_nvcc() -> str:
     """Path of ``nvcc``: ``PATH`` first, then the CUDA toolkit's own."""
     nvcc = shutil.which("nvcc")

@@ -64,6 +64,7 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "mlstm_simt.cuh"
 #include "mlstm_wgmma.cuh"
 
 namespace {
@@ -100,96 +101,9 @@ struct Params {
   int64_t f_sb, f_ss;                             // of f and li; head: 1
   float scale;
   bool vec;                                       // 16-byte loads of q, k, v
+  float* lse;                                     // row stats (B,S,H) f32,
+  float* sg;                                      // or null: none
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// 16 bytes of T as floats
-__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
-  const float4 v = *reinterpret_cast<const float4*>(&u);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// Stage rows [row0, row0 + 32) of a (S, D) operand (row stride `stride`,
-// head dim contiguous) into shared memory as f32 times `scale`, rows past
-// S as zeros.  With `vec` (every address 16-byte aligned) each thread
-// issues its 16-byte loads in batches of kBatch before any store, so the
-// loads of a batch are in flight together; otherwise one element a load.
-template <typename T, int D, int kThreads>
-__device__ __forceinline__ void stage_rows(const T* src, int64_t stride,
-                                           int64_t row0, int64_t s,
-                                           float* dst, int dst_stride,
-                                           float scale, bool vec, int tid) {
-  constexpr int kVec = 16 / sizeof(T);            // elements a load
-  constexpr int kRowVecs = D / kVec;
-  constexpr int kVecs = 32 * kRowVecs;
-  constexpr int kBatch = 8;
-  if (vec) {
-#pragma unroll
-    for (int v0 = 0; v0 < kVecs; v0 += kBatch * kThreads) {
-      uint4 buf[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int idx = v0 + u * kThreads + tid;
-        const int64_t row = row0 + idx / kRowVecs;
-        buf[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (idx < kVecs && row < s)
-          buf[u] = __ldg(reinterpret_cast<const uint4*>(
-              src + row * stride + (idx % kRowVecs) * kVec));
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int idx = v0 + u * kThreads + tid;
-        if (idx >= kVecs) continue;
-        float f[kVec];
-        unpack(buf[u], f, T());
-        float* out = dst + (idx / kRowVecs) * dst_stride +
-                     (idx % kRowVecs) * kVec;
-#pragma unroll
-        for (int e = 0; e < kVec; e += 4)
-          *reinterpret_cast<float4*>(out + e) =
-              make_float4(f[e] * scale, f[e + 1] * scale, f[e + 2] * scale,
-                          f[e + 3] * scale);
-      }
-    }
-  } else {
-    for (int idx = tid; idx < 32 * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const int64_t row = row0 + j;
-      dst[j * dst_stride + d] =
-          row < s ? to_f32(src[row * stride + d]) * scale : 0.0f;
-    }
-  }
-}
 
 // one block an SM is enough at every instance: ptxas may then use up to
 // 255 registers a thread rather than spill
@@ -324,7 +238,15 @@ mlstm_kernel(const Params p) {
   for (int r = 0; r < kRows; ++r) {
     const int64_t row = q0 + warp + kWarps * r;
     if (row >= p.s) continue;
-    const float norm = fmaxf(fabsf(den[r]), expf(-m[r]));
+    const float e_m = expf(-m[r]);
+    const float norm = fmaxf(fabsf(den[r]), e_m);
+    if (p.lse != nullptr && lane == 0) {
+      // the backward's row stats: L = m + log n, and den's sign where
+      // |den| is the normaliser
+      p.lse[(bb * p.s + row) * p.h + hh] = m[r] + logf(norm);
+      p.sg[(bb * p.s + row) * p.h + hh] =
+          fabsf(den[r]) > e_m ? copysignf(1.0f, den[r]) : 0.0f;
+    }
     T* orow = o + ((bb * p.s + row) * p.h + hh) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -370,7 +292,10 @@ int launch_dim(const Params& p, int head_dim, long long b,
 
 // Plain C entry point (bound with ctypes).  dtype 0 is float32, 1 is
 // bfloat16 (q, k, v, out; f and li are float32 with a contiguous head
-// axis); strides are in elements; scale is D^-1/2.  Launches on `stream`,
+// axis); strides are in elements; scale is D^-1/2.  lse and sg are null,
+// or contiguous (B,S,H) f32 that take each row's L = m + log n and sg =
+// sign(den) where |den| > exp(-m), else 0 (the backward's stats; n the
+// normaliser max(|den|, exp(-m))).  Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() so a refused launch
 // is seen.
 extern "C" int mlstm_launch(
@@ -379,8 +304,9 @@ extern "C" int mlstm_launch(
     long long s, long long h, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long f_sb, long long f_ss,
-    float scale, void* stream) {
-  if (b <= 0 || s <= 0 || h <= 0 || b > 65535 || h > 65535)
+    float scale, void* lse, void* sg, void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0 || b > 65535 || h > 65535 ||
+      (lse == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte loads need every row start aligned: the base pointers and
   // every stride a whole number of 16-byte vectors
@@ -393,7 +319,8 @@ extern "C" int mlstm_launch(
   Params p{q,    k,    v,    static_cast<const float*>(f),
            static_cast<const float*>(li),   o,    s,    h,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           f_sb, f_ss, scale, vec};
+           f_sb, f_ss, scale, vec, static_cast<float*>(lse),
+           static_cast<float*>(sg)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(p, head_dim, b, st);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, st);
@@ -404,8 +331,9 @@ extern "C" int mlstm_launch(
 // 16-byte aligned, which the wrapper checks), keys split into chunks of
 // `chunk_tiles` tiles of 32 (kernel.py's plan).  lf and li are log f and
 // log i (B, S, H) f32 with the strides f_sb, f_ss and a contiguous head
-// axis (the kernel forms F itself); gates is f32 scratch (3, B * H, S
-// rounded up to 64); scale is D^-1/2.  `items` (the blocks per (b, h))
+// axis (the kernel forms F itself); gates is f32 scratch (4, B * H, S
+// rounded up to 64); lse and sg as mlstm_launch's (null: none); scale
+// is D^-1/2.  `items` (the blocks per (b, h))
 // and `split_tiles` are the plan's counts, which size the grid and the
 // split counters; with split tiles, ws (split_items * B * H, 64, 512) and
 // ws_den (split_items * B * H, 256, 2) are f32 scratch and done
@@ -418,10 +346,11 @@ extern "C" int mlstm_wgmma_launch(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long f_sb, long long f_ss, float scale,
-    int chunk_tiles, long long items, long long split_tiles, void* stream) {
+    int chunk_tiles, long long items, long long split_tiles, void* lse,
+    void* sg, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0 || s > 64LL * 65535 ||
       b * h > INT32_MAX || chunk_tiles <= 0 || head_dim != 512 ||
-      gates == nullptr)
+      gates == nullptr || (lse == nullptr) != (sg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (items <= 0 || split_tiles < 0 || items * b * h > INT32_MAX ||
       (split_tiles > 0 &&
@@ -438,6 +367,8 @@ extern "C" int mlstm_wgmma_launch(
   p.bh = static_cast<int>(b * h);
   p.sp = static_cast<int>((s + 63) / 64 * 64);
   p.chunk_tiles = chunk_tiles;
+  p.lse = static_cast<float*>(lse);
+  p.sg = static_cast<float*>(sg);
   return mlstm_wgmma::launch<512>(
       q, k, v, static_cast<const float*>(lf), static_cast<const float*>(li),
       f_sb, f_ss, std::log2(scale), static_cast<float*>(gates), p, b, q_sb,

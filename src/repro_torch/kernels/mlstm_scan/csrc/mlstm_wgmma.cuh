@@ -9,7 +9,8 @@
 // a prefix max.  So a first kernel (mlstm_gates_kernel) forms F =
 // cumsum(log f) and M by block scans in a fixed order and writes, as
 // contiguous (B * H, S) planes, g_s = (i_s - F_s) log2(e) for each key and
-// c_t = log2(D^-1/2) - M_t log2(e) and exp(-m_t) for each row.  Every
+// c_t = log2(D^-1/2) - M_t log2(e), exp(-m_t) and m_t for each row (m for
+// the backward's row stats, which the epilogue writes on request).  Every
 // weight, with the scale folded in, is then final: D^-1/2 w = 2^(c_t +
 // g_s), one add and one exp2 a (row, key) pair, and the accumulators need
 // no rescale per key tile; key splits of one query tile merge by adding
@@ -97,13 +98,15 @@ struct Cfg {
 };
 
 struct Params {
-  const float* gates;         // (3, B * H, sp): g, c and exp(-m)
+  const float* gates;         // (4, B * H, sp): g, c, exp(-m) and m
   __nv_bfloat16* o;           // (B, S, H, D) contiguous
   float* ws;                  // split partials: num, accumulator layout
   float* ws_den;              // and den, two a thread
   int* done;                  // splits done, per split query tile and (b, h)
   int s, h, bh, sp;            // sp: S rounded up to the 64-row tile
   int chunk_tiles;            // key tiles a split
+  float* lse;                 // row stats (B, S, H) f32, or null: none
+  float* sg;
 };
 
 // key tiles of query tile qt's keys [0, min(64 (qt + 1), S))
@@ -123,8 +126,8 @@ constexpr int kScanChunk = 8 * kScanThreads;     // keys a scan step
 // over keys [0, min(q0 + 64, S)) in chunks of kScanChunk: each thread 8
 // keys in order, then the lanes, the warps and the chunk's carry (every
 // block of a (b, h) runs the same chunks, so the planes have the same bits
-// in all of them).  Writes g, c and exp(-m) of the tile's 64 rows to gates
-// (3, B * H, sp); a row past S sees log f = log i = 0, and is never
+// in all of them).  Writes g, c, exp(-m) and m of the tile's 64 rows to
+// gates (4, B * H, sp); a row past S sees log f = log i = 0, and is never
 // stored.  Block (0, 0) also zeroes the split counters, which the main
 // kernel, next on the stream, counts up.
 __global__ void __launch_bounds__(kScanThreads)
@@ -203,7 +206,9 @@ mlstm_gates_kernel(const float* __restrict__ lf,
         const long long plane = static_cast<long long>(bh_count) * sp;
         gates[row] = dv[u] * kLog2e;
         gates[plane + row] = log2_scale - mm * kLog2e;
-        gates[2 * plane + row] = expf(-fmaxf(fv[u] + mm, kGuard));
+        const float m = fmaxf(fv[u] + mm, kGuard);
+        gates[2 * plane + row] = expf(-m);
+        gates[3 * plane + row] = m;
       }
       if (key == c0 + kScanChunk - 1) {
         carry_s[0] = fv[u];
@@ -263,6 +268,7 @@ mlstm_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float* g = p.gates + static_cast<long long>(bh) * p.sp;  // keys
   const float* c_row = g + plane;                               // rows
   const float* e_row = c_row + plane;                           // exp(-m)
+  const float* m_row = e_row + plane;                           // m
 
   // Lane 0 of each warp refills the ring, warp w taking box w of K tile
   // kt (and warp 0 the arrivals and the keys' g) and of V tile vt, a
@@ -485,12 +491,18 @@ mlstm_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   }
 
-  // out = num / max(|den|, exp(-m)), rows < S
+  // out = num / max(|den|, exp(-m)), rows < S; on request the row stats
+  // L = m + log n and sg = sign(den) where |den| > exp(-m), else 0
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + row0 + 8 * r;
     if (row >= p.s) continue;
     const float norm = fmaxf(fabsf(den[r]), e_r[r]);
+    if (p.lse != nullptr && wg == 0 && lane % 4 == 0) {
+      const int64_t at = (static_cast<int64_t>(bb) * p.s + row) * p.h + hh;
+      p.lse[at] = m_row[row] + logf(norm);
+      p.sg[at] = fabsf(den[r]) > e_r[r] ? copysignf(1.0f, den[r]) : 0.0f;
+    }
     __nv_bfloat16* orow =
         p.o + ((static_cast<int64_t>(bb) * p.s + row) * p.h + hh) * D +
         C::kHalf * wg;

@@ -144,9 +144,9 @@ def _launchers():
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
         ctypes.c_float
     simt = lib.mlstm_launch
-    simt.argtypes = [p, p, p, p, p, p, i, i] + [ll] * 14 + [f, p]
+    simt.argtypes = [p, p, p, p, p, p, i, i] + [ll] * 14 + [f, p, p, p]
     wgmma = lib.mlstm_wgmma_launch
-    wgmma.argtypes = [p] * 10 + [i] + [ll] * 14 + [f, i, ll, ll, p]
+    wgmma.argtypes = [p] * 10 + [i] + [ll] * 14 + [f, i, ll, ll, p, p, p]
     for fn in (simt, wgmma):
         fn.restype = ctypes.c_int
     return {"simt": simt, "wgmma": wgmma}
@@ -190,17 +190,26 @@ def _check_operands(q, k, v, log_i, log_f) -> None:
                          f"got q {tuple(q.shape)}")
 
 
-def mlstm_cuda(q, k, v, log_i, log_f):
+def mlstm_cuda(q, k, v, log_i, log_f, *, with_stats: bool = False):
     """Chunkwise mLSTM on the card: q, k, v (B,S,H,D) float32 or bfloat16
     with a contiguous head dim in ``HEAD_DIMS``, log_i/log_f (B,S,H)
     float32, CUDA tensors on one device.  Returns a contiguous (B,S,H,D)
-    in q's dtype, still being computed on the current stream."""
+    in q's dtype, still being computed on the current stream; with
+    ``with_stats``, (out, L, sg), the row stats the backward reads
+    (``ref.mlstm_ref(with_stats=True)``), contiguous (B,S,H) float32
+    written by the same launch."""
     validate(q, k, v, log_i, log_f)
     _check_operands(q, k, v, log_i, log_f)
     b, s, h, d = q.shape
     dev = q.device
     pl = plan(b, s, h, d, q.dtype, sm_count(dev.index))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    lse = sg = None
+    if with_stats:
+        lse = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+        sg = torch.empty_like(lse)
+    stats = (None if lse is None else lse.data_ptr(),
+             None if sg is None else sg.data_ptr())
     strides = (q.stride(0), q.stride(1), q.stride(2),
                k.stride(0), k.stride(1), k.stride(2),
                v.stride(0), v.stride(1), v.stride(2))
@@ -214,12 +223,12 @@ def mlstm_cuda(q, k, v, log_i, log_f):
                         fcum.data_ptr(), li.data_ptr(), out.data_ptr(),
                         DTYPE_CODES[q.dtype], d, b, s, h, *strides,
                         fcum.stride(0), fcum.stride(1), float(d ** -0.5),
-                        stream)
+                        *stats, stream)
         else:
             check_tma_aligned("the tensor-core kernel", q=q, k=k, v=v)
             # the kernel forms F = cumsum(log f) itself, with the row max
             lf, li = log_f.contiguous(), log_i.contiguous()
-            gates = torch.empty((3, b * h, pl.query_tiles * QUERY_TILE),
+            gates = torch.empty((4, b * h, pl.query_tiles * QUERY_TILE),
                                 dtype=torch.float32, device=dev)
             slots = pl.split_items * b * h
             ws = ws_den = done = None
@@ -237,7 +246,7 @@ def mlstm_cuda(q, k, v, log_i, log_f):
                           for x in (ws, ws_den, done)),
                         d, b, s, h, *strides, lf.stride(0), lf.stride(1),
                         float(d ** -0.5), pl.chunk // KEY_TILE,
-                        len(pl.items), pl.split_tiles, stream)
+                        len(pl.items), pl.split_tiles, *stats, stream)
     if rc != 0:
         what = (f"TMA descriptor encoding failed (code {rc})" if rc < 0
                 else f"CUDA error {rc}")
@@ -245,4 +254,4 @@ def mlstm_cuda(q, k, v, log_i, log_f):
                            f"{what} (q {tuple(q.shape)}, {q.dtype})")
     LAUNCHES["mlstm"] += 1
     VARIANT_CALLS[pl.variant] += 1
-    return out
+    return (out, lse, sg) if with_stats else out

@@ -14,10 +14,14 @@ import torch.nn.functional as F
 NEG = -1e30
 
 
-def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024):
+def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024,
+              with_stats: bool = False):
     """Chunkwise-parallel mLSTM, tiled over queries and keys as the
     reference: q,k,v (B,S,H,hd); log_i/log_f (B,S,H) f32 -> (B,S,H,hd) in
-    q's dtype.
+    q's dtype; with ``with_stats``, (out, L, sg) with the row stats the
+    backward reads, (B,S,H) f32 each: ``L_t = m_t + log n_t`` and ``sg_t =
+    sign(den_t)`` where ``|den_t| > exp(-m_t)``, else 0, for the row
+    stabiliser m and the normaliser ``n_t = max(|den_t|, exp(-m_t))``.
 
     As the reference: ``chunk = min(chunk_size, S)``, the sequence padded
     to a multiple of it (``log_i`` with -1e30, ``F`` with its last value),
@@ -47,7 +51,7 @@ def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024):
     fc = fcum.reshape(b, n_chunks, c, h)
     idx = torch.arange(sp, device=q.device).reshape(n_chunks, c)
 
-    outs = []
+    outs, stats = [], []
     for i in range(n_chunks):
         q_i, f_i, qidx = qc[:, i].float(), fc[:, i], idx[i]
         m = torch.full((b, c, h), NEG, dtype=torch.float32, device=q.device)
@@ -72,7 +76,82 @@ def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024):
             m = m_new
         normalizer = torch.maximum(den.abs(), torch.exp(-m))
         outs.append((num / normalizer[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :s]
+        if with_stats:
+            stats.append((m + torch.log(normalizer),
+                          torch.where(den.abs() > torch.exp(-m),
+                                      torch.sign(den), 0.0)))
+    out = torch.cat(outs, dim=1)[:, :s]
+    if not with_stats:
+        return out
+    return (out, torch.cat([x[0] for x in stats], dim=1)[:, :s],
+            torch.cat([x[1] for x in stats], dim=1)[:, :s])
+
+
+def mlstm_bwd_ref(q, k, v, log_i, log_f, out, dout, stats=None, *,
+                  rows: int = 256):
+    """The gradient of the mLSTM in closed form, in plain PyTorch: dq, dk,
+    dv (B,S,H,D), d log_i, d log_f (B,S,H), all in the operands' dtype
+    (the caller upcasts: f32, or f64 for an exact value).  ``out`` is the
+    forward's output, ``dout`` the gradient of the loss with respect to
+    it, and ``stats`` the forward's row stats ``(L, sg)``
+    (``mlstm_ref(with_stats=True)``); None computes them here from the
+    gates' row max.
+
+    ``out_t = num_t / n_t`` does not depend on the stabiliser m: every
+    term of num, den and exp(-m) scales by exp(-m).  So m is a constant
+    here, and with ``sc_ts = q_t.k_s / sqrt(D)``, ``logw_ts = F_t - F_s +
+    i_s`` (s <= t), ``E_ts = exp(logw_ts - L_t)``:
+
+    - ``P = E sc``, ``dP_ts = do_t.v_s``, ``delta_t = sg_t (do_t.out_t)``;
+    - ``dv_s = sum_t P_ts do_t``;
+    - ``dsc = E (dP - delta)``, so ``dq_t = sum_s dsc_ts k_s / sqrt(D)``
+      and ``dk_s = sum_t dsc_ts q_t / sqrt(D)``;
+    - ``dlogw = P (dP - delta)``: ``d log_i`` is its column sum, ``dF``
+      its row sum minus its column sum, and ``d log_f`` the reverse
+      cumulative sum of ``dF`` (F is the cumulative sum of log f).
+
+    Flash attention's backward with a signed P and no softmax.  Query rows
+    go ``rows`` at a time (memory)."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    fcum = torch.cumsum(log_f, dim=1)
+    pos = torch.arange(s, device=q.device)
+    qs = q * scale
+    dq = torch.empty_like(q)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    col = torch.zeros_like(log_i)
+    row = torch.empty_like(log_i)
+    for r0 in range(0, s, rows):
+        r1 = min(r0 + rows, s)
+        causal = (pos[None, :] <= pos[r0:r1, None])[None, :, :, None]
+        logw = (fcum[:, r0:r1, None, :] - fcum[:, None, :, :]
+                + log_i[:, None, :, :])                       # (B,R,S,H)
+        logw = torch.where(causal, logw, NEG)
+        sc = torch.einsum("bthd,bshd->btsh", qs[:, r0:r1], k)
+        if stats is None:
+            m = logw.amax(dim=2)
+            den = (torch.exp(logw - m[:, :, None]) * sc).sum(dim=2)
+            norm = torch.maximum(den.abs(), torch.exp(-m))
+            lse = m + torch.log(norm)
+            sg = torch.where(den.abs() > torch.exp(-m), torch.sign(den),
+                             0.0)
+        else:
+            lse, sg = (x[:, r0:r1] for x in stats)
+        e = torch.where(causal, torch.exp(logw - lse[:, :, None]), 0.0)
+        p = e * sc
+        dp = torch.einsum("bthd,bshd->btsh", dout[:, r0:r1], v)
+        delta = sg * (dout[:, r0:r1] * out[:, r0:r1]).sum(dim=-1)
+        dpd = dp - delta[:, :, None]
+        dsc = e * dpd
+        dlogw = p * dpd
+        dv += torch.einsum("btsh,bthd->bshd", p, dout[:, r0:r1])
+        dk += torch.einsum("btsh,bthd->bshd", dsc, qs[:, r0:r1])
+        dq[:, r0:r1] = torch.einsum("btsh,bshd->bthd", dsc, k) * scale
+        col += dlogw.sum(dim=1)
+        row[:, r0:r1] = dlogw.sum(dim=2)
+    dlf = (row - col).flip(1).cumsum(1).flip(1)
+    return dq, dk, dv, col, dlf
 
 
 def mlstm_split_ref(q, k, v, log_i, log_f, *, chunk: int,

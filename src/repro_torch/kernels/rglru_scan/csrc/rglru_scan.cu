@@ -1,5 +1,6 @@
 // RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t for Hopper (sm_90a):
-// a single-pass chunked scan whose carry is composed in a fixed order.
+// a single-pass chunked scan whose carry is composed in a fixed order, and
+// its gradient, the same scan run from the end (kRev = 1, below).
 //
 // Replaces the Pallas TPU kernel of the JAX package,
 // src/repro/kernels/rglru_scan/kernel.py: rglru_scan_pallas (_kernel).
@@ -59,6 +60,22 @@
 // atomic, so no flag and no fence is needed: a reader's one round trip to
 // L2 both waits and reads.  Every launch starts from a fresh fill, so
 // CUDA-graph replays do too.
+//
+// The backward (kRev = 1; no Pallas counterpart: the JAX package
+// differentiates its plain associative scan) is the same kernel on the
+// reversed sequence.  For dy = dL/dh, dh_last = dL/dh_last (or null):
+//   g_{S-1} = dy_{S-1} + 1 * dh_last,  g_t = a_{t+1} * g_{t+1} + dy_t
+//   db = g,  da_t = g_t * h_{t-1} (h_{-1} = h0, or 0),  dh0 = a_0 * g_0.
+// Reversed step r is time t = S - 1 - r; its decay is a read one step
+// ahead (a_{t+1}, and 1 at t = S - 1, which the block writes into shared
+// memory itself: there is no row to copy), its input dy_t, and dh_last is
+// the initial carry.  Chunks count from the end, so a ragged chunk holds
+// the first steps of time; items, aggregates and the carry's order are
+// the forward's, row addresses step by -W.  The second pass also forms
+// da_t = g_t * h_{t-1} from the forward's h (read as g is stored) and, at
+// t = 0, dh0.  Bound: bytes, a, dy and h read and g and da written once,
+// 20 bytes an element.  ref.py: rglru_scan_bwd_chunked_ref is its order
+// of operations, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,19 +103,28 @@ __host__ __device__ constexpr size_t smem_bytes(int chunk) {
 
 struct Params {
   const float* a;
-  const float* b;
-  const float* h0;     // null: zeros
-  float* out;
+  const float* b;      // the backward: dy
+  const float* h0;     // null: zeros; the backward: dh_last
+  float* out;          // the backward: g = db
   uint64_t* ws;        // [0] the ticket, then (B, slots, W) aggregates
+  // the backward only: the forward's h and h0 (null: zeros), and da, dh0
+  // (null when the forward had no h0)
+  const float* h;
+  const float* h_init;
+  float* da;
+  float* dh0;
   int64_t s, w;
   int bsz, chunk, chunks, tiles, bulk;
 };
 
 struct Item {
   int bi, c, rows, cols;
-  int64_t w0, first;   // first: element (bi, c * chunk, w0)
+  int64_t w0, first;   // first: element (bi, its first step, w0)
+  int64_t step;        // elements from one step to the next: W, or -W
+  int64_t t_first;     // the time of its first step
 };
 
+template <int kRev>
 __device__ __forceinline__ Item decode(const Params& p, int t) {
   Item it;
   const int tile = t % p.tiles;
@@ -108,7 +134,9 @@ __device__ __forceinline__ Item decode(const Params& p, int t) {
   it.rows = p.s - t0 < p.chunk ? static_cast<int>(p.s - t0) : p.chunk;
   it.w0 = static_cast<int64_t>(tile) * kTile;
   it.cols = p.w - it.w0 < kTile ? static_cast<int>(p.w - it.w0) : kTile;
-  it.first = (it.bi * p.s + t0) * p.w + it.w0;
+  it.t_first = kRev ? p.s - 1 - t0 : t0;
+  it.step = kRev ? -p.w : p.w;
+  it.first = (it.bi * p.s + it.t_first) * p.w + it.w0;
   return it;
 }
 
@@ -226,7 +254,8 @@ __device__ __forceinline__ void publish_item(const Params& p, const Item& it,
                  pack(ga, gb));
 }
 
-// 4 and 5: the item's carry, then its steps
+// 4 and 5: the item's carry, then its steps (the backward: and da, dh0)
+template <int kRev>
 __device__ __forceinline__ void finish_item(const Params& p, const Item& it,
                                             const Staged& st) {
   const int tid = threadIdx.x;
@@ -256,18 +285,48 @@ __device__ __forceinline__ void finish_item(const Params& p, const Item& it,
     if (k < sl.j) carry = __fadd_rn(__fmul_rn(v[k].x, carry), v[k].y);
 
   float h = carry;
-  float* o = p.out + it.first + tid;
+  const int64_t e0 = it.first + tid;
   for (int i = 0; i < st.stages(); ++i) {
     const int hi = st.wait(i);
+    if constexpr (!kRev) {
 #pragma unroll 8
-    for (int r = i * kStageRows; r < hi; ++r) {
-      h = __fadd_rn(__fmul_rn(st.a_s[r * kTile + tid], h),
-                    st.b_s[r * kTile + tid]);
-      o[r * p.w] = h;
+      for (int r = i * kStageRows; r < hi; ++r) {
+        h = __fadd_rn(__fmul_rn(st.a_s[r * kTile + tid], h),
+                      st.b_s[r * kTile + tid]);
+        p.out[e0 + r * it.step] = h;
+      }
+    } else {
+      // h is g_t here: da_t = g_t h_{t-1}, and dh0 = a_0 g_0 at t = 0.
+      // The stage's h_{t-1} are loaded before its steps, so that the
+      // loads are in flight together rather than one a step
+      const int64_t w_at = it.bi * p.w + it.w0 + tid;
+      float prev[kStageRows];
+#pragma unroll
+      for (int k = 0; k < kStageRows; ++k) {
+        const int r = i * kStageRows + k;
+        const int64_t e = e0 + r * it.step;
+        prev[k] = r >= hi               ? 0.0f
+                  : it.t_first != r     ? __ldg(p.h + e - p.w)
+                  : p.h_init != nullptr ? p.h_init[w_at]
+                                        : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kStageRows; ++k) {
+        const int r = i * kStageRows + k;
+        if (r >= hi) break;
+        const int64_t e = e0 + r * it.step;
+        h = __fadd_rn(__fmul_rn(st.a_s[r * kTile + tid], h),
+                      st.b_s[r * kTile + tid]);
+        p.out[e] = h;
+        p.da[e] = __fmul_rn(h, prev[k]);
+        if (it.t_first == r && p.dh0 != nullptr)
+          p.dh0[w_at] = __fmul_rn(p.a[e], h);
+      }
     }
   }
 }
 
+template <int kRev>
 __global__ void __launch_bounds__(kTile)
 rglru_chunked_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -287,8 +346,15 @@ rglru_chunked_kernel(const Params p) {
     }
   }
   __syncthreads();
-  const Item it = decode(p, ticket);
+  const Item it = decode<kRev>(p, ticket);
   const Staged st{a_s, b_s, p.bulk ? bars : nullptr, it.rows};
+  // the backward's decays are a one step ahead: row r of a_s is a at time
+  // t_r + 1, one row on from b's.  Time S has no row: the first chunk
+  // from the end gets its first decay, 1, from each thread (for its own
+  // channel, which only it reads), and copies one row of a less.
+  const int64_t a_off = kRev ? p.w : 0;
+  const int a_skip = kRev && it.c == 0 ? 1 : 0;
+  if (a_skip && tid < it.cols) a_s[tid] = 1.0f;
 
   // 2. stage the chunk's rows of a and b
   if (p.bulk) {
@@ -297,30 +363,73 @@ rglru_chunked_kernel(const Params p) {
       for (int i = 0; i < st.stages(); ++i) {
         const int lo = i * kStageRows;
         const int n = min(it.rows - lo, kStageRows);
-        if (tid == 0) mbar_arrive_expect_tx(&bars[i], 2 * n * row_bytes);
+        const int skip = i == 0 ? a_skip : 0;
+        if (tid == 0)
+          mbar_arrive_expect_tx(&bars[i], (2 * n - skip) * row_bytes);
         __syncwarp();
-        for (int k = tid; k < 2 * n; k += 32) {
+        for (int k = tid + skip; k < 2 * n; k += 32) {
           const bool is_b = k >= n;
           const int row = lo + (is_b ? k - n : k);
           bulk_load((is_b ? b_s : a_s) + row * kTile,
-                    (is_b ? p.b : p.a) + it.first + row * p.w, row_bytes,
-                    &bars[i]);
+                    is_b ? p.b + it.first + row * it.step
+                         : p.a + it.first + a_off + row * it.step,
+                    row_bytes, &bars[i]);
         }
       }
     }
   } else if (tid < it.cols) {
     for (int r = 0; r < it.rows; ++r) {
-      cp_async_4(a_s + r * kTile + tid, p.a + it.first + r * p.w + tid,
-                 true);
-      cp_async_4(b_s + r * kTile + tid, p.b + it.first + r * p.w + tid,
-                 true);
+      const int64_t e = it.first + r * it.step + tid;
+      if (r >= a_skip) cp_async_4(a_s + r * kTile + tid, p.a + e + a_off,
+                                  true);
+      cp_async_4(b_s + r * kTile + tid, p.b + e, true);
     }
     cp_async_commit();
     cp_async_wait<0>();
   }
 
   publish_item(p, it, st);
-  finish_item(p, it, st);
+  finish_item<kRev>(p, it, st);
+}
+
+// the checks and the launch shared by both entry points
+int launch_scan(Params& p, long long bsz, long long s, long long w,
+                int chunk, int bulk, bool rev, void* stream) {
+  if (bsz <= 0 || s <= 0 || w <= 0 || bsz > 65535 || chunk <= 0 ||
+      chunk > kMaxChunk || p.ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = (s + chunk - 1) / chunk;
+  const long long tiles = (w + kTile - 1) / kTile;
+  const long long items = bsz * chunks * tiles;
+  if (items > 0x7fffffffLL ||
+      (bulk && (w % 4 != 0 || reinterpret_cast<uintptr_t>(p.a) % 16 != 0 ||
+                reinterpret_cast<uintptr_t>(p.b) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB a block gets dynamic shared memory only after opting in;
+  // done once per instance, at its first launch (never inside a capture
+  // that is not preceded by a launch)
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(rglru_chunked_kernel<0>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem_bytes(kMaxChunk))),
+      cudaFuncSetAttribute(rglru_chunked_kernel<1>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem_bytes(kMaxChunk)))};
+  if (attr[rev] != cudaSuccess) return static_cast<int>(attr[rev]);
+  p.s = s;
+  p.w = w;
+  p.bsz = static_cast<int>(bsz);
+  p.chunk = chunk;
+  p.chunks = static_cast<int>(chunks);
+  p.tiles = static_cast<int>(tiles);
+  p.bulk = bulk;
+  const dim3 grid(static_cast<unsigned>(items));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rev)
+    rglru_chunked_kernel<1><<<grid, kTile, smem_bytes(chunk), st>>>(p);
+  else
+    rglru_chunked_kernel<0><<<grid, kTile, smem_bytes(chunk), st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -335,38 +444,37 @@ extern "C" int rglru_scan_launch(const void* a, const void* b,
                                  const void* h0, void* out, void* ws,
                                  long long bsz, long long s, long long w,
                                  int chunk, int bulk, void* stream) {
-  if (bsz <= 0 || s <= 0 || w <= 0 || bsz > 65535 || chunk <= 0 ||
-      chunk > kMaxChunk || ws == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long chunks = (s + chunk - 1) / chunk;
-  const long long tiles = (w + kTile - 1) / kTile;
-  const long long items = bsz * chunks * tiles;
-  if (items > 0x7fffffffLL ||
-      (bulk && (w % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-                reinterpret_cast<uintptr_t>(b) % 16 != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // above 48 KB a block gets dynamic shared memory only after opting in;
-  // done once, at the first launch (never inside a capture that is not
-  // preceded by a launch)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      rglru_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kMaxChunk)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  Params p;
+  Params p{};
   p.a = static_cast<const float*>(a);
   p.b = static_cast<const float*>(b);
   p.h0 = static_cast<const float*>(h0);
   p.out = static_cast<float*>(out);
   p.ws = static_cast<uint64_t*>(ws);
-  p.s = s;
-  p.w = w;
-  p.bsz = static_cast<int>(bsz);
-  p.chunk = chunk;
-  p.chunks = static_cast<int>(chunks);
-  p.tiles = static_cast<int>(tiles);
-  p.bulk = bulk;
-  rglru_chunked_kernel<<<static_cast<unsigned>(items), kTile,
-                         smem_bytes(chunk),
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan(p, bsz, s, w, chunk, bulk, false, stream);
+}
+
+// The backward, with the same conventions: a, dy, h (the forward's
+// output), db and da are contiguous (B,S,W) f32; dh_last, h0 (the
+// forward's) and dh0 contiguous (B,W) f32, dh_last and h0 null for zeros,
+// dh0 null when h0 is; ws as the forward's, all ones.  bulk (1) needs W %
+// 4 == 0 and 16-byte aligned a and dy.
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* dy,
+                                     const void* dh_last, const void* h,
+                                     const void* h0, void* db, void* da,
+                                     void* dh0, void* ws, long long bsz,
+                                     long long s, long long w, int chunk,
+                                     int bulk, void* stream) {
+  if (h == nullptr || da == nullptr || (dh0 != nullptr && h0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(dy);
+  p.h0 = static_cast<const float*>(dh_last);
+  p.out = static_cast<float*>(db);
+  p.ws = static_cast<uint64_t*>(ws);
+  p.h = static_cast<const float*>(h);
+  p.h_init = static_cast<const float*>(h0);
+  p.da = static_cast<float*>(da);
+  p.dh0 = static_cast<float*>(dh0);
+  return launch_scan(p, bsz, s, w, chunk, bulk, true, stream);
 }

@@ -87,3 +87,59 @@ def rglru_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor, h0=None,
         out[:, :, t] = h
     out = out.view(bsz, n * chunk, w)[:, :s]
     return out, out[:, -1]
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dy: torch.Tensor,
+                       dh_last=None, h0=None):
+    """The gradient of :func:`rglru_scan_ref`, in plain PyTorch: a (B, S,
+    W) the decays, h (B, S, W) the forward's output, dy (B, S, W) the
+    gradient of the loss with respect to h, dh_last (B, W) or None that
+    with respect to h_last, h0 (B, W) or None the forward's initial state.
+    Returns (da, db, dh0), dh0 None when h0 is.
+
+    The reverse recurrence ``g_t = dy_t + a_{t+1} g_{t+1}``, from
+    ``g_{S-1} = dy_{S-1} + dh_last``, run as the forward's doubling scan
+    over the reversed sequence with the decays read one step ahead (``a``
+    shifted by one, 1 past the end) and ``dh_last`` as the initial state.
+    Then ``db = g``, ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``, or 0) and
+    ``dh0 = a_0 g_0``."""
+    g, _ = rglru_scan_ref(*_reversed(a, dy), dh_last)
+    return _bwd_products(a, h, g.flip(1), h0)
+
+
+def rglru_scan_bwd_chunked_ref(a: torch.Tensor, h: torch.Tensor,
+                               dy: torch.Tensor, dh_last=None, h0=None,
+                               chunk: int = 64, fold: int = 8):
+    """The backward kernel's order of operations in plain PyTorch, as
+    :func:`rglru_scan_chunked_ref` is the forward's: the same arguments
+    and results as :func:`rglru_scan_bwd_ref`, and on the card the kernel
+    equals it bit for bit.
+
+    The reverse recurrence is the forward's chunked scan run from the end:
+    step ``r`` of the reversed sequence is time ``S - 1 - r``, with the
+    decay ``a_{t+1}`` (1 at ``t = S - 1``) and the input ``dy_t``;
+    ``dh_last`` is the initial carry, and chunks of ``chunk`` steps count
+    from the end, so a ragged chunk holds the first steps of time.  Then
+    ``da_t = g_t * h_{t-1}`` and ``dh0 = a_0 * g_0``, each one rounded
+    product."""
+    g, _ = rglru_scan_chunked_ref(*_reversed(a, dy), dh_last, chunk=chunk,
+                                  fold=fold)
+    return _bwd_products(a, h, g.flip(1), h0)
+
+
+def _reversed(a, dy):
+    """The reverse recurrence's decays and inputs in scan order: a read
+    one step ahead (1 past the end) and dy, both reversed in time."""
+    ahead = torch.cat([a[:, 1:], a.new_ones((a.shape[0], 1, a.shape[2]))],
+                      dim=1)
+    return ahead.flip(1), dy.flip(1)
+
+
+def _bwd_products(a, h, g, h0):
+    """(da, db, dh0) from the reverse recurrence's g: da_t = g_t h_{t-1}
+    (h_{-1} = h0, or 0), db = g, dh0 = a_0 g_0 (None without h0)."""
+    first = h0 if h0 is not None else h.new_zeros((h.shape[0], h.shape[2]))
+    prev = torch.cat([first[:, None], h[:, :-1]], dim=1)
+    da = g * prev
+    dh0 = a[:, 0] * g[:, 0] if h0 is not None else None
+    return da, g, dh0

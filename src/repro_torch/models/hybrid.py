@@ -5,13 +5,15 @@ Block pattern: (recurrent, recurrent, local-attention) repeated.  38 layers
 = 12 super-blocks of 3 + a tail of 2 recurrent blocks; the super-blocks'
 parameters are stacked (``blocks/u{j}``), the tail's are not
 (``tail/u{j}``).  Layers run in a Python loop, as in the dense port; the
-reference's ``lax.scan`` and remat have no port.
+reference's ``lax.scan`` and its remat of the super-blocks
+(``src/repro/models/hybrid.py:112``) have no port yet (ROADMAP.md), so
+training keeps every layer's activations.
 
 Each block unit is a Griffin residual pair: x += temporal(norm(x));
 x += geglu_mlp(norm(x)).  Temporal is either the RG-LRU recurrent block
 (``models/rglru.py``, whose full-sequence scan launches the ``rglru_scan``
-CUDA kernel on the card) or local sliding-window MQA attention through
-``kernels/flash_attention/ops.py``.
+CUDA kernel on the card, and its backward kernel in training) or local
+sliding-window MQA attention through ``kernels/flash_attention/ops.py``.
 
 Decode state: per recurrent layer an RG-LRU hidden (B, W_lru) f32 + conv
 state (B, 3, W_lru); per attention layer a ring KV cache bounded by the

@@ -9,10 +9,11 @@ Recurrence (per channel):
 
 Gates are block-diagonal linear maps (one block per head).  The
 full-sequence recurrence goes through ``kernels/rglru_scan/ops.py``: a
-CUDA tensor launches the hand-written kernel, a CPU tensor takes the
-plain doubling scan.  Decode is the O(1) step.  ``shd.ws`` /
-``shd.act_btd`` (sharding constraints) have no port: one card has no
-mesh.
+CUDA tensor launches the hand-written kernel (in training, through
+``RglruScanFn``, whose backward is the hand-written backward kernel), a
+CPU tensor takes the plain doubling scan.  Decode is the O(1) step.
+``shd.ws`` / ``shd.act_btd`` (sharding constraints) have no port: one
+card has no mesh.
 """
 from __future__ import annotations
 

@@ -6,14 +6,18 @@ parameters stacked; layers run in a Python loop, as in the dense port.
 
 mLSTM: matrix-memory cell.  The full sequence goes through
 ``kernels/mlstm_scan/ops.py``: a CUDA tensor launches the hand-written
-chunkwise kernel, a CPU tensor takes ``mlstm_parallel`` (the
+chunkwise kernel (in training, through ``MlstmFn``, whose backward is the
+hand-written backward kernel), a CPU tensor takes ``mlstm_parallel`` (the
 flash-attention-like oracle, with gate decay biases instead of softmax
 normalisation).  Decode is the O(1) recurrent update on the (H, hd, hd)
 matrix state, in plain PyTorch as in the reference.
 
 sLSTM: scalar-memory cell with per-head block-diagonal recurrent weights;
-inherently sequential, so a time loop in f32.  The reference's chunked
-remat of that loop is a training device with no port.
+inherently sequential, so a time loop in f32.  The reference's remat in
+training (the mLSTM's ``q_block`` checkpoint, the sLSTM loop's chunked
+remat and the super-blocks' remat, ``src/repro/models/xlstm.py:170,318,
+356``) has no port yet (ROADMAP.md): training keeps every step's
+activations.
 
 Both blocks keep O(1) decode state; ``decode_step`` updates it in place.
 """

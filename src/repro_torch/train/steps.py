@@ -20,9 +20,11 @@ import torch
 from repro_torch.models.params import _flatten, torch_dtype
 from repro_torch.optim.adamw import AdamW, adamw_update
 
-#: model families whose ``layers/*`` parameters are stacked on a leading
-#: layer axis and read per layer through ``transformer.layer_params``
-STACKED_FAMILIES = ("dense", "moe", "vlm")
+#: model families whose parameters under a path prefix are stacked on a
+#: leading layer axis (super-block axis for hybrid and ssm) and read per
+#: layer through ``transformer.layer_params``, and that prefix
+STACKED_PREFIX = {"dense": "layers/", "moe": "layers/", "vlm": "layers/",
+                  "hybrid": "blocks/", "ssm": "blocks/"}
 
 
 def cross_entropy(logits, labels, vocab_size: int):
@@ -67,10 +69,10 @@ def _trainable(cfg, params):
     reads, [(path, layer index or None, leaf)]).  Leaves are detached
     views of the parameters, which stay untouched; a stacked layer path
     becomes a list of per-layer leaves."""
-    stacked = cfg.family in STACKED_FAMILIES
+    prefix = STACKED_PREFIX.get(cfg.family)
     tree, leaves = {}, []
     for path, t in _flatten(params).items():
-        if stacked and path.startswith("layers/"):
+        if prefix is not None and path.startswith(prefix):
             views = [t[i].detach().requires_grad_() for i in
                      range(t.shape[0])]
             tree[path] = views

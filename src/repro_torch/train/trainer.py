@@ -36,26 +36,6 @@ from repro_torch.models import model_zoo
 from repro_torch.optim.adamw import AdamW, init_opt_state
 from repro_torch.train import steps as steps_lib
 
-#: families with a kernel that has no backward on the card yet, and that
-#: kernel
-NO_BACKWARD = {"hybrid": "rglru_scan (B4)", "ssm": "mlstm (B5)"}
-
-
-def require_backward_kernels(cfg, device) -> None:
-    """Raises ``RuntimeError`` when ``cfg``'s family cannot train on the
-    card: one of its kernels has no backward yet, and the port does not
-    train on the plain versions there.  Any family trains on the CPU,
-    where the plain versions are differentiable."""
-    kernel = NO_BACKWARD.get(cfg.family)
-    if torch.device(device).type != "cuda" or kernel is None:
-        return
-    raise RuntimeError(
-        f"{cfg.name} ({cfg.family}) cannot train on the card yet: the "
-        f"{kernel} CUDA kernel has no backward kernel (B4 and B5 backward "
-        f"kernels are next in ROADMAP.md, queue A item 10); train it on "
-        f"the CPU with device='cpu'")
-
-
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
@@ -76,7 +56,6 @@ class Trainer:
                  failure_hook: Optional[Callable[[int], Optional[int]]] = None):
         """failure_hook(step) -> node_id to kill at that step (simulation)."""
         self.device = resolve_device(device)
-        require_backward_kernels(cfg, self.device)
         self.cfg = cfg
         self.tcfg = tcfg
         self.model = model_zoo.build_model(cfg)

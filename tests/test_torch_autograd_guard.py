@@ -1,21 +1,21 @@
 """The LM kernels' dispatchers and autograd, on the CPU.
 
-On a CUDA operand that requires grad, with grad mode on,
-``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
-the hand-written backward kernel, while ``rglru_scan`` and ``mlstm``,
-whose kernels have no backward yet, raise
-(``repro_torch.kernels.refuse_autograd``; the card side is in
+On a CUDA operand that requires grad, with grad mode on, each of
+``flash_attention``, ``rglru_scan`` and ``mlstm`` goes through its
+autograd Function (``FlashAttentionFn``, ``RglruScanFn``, ``MlstmFn``),
+whose backward is a hand-written backward kernel (the card side is in
 ``tests/test_torch_cuda.py``).  On CPU tensors they take their plain
 versions, which stay differentiable: the gradients through ``ops`` equal
 those through the plain version, bit for bit, on inputs made from a numpy
 seed; and ``FlashAttentionFn`` with its kernels swapped for their plain
 twins gives the plain version's gradient (within 1e-5 of the largest:
-the twin sums by explicit formulas)."""
+the twin sums by explicit formulas; ``RglruScanFn`` and ``MlstmFn`` are
+held so in ``tests/test_torch_rglru_backward.py`` and
+``tests/test_torch_mlstm_backward.py``)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention import backward as fa_backward
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -66,33 +66,25 @@ def test_cpu_ops_keep_the_plain_versions_gradients(kernel):
         assert torch.equal(g, w)
 
 
-def test_refuse_autograd_raises_with_grad_mode_on():
-    x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="rglru_scan CUDA kernel has no "
-                                           "backward"):
-        refuse_autograd("rglru_scan", torch.zeros(3), x, None)
-
-
-@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_leaf"])
-def test_refuse_autograd_lets_the_kernel_run(mode):
-    x = torch.zeros(3, requires_grad=mode != "no_leaf")
-    if mode == "no_grad":
-        with torch.no_grad():
-            refuse_autograd("mlstm", x)
-    elif mode == "inference_mode":
-        with torch.inference_mode():
-            refuse_autograd("mlstm", x)
-    else:
-        refuse_autograd("mlstm", x, None)
-
-
 def test_flash_attention_differentiates_where_rglru_and_mlstm_refuse():
-    """ops.flash_attention no longer calls the guard (FlashAttentionFn
-    carries its gradient); rglru_scan's and mlstm's still do."""
+    """Nothing refuses any more: each dispatcher sends a CUDA call that
+    needs a gradient through its autograd Function, whose forward and
+    backward are the hand-written kernels, and no guard is left."""
     import inspect
-    assert "refuse_autograd" not in inspect.getsource(fa_ops)
-    assert "refuse_autograd(\"rglru_scan\"" in inspect.getsource(rg_ops)
-    assert "refuse_autograd(\"mlstm\"" in inspect.getsource(ml_ops)
+
+    import repro_torch.kernels as kernels
+    for ops, fn, fwd, bwd in (
+            (fa_ops, "FlashAttentionFn", "flash_attention_cuda",
+             "flash_attention_bwd_cuda"),
+            (rg_ops, "RglruScanFn", "rglru_scan_cuda", "rglru_scan_bwd_cuda"),
+            (ml_ops, "MlstmFn", "mlstm_cuda", "mlstm_bwd_cuda")):
+        cls = getattr(ops, fn)
+        assert issubclass(cls, torch.autograd.Function)
+        assert f"{fn}.apply(" in inspect.getsource(ops)
+        assert fwd in inspect.getsource(cls.forward)
+        assert bwd in inspect.getsource(cls.backward)
+        assert "refuse_autograd" not in inspect.getsource(ops)
+    assert not hasattr(kernels, "refuse_autograd")
 
 
 def test_flash_attention_fn_gives_the_plain_versions_gradient(monkeypatch):

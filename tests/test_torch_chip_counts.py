@@ -136,3 +136,59 @@ def test_backward_bound_counts_ten_flops_a_valid_pair():
                                chip_smoke.BF16_FLOPS_PER_S * 1e3)
     assert ms == pytest.approx(0.174, abs=5e-4)
     assert chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2)[0] == ms
+
+
+@pytest.mark.parametrize("arch,want", [
+    # 3 units of (rec, rec, attn) x 8 microbatches x 3 steps, no remat:
+    # 72 flash forwards on the tensor cores and 72 backwards on the CUDA
+    # cores (head dim 256), 144 RG-LRU scans and backwards
+    ("recurrentgemma-9b", {"flash_attention": 72,
+                           "flash_attention.wgmma": 72,
+                           "flash_attention_bwd": 72,
+                           "flash_attention_bwd.simt": 72,
+                           "flash_attention_bwd.wgmma": 0,
+                           "rglru_scan": 144, "rglru_scan_bwd": 144,
+                           "mlstm": 0, "mlstm_bwd": 0}),
+    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, all on the tensor cores
+    ("xlstm-350m", {"flash_attention": 0, "flash_attention_bwd": 0,
+                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 42,
+                    "mlstm.wgmma": 42, "mlstm_bwd": 42}),
+])
+def test_recurrent_train_launch_counts(arch, want):
+    """The recurrent models' train phase: depth, batch and steps as cut in
+    TRAIN_ARCHS, each forward and backward kernel once a layer and
+    microbatch; every microbatch's calls take the counted variants."""
+    cfg = chip_smoke.train_config(arch)
+    spec = chip_smoke.TRAIN_ARCHS[arch]
+    got = chip_smoke.train_launches(cfg, spec["steps"])
+    for key, n in want.items():
+        assert got[key] == n, key
+    mb = spec["batch"] // cfg.microbatches
+    seq = chip_smoke.TRAIN_SEQ
+    if arch == "recurrentgemma-9b":
+        assert (cfg.num_layers, mb) == (9, 1)
+        from repro_torch.kernels.flash_attention import backward as fa_bwd
+        args = (mb, seq, seq, cfg.num_heads_padded, cfg.num_kv_heads,
+                cfg.head_dim, torch.bfloat16)
+        assert fa_kernel.plan(*args, True, cfg.attention_window,
+                              with_lse=True).variant == "wgmma"
+        assert fa_bwd.plan(*args).variant == "simt"
+    else:
+        from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+        assert (cfg.num_layers, mb) == (24, 2)
+        assert ml_kernel.plan(mb, seq, 4, 512,
+                              torch.bfloat16).variant == "wgmma"
+
+
+def test_scan_backward_bounds():
+    """The B4 backward moves 20 bytes an element (a, dy, h in; db, da
+    out): 0.050 ms at (1, 2048, 4096) at 3.35 TB/s; the B5 backward does
+    10 flops a valid pair and head dim: ~0.087 ms at (2, 2048, 4, 512) at
+    989 TFLOP/s."""
+    ms, by = chip_smoke.scan_bwd_bound_ms(1, 2048, 4096)
+    assert by == "bytes"
+    assert ms == pytest.approx(20 * 2048 * 4096 /
+                               chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = chip_smoke.mlstm_bwd_bound_ms(2, 2048, 4, 512, 2)
+    assert by == "operations"
+    assert ms == pytest.approx(0.0869, abs=2e-4)

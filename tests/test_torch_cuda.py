@@ -26,12 +26,16 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
+from repro_torch.kernels.mlstm_scan import backward as ml_backward
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
-from repro_torch.kernels.mlstm_scan.ref import mlstm_ref
+from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref, mlstm_ref
+from repro_torch.kernels.rglru_scan import backward as rg_backward
 from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rglru_scan import ops as rg_ops
-from repro_torch.kernels.rglru_scan.ref import (rglru_scan_chunked_ref,
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_chunked_ref,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_chunked_ref,
                                                 rglru_scan_ref)
 
 pytestmark = pytest.mark.cuda
@@ -1130,7 +1134,7 @@ def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
         assert r["kernel_vs_plain_f32"] <= TRAIN_REL_TOL, (key, r)
 
 
-# ----------------- backward on the card: B3 yes, B4/B5 no ----------------- #
+# -------------- backward on the card: B3, B4 and B5 ---------------------- #
 def _lm_kernel_call(name, dev):
     """(dispatcher call, its LAUNCHES dict and key) on small operands."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1153,32 +1157,209 @@ def _lm_kernel_call(name, dev):
 
 @pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "mlstm"])
 def test_lm_kernels_refuse_autograd_on_the_card(cuda, name):
-    """With grad mode on and a CUDA operand that requires grad,
-    flash_attention goes through FlashAttentionFn (the kernel forward, a
-    grad_fn whose backward launches the backward kernel) while rglru_scan
-    and mlstm raise (their kernels have no backward yet: the output would
-    carry no grad_fn); under inference_mode each call launches its kernel
-    once."""
+    """With grad mode on and a CUDA operand that requires grad, each LM
+    kernel goes through its autograd Function (FlashAttentionFn,
+    RglruScanFn, MlstmFn): the kernel forward, a grad_fn whose backward
+    launches the backward kernel once; none refuses any more.  Under
+    inference_mode each call launches its kernel once."""
     call, operands, launches = _lm_kernel_call(name, cuda)
     operands[0].requires_grad_(True)
     before = launches[name]
-    if name == "flash_attention":
-        bwd = fa_backward.LAUNCHES["flash_attention_bwd"]
-        out = call()
-        assert out.grad_fn is not None and launches[name] == before + 1
-        (grad,) = torch.autograd.grad(out.float().sum(), operands[0])
-        torch.cuda.synchronize()
-        assert fa_backward.LAUNCHES["flash_attention_bwd"] == bwd + 1
-        assert bool(torch.isfinite(grad.float()).all())
-        before += 1
-    else:
-        with pytest.raises(RuntimeError, match=f"{name} CUDA kernel has no "
-                                               f"backward"):
-            call()
-        assert launches[name] == before
+    bwd_launches, bwd_name = {
+        "flash_attention": (fa_backward.LAUNCHES, "flash_attention_bwd"),
+        "rglru_scan": (rg_backward.LAUNCHES, "rglru_scan_bwd"),
+        "mlstm": (ml_backward.LAUNCHES, "mlstm_bwd")}[name]
+    bwd = bwd_launches[bwd_name]
+    out = call()
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None and launches[name] == before + 1
+    (grad,) = torch.autograd.grad(out.float().sum(), operands[0])
+    torch.cuda.synchronize()
+    assert bwd_launches[bwd_name] == bwd + 1
+    assert bool(torch.isfinite(grad.float()).all())
+    before += 1
     with torch.inference_mode():
         out = call()
     torch.cuda.synchronize()
     assert launches[name] == before + 1
     out = out[0] if isinstance(out, tuple) else out
     assert bool(torch.isfinite(out.float()).all())
+
+
+# ---------------------- B4 and B5 backward kernels ------------------------ #
+@pytest.mark.parametrize("dh_last", [False, True])
+@pytest.mark.parametrize("b,s,w,with_h0", SCAN_SHAPES)
+def test_rglru_scan_backward_equals_its_chunked_order(cuda, b, s, w, with_h0,
+                                                      dh_last):
+    """The backward kernel (the forward's chunked scan run from the end)
+    equals rglru_scan_bwd_chunked_ref at its plan's chunk bit for bit, is
+    within 1e-5 of the largest plain gradient (rglru_scan_bwd_ref, a
+    doubling scan), and two launches give the same bits."""
+    a, x, h0 = _scan_inputs(cuda, b, s, w, with_h0)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((b, s, w), generator=g, device=cuda)
+    dl = torch.randn((b, w), generator=g, device=cuda) if dh_last else None
+    h, _ = rg_kernel.rglru_scan_cuda(a, x, h0)
+    before = rg_backward.LAUNCHES["rglru_scan_bwd"]
+    got = rg_backward.rglru_scan_bwd_cuda(a, h, dy, dl, h0)
+    again = rg_backward.rglru_scan_bwd_cuda(a, h, dy, dl, h0)
+    torch.cuda.synchronize()
+    assert rg_backward.LAUNCHES["rglru_scan_bwd"] == before + 2
+    want = rglru_scan_bwd_chunked_ref(a, h, dy, dl, h0,
+                                      chunk=rg_kernel.plan(b, s, w).chunk)
+    plain = rglru_scan_bwd_ref(a, h, dy, dl, h0)
+    for x1, x2, w1, p1 in zip(got, again, want, plain):
+        if w1 is None:
+            assert x1 is None and x2 is None
+            continue
+        assert torch.equal(x1, w1) and torch.equal(x2, x1)
+        assert float((x1 - p1).abs().max()) <= 1e-5 * float(p1.abs().max())
+
+
+def test_rglru_scan_backward_misaligned_base_takes_the_cp_async_path(cuda):
+    """a and dy one float past a 16-byte boundary: no bulk copies (the
+    decays one row ahead come by cp.async too), the same bits as the
+    chunked order."""
+    b, s, w = 1, 300, 256
+    a0, x0, h0 = _scan_inputs(cuda, b, s * w + 1, 1, True)
+    a = a0.flatten()[1:].view(b, s, w)
+    dy = x0.flatten()[1:].view(b, s, w)
+    h0 = h0.expand(b, w).contiguous()
+    h, _ = rg_kernel.rglru_scan_cuda(a, dy, h0)
+    got = rg_backward.rglru_scan_bwd_cuda(a, h, dy, None, h0)
+    want = rglru_scan_bwd_chunked_ref(a, h, dy, None, h0,
+                                      chunk=rg_kernel.plan(b, s, w).chunk)
+    torch.cuda.synchronize()
+    for x1, w1 in zip(got, want):
+        assert torch.equal(x1, w1)
+
+
+# (b, s, h, d, dtype): xlstm-350m's training microbatch (the tensor-core
+# forward), its forward shape, the tensor-core forward off it (ragged S,
+# under one tile), then the CUDA-core forward: small f32 cases whose S is
+# no multiple of the tiles at every head dim, f32 at 512, bf16 at 64
+MLSTM_BWD_SHAPES = [(2, 2048, 4, 512, torch.bfloat16),
+                    (1, 300, 4, 512, torch.bfloat16),
+                    (1, 37, 2, 512, torch.bfloat16),
+                    (1, 64, 2, 16, torch.float32),
+                    (2, 100, 2, 16, torch.float32),
+                    (2, 96, 4, 32, torch.float32),
+                    (1, 100, 1, 64, torch.float32),
+                    (2, 70, 2, 512, torch.float32),
+                    (2, 37, 4, 64, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("i_shift", [0.0, -3.0])
+@pytest.mark.parametrize("b,s,h,d,dtype", MLSTM_BWD_SHAPES)
+def test_mlstm_forward_stats_match_plain_version(cuda, b, s, h, d, dtype,
+                                                 i_shift):
+    """The forward launch's row stats (L, sg) against the plain version's
+    in f32 on the same values, and the output bit-equal to a launch
+    without stats.  L = m + log n is held within 1e-4 (1 + cond_t), cond_t
+    = sum_s |a_ts| / n_t: n sums signed terms, and a row whose terms
+    cancel has a log n as ill-conditioned as that (the tensor-core kernel
+    feeds a as two bf16 terms, ~2^-16 each).  sg is held on every row
+    whose |den| and exp(-m) lie further apart than that band, where sums
+    in another order may pick the other side."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _mlstm_inputs(cuda, b, s, h, d, dtype, seed=s + d,
+                        i_shift=i_shift)
+    out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+    plain = ml_kernel.mlstm_cuda(*ops)
+    q, k, v, log_i, log_f = ops
+    _, want_lse, want_sg = mlstm_ref(q.float(), k.float(), v.float(), log_i,
+                                     log_f, with_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    fcum = torch.cumsum(log_f, dim=1)
+    causal = torch.ones((s, s), dtype=torch.bool, device=cuda).tril()
+    logw = torch.where(causal[None, :, :, None], fcum[:, :, None] -
+                       fcum[:, None] + log_i[:, None], -1e30)
+    m = logw.amax(dim=2)
+    a = torch.exp(logw - m[:, :, None]) * torch.einsum(
+        "bthd,bshd->btsh", q.float(), k.float()) * d ** -0.5
+    den, mass = a.sum(dim=2), a.abs().sum(dim=2)
+    norm = torch.maximum(den.abs(), torch.exp(-m))
+    band = 1e-4 * (norm + mass)
+    assert bool(((lse - want_lse).abs() <= band / norm).all()), \
+        float(((lse - want_lse).abs() / (band / norm)).max())
+    tie = (den.abs() - torch.exp(-m)).abs() <= band
+    assert torch.equal(sg[~tie], want_sg[~tie])
+    if i_shift < 0:
+        assert float((sg == 0).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("i_shift", [0.0, -3.0])
+@pytest.mark.parametrize("b,s,h,d,dtype", MLSTM_BWD_SHAPES)
+def test_mlstm_backward_matches_plain_version(cuda, b, s, h, d, dtype,
+                                              i_shift):
+    """dq, dk, dv, d log_i and d log_f of the backward kernel, on the
+    forward launch's stats, each within 2e-2 (bf16) or 2e-4 (f32) of the
+    largest value of the plain backward (mlstm_bwd_ref) in f32 on the same
+    values and stats (the stats are held against the plain ones above):
+    chip_smoke.py's BWD_TOL; two launches give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _mlstm_inputs(cuda, b, s, h, d, dtype, seed=s + d + 1,
+                        i_shift=i_shift)
+    out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    before = ml_backward.LAUNCHES["mlstm_bwd"]
+    got = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+    again = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+    torch.cuda.synchronize()
+    assert ml_backward.LAUNCHES["mlstm_bwd"] == before + 2
+    q, k, v, log_i, log_f = ops
+    want = mlstm_bwd_ref(q.float(), k.float(), v.float(), log_i, log_f,
+                         out.float(), dout.float(), (lse, sg))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    for name, x, y, w in zip(("dq", "dk", "dv", "dli", "dlf"), got, again,
+                             want):
+        assert torch.equal(x, y), name
+        assert x.dtype == (dtype if name in ("dq", "dk", "dv")
+                           else torch.float32)
+        err = float((x.float() - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err,
+                                                   float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_reduced_recurrent_train_step_on_the_card(cuda, arch):
+    """One train step of a reduced recurrent model in bf16 (two
+    microbatches): every RG-LRU scan or mLSTM of each microbatch launches
+    its forward kernel once and its backward kernel once, and the loss and
+    grad norm are finite.  End to end the recurrent models are not held
+    against the plain path (C-ref5, C-ref6: two plain runs already
+    disagree), chip_smoke holds each backward call instead."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.adamw import AdamW, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = reduced_config(arch, dtype="bfloat16", param_dtype="bfloat16",
+                         microbatches=2)
+    model = model_zoo.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (4, 96), device=cuda,
+                         generator=g)
+    params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
+                              cuda)
+    fn = make_train_step(cfg, model, AdamW())
+    if arch == "recurrentgemma-9b":
+        from repro_torch.models import hybrid
+        unit, n_super, tail = hybrid._pattern(cfg)
+        per_mb = n_super * unit.count("rec") + len(tail)
+        fwd, bwd, name = rg_kernel.LAUNCHES, rg_backward.LAUNCHES, \
+            "rglru_scan"
+    else:
+        from repro_torch.models import xlstm
+        unit, n_super = xlstm._pattern(cfg)
+        per_mb = n_super * unit.count("mlstm")
+        fwd, bwd, name = ml_kernel.LAUNCHES, ml_backward.LAUNCHES, "mlstm"
+    f0, b0 = fwd[name], bwd[name + "_bwd"]
+    _, _, metrics = fn(params, init_opt_state(params, AdamW()),
+                       {"tokens": toks, "labels": toks})
+    torch.cuda.synchronize()
+    assert fwd[name] - f0 == 2 * per_mb
+    assert bwd[name + "_bwd"] - b0 == 2 * per_mb
+    for key in ("loss", "grad_norm"):
+        assert np.isfinite(float(metrics[key])), (key, metrics)

@@ -20,8 +20,8 @@
   (and ends with the bits of the uninterrupted run); a data node dying
   mid-run keeps the batches flowing (and the losses of a calm run).
 - ``launch/train.py --reduced --device cpu`` trains; ``--production-mesh``
-  raises; on the card the families whose kernels have no backward yet
-  raise."""
+  raises.  The other eight architectures' train steps are held in
+  ``tests/test_torch_train_archs.py``."""
 import dataclasses
 
 import jax
@@ -41,8 +41,7 @@ from repro_torch.models import model_zoo
 from repro_torch.models.params import params_from_reference
 from repro_torch.optim import adamw
 from repro_torch.train import steps
-from repro_torch.train.trainer import (Trainer, TrainerConfig,
-                                       require_backward_kernels)
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,16 +233,6 @@ def test_production_mesh_raises():
     with pytest.raises(RuntimeError, match="256 devices"):
         train_launch.main(["--arch", "qwen3-14b", "--reduced",
                            "--production-mesh", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("arch,kernel", [("recurrentgemma-9b", "B4"),
-                                         ("xlstm-350m", "B5")])
-def test_families_without_a_backward_kernel_refuse_the_card(arch, kernel):
-    cfg = reduced_config(arch)
-    with pytest.raises(RuntimeError, match=f"(?s){kernel}.*ROADMAP.md"):
-        require_backward_kernels(cfg, "cuda")
-    require_backward_kernels(cfg, "cpu")            # the CPU trains them
-    require_backward_kernels(reduced_config("starcoder2-3b"), "cuda")
 
 
 def test_train_launcher_defaults_to_cuda():
