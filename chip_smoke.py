@@ -39,10 +39,12 @@ Phases, each printing one JSON line:
    gradient: causal and not, Sq < Sk, a window, a softcap, ragged tiles,
    GQA 16:1, 5:1 and 6:1, head dims 64 / 128 / 256 in bf16 and f32 (f32
    also at 16 and 32), rows whose window masks every key (their dq must
-   be 0), and starcoder2-3b's training shape (2, 2048, 2048, 32 q heads
-   over 2 kv heads of 128, causal, bf16); bf16 at head dim 64 and 128
-   must take the tensor-core variant (flash_bwd_wgmma.cuh), the rest the
-   CUDA-core one; dq, dk and dv each within BWD_TOL (2e-2 bf16, 2e-4 f32)
+   be 0), starcoder2-3b's training shape (2, 2048, 2048, 32 q heads over
+   2 kv heads of 128, causal, bf16) and recurrentgemma-9b's (1, 2048,
+   2048, 16 q heads over 1 kv head of 256, window 2048, bf16); bf16 at
+   head dim 64, 128 and 256 must take the tensor-core variant
+   (flash_bwd_wgmma.cuh), the rest the CUDA-core one; dq, dk and dv each
+   within BWD_TOL (2e-2 bf16, 2e-4 f32)
    of the largest value of the plain backward (flash_attention_bwd_ref,
    which computes its own lse) in f32 on the same values, the forward's
    lse within LSE_TOL of the plain lse (+inf exactly where a row sees no
@@ -183,8 +185,9 @@ Phases, each printing one JSON line:
    starcoder2-3b's flash forward 30 x 4 x 3 x 2 = 720 (the remat
    recompute doubles it) on ``flash_attention.wgmma`` and its backward
    360 on ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 3 x 8 x 3 =
-   72 flash forwards (wgmma) and backwards (``flash_attention_bwd.simt``,
-   head dim 256) and 6 x 8 x 3 = 144 RG-LRU scans and backwards;
+   72 flash forwards (wgmma) and backwards (``flash_attention_bwd.wgmma``
+   at head dim 256, none on ``.simt``) and 6 x 8 x 3 = 144 RG-LRU scans
+   and backwards;
    xlstm-350m's 21 x 2 = 42 mLSTM forwards (``mlstm.wgmma``) and
    backwards.  Every backward call of step 1 (B3, B4, B5) is held
    against its plain backward in f32 (against its f64 value where that
@@ -221,8 +224,10 @@ Phases, each printing one JSON line:
    backward at the training shape (bound: 10 flops a valid (query, key,
    head, head-dim), ~0.174 ms) beside its plain version, SDPA's backward
    (the library call, timed only) and the forward at the same shape; the
-   backward's CUDA-core variant at recurrentgemma-9b's training
-   microbatch (1, 2048^2, 16/1 heads of 256, bf16); the B4 backward at
+   backward at recurrentgemma-9b's training microbatch (1, 2048^2, 16/1
+   heads of 256, bf16, its 2048 window; bound ~0.0869 ms) on the tensor
+   cores beside the same yardsticks, and the CUDA-core variant on f32
+   operands of that shape (bound at 67 TFLOP/s); the B4 backward at
    (1, 2048, 4096) f32 (bound: 20 bytes an element at 3.35 TB/s) and the
    B5 backward at (2, 2048, 4, 512) bf16 (bound: 10 flops a valid (query,
    key, head, head-dim) at 989 TFLOP/s, ~0.087 ms), each beside its plain
@@ -230,8 +235,10 @@ Phases, each printing one JSON line:
    the mLSTM forward writing its row stats, beside the row without;
 9. the kernels line (flash_attention's, rglru_scan's and mlstm's
    launches summed over every LM path and the train phase; the
-   backwards' from the train phase, flash's two variants listed under
-   ``variants``), nvidia-smi's line, and the result line.
+   backwards' from the train phase, flash's variants listed under
+   ``variants``: the tensor-core one at head dim 128 and at 256, each
+   with its train launches and its instances' registers and spills, and
+   the CUDA-core one), nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -802,8 +809,8 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
 # Sq < Sk, a window, a softcap, ragged tiles, GQA 16:1 (starcoder2-3b's
 # 32 padded q heads over 2), 5:1 and 6:1, head dims 64 / 128 / 256, and
 # rows whose window masks every key; then f32 at head dim 16 and 32.  The
-# bf16 cases at head dim 64 and 128 take the tensor-core variant, the rest
-# the CUDA-core one (backward.plan; each row names its variant)
+# bf16 cases take the tensor-core variant, the f32 ones the CUDA-core one
+# (backward.plan; each row names its variant)
 BWD_SMALL = [
     ("causal", 2, 96, 96, 4, 2, 64, {}),
     ("not causal", 1, 70, 70, 4, 2, 128, {"causal": False}),
@@ -825,6 +832,10 @@ BWD_CASES = [
     # real) q heads over 2 kv heads of 128, causal, its 4096 window
     ("starcoder2 train", 2, TRAIN_SEQ, TRAIN_SEQ, 32, 2, 128,
      torch.bfloat16, {"window": 4096}),
+    # recurrentgemma-9b's: a microbatch of 1 x 2048, 16 q heads over 1 kv
+    # head of 256, causal, its 2048 window
+    ("recurrentgemma train", 1, TRAIN_SEQ, TRAIN_SEQ, 16, 1, 256,
+     torch.bfloat16, {"window": 2048}),
 ]
 
 
@@ -2719,10 +2730,10 @@ def train_launches(cfg, steps):
     "full"'s recompute in the backward), on the tensor-core kernel, and
     the backward once, on the tensor-core variant.  The hybrid and ssm
     families run no remat: per microbatch each attention layer runs the
-    flash forward (tensor cores, lse) and backward (the CUDA-core variant
-    at head dim 256) once, each recurrent layer the RG-LRU scan and its
-    backward once, each mLSTM layer the mLSTM (tensor cores, stats) and
-    its backward once."""
+    flash forward (tensor cores, lse) and backward (the tensor-core
+    variant at head dim 256) once, each recurrent layer the RG-LRU scan
+    and its backward once, each mLSTM layer the mLSTM (tensor cores,
+    stats) and its backward once."""
     from repro_torch.models import hybrid, xlstm
     calls = max(1, cfg.microbatches) * steps
     bwd = {"flash_attention_bwd.wgmma": 0, "flash_attention_bwd.simt": 0,
@@ -2733,7 +2744,7 @@ def train_launches(cfg, steps):
         rec = (n_super * unit.count("rec") + tail.count("rec")) * calls
         return {**lm_launches(rglru_scan=rec, wgmma=attn), **bwd,
                 "flash_attention_bwd": attn,
-                "flash_attention_bwd.simt": attn, "rglru_scan_bwd": rec}
+                "flash_attention_bwd.wgmma": attn, "rglru_scan_bwd": rec}
     if cfg.family == "ssm":
         unit, n_super = xlstm._pattern(cfg)
         ml = n_super * unit.count("mlstm") * calls
@@ -3025,7 +3036,8 @@ def ptxas_report(source) -> list:
 
 
 def build_all():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; returns ptxas's report
+    by source."""
     from repro_torch.kernels.event_filter import kernel as ef_kernel
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3064,11 +3076,14 @@ def build_all():
                     (fa_backward, "fa_bwd_dkdv_wgmma_kernel"),
                     (fa_backward, "fa_bwd_sum_kernel"),
                     (fa_backward, "fa_bwd_dq_wgmma_kernel"),
+                    (fa_backward, "fa_bwd_dkdv_roles_kernel"),
+                    (fa_backward, "fa_bwd_dq_roles_kernel"),
                     (fa_backward, "fa_bwd_dkdv_kernel"),
                     (fa_backward, "fa_bwd_dq_kernel")):
         if not any(row["kernel"].startswith(name)
                    for row in ptxas[m.SOURCE.name]):
             raise AssertionError(f"no {name} in the ptxas report")
+    return ptxas
 
 
 def release():
@@ -3102,7 +3117,8 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
-    build_all()
+    ptxas = build_all()
+    fa_bwd_lib = "flash_attention_bwd.cu"
     took("build")
 
     # 3. kernels against their plain versions (f32 plain path without
@@ -3232,14 +3248,19 @@ def main(argv=None) -> int:
                 tr_cfg.head_dim)
     timed["flash_attention_bwd"] = time_flash_bwd(
         gen, *tr_shape, window=tr_cfg.sliding_window)
-    # the CUDA-core variant at recurrentgemma-9b's training microbatch (1,
-    # 2048^2, 16/1 heads of 256, its 2048 window masking nothing there;
-    # fewer calls: ~10 ms each)
+    # recurrentgemma-9b's training microbatch (1, 2048^2, 16/1 heads of
+    # 256, its 2048 window masking nothing there): the tensor-core variant
+    # in bf16, and the CUDA-core one on f32 operands (fewer calls: ~25 ms
+    # each)
     rg_cfg = train_config(RG_ARCH)
     rg_train_shape = (1, TRAIN_SEQ, TRAIN_SEQ, rg_cfg.num_heads_padded,
                       rg_cfg.num_kv_heads, rg_cfg.head_dim)
+    bwd_256 = time_flash_bwd(gen, *rg_train_shape,
+                             window=rg_cfg.attention_window)
+    release()
     bwd_simt = time_flash_bwd(gen, *rg_train_shape,
-                              window=rg_cfg.attention_window, iters=8)
+                              window=rg_cfg.attention_window,
+                              dtype=torch.float32, iters=8)
     release()
     tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
     # the B4 and B5 backward kernels at their training microbatches
@@ -3281,10 +3302,18 @@ def main(argv=None) -> int:
               "causal": False, **wh_cross_fwd},
           "flash_attention_bwd": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
-              "launches_train": launches["flash_attention_bwd.wgmma"],
+              "launches_train":
+                  train[TRAIN_ARCH]["flash_attention_bwd.wgmma"],
               "library": "scaled_dot_product_attention backward "
                          "(enable_gqa, is_causal), CUDA events",
               **with_share(timed["flash_attention_bwd"])},
+          "flash_attention_bwd_256": {
+              "shape": list(rg_train_shape),
+              "window": rg_cfg.attention_window,
+              "launches_train": train[RG_ARCH]["flash_attention_bwd.wgmma"],
+              "library": "scaled_dot_product_attention backward "
+                         "(enable_gqa, is_causal), CUDA events",
+              **with_share(bwd_256)},
           "flash_attention_bwd_simt": {
               "shape": list(rg_train_shape),
               "window": rg_cfg.attention_window,
@@ -3356,19 +3385,35 @@ def main(argv=None) -> int:
 
     kernels = [entry(name, src, replaces, timed[name], launches[name])
                for name, (src, replaces) in sources.items()]
-    # the backward's two variants, each with its own source, launches on
-    # the train path (all on the tensor cores) and timing at the training
-    # shape (the CUDA-core one on f32 operands)
+    # the backward's variants, each with its own source, launches on the
+    # train path (all on the tensor cores: starcoder2-3b's at head dim
+    # 128, recurrentgemma-9b's at 256) and timing at its training shape
+    # (the CUDA-core one on f32 operands), the tensor-core instances with
+    # ptxas's registers and spills
     bwd_src, bwd_replaces = sources["flash_attention_bwd"]
     tc_src = bwd_src.replace("flash_attention_bwd.cu", "flash_bwd_wgmma.cuh")
+
+    def instances(*names):
+        return [row for row in ptxas[fa_bwd_lib]
+                if row["kernel"] in names]
+
     for kern in kernels:
         if kern["name"] == "flash_attention_bwd":
             kern["variants"] = [
-                {"variant": "wgmma", "dtype": "bfloat16",
+                {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 128,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          timed["flash_attention_bwd"],
-                         launches["flash_attention_bwd.wgmma"])},
-                {"variant": "simt", "dtype": "bfloat16",
+                         train[TRAIN_ARCH]["flash_attention_bwd.wgmma"]),
+                 "ptxas": instances("fa_bwd_dkdv_wgmma_kernel<128>",
+                                    "fa_bwd_dq_wgmma_kernel<128>")},
+                {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 256,
+                 **entry("flash_attention_bwd", tc_src, bwd_replaces,
+                         bwd_256,
+                         train[RG_ARCH]["flash_attention_bwd.wgmma"]),
+                 "ptxas": instances("fa_bwd_dkdv_roles_kernel",
+                                    "fa_bwd_dq_roles_kernel",
+                                    "fa_bwd_delta_kernel<bf16,256>")},
+                {"variant": "simt", "dtype": "float32", "head_dim": 256,
                  **entry("flash_attention_bwd", bwd_src, bwd_replaces,
                          bwd_simt, launches["flash_attention_bwd.simt"])}]
     took("timing")

@@ -89,6 +89,19 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrival at barrier `id` of `threads` threads without waiting for it: a
+// producer's half of a hand-over whose consumers call named_barrier_sync
+// (the producer's shared-memory writes before it are seen after theirs)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// orders this thread's ordinary shared-memory writes before later reads
+// of the async proxy (a wgmma operand written by the threads themselves)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------- values passed between blocks
 // Naturally aligned 64-bit relaxed accesses at gpu scope are single-copy
 // atomic: a reader sees the old 8 bytes or the new 8 bytes, never a mix.

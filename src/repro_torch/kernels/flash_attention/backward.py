@@ -8,14 +8,16 @@ launch, ``kernel.flash_attention_cuda(with_lse=True)``: no pass recomputes
 it), and the incoming gradient.  Every call starts with a delta pre-pass
 (delta = sum_d dO . O); :func:`plan` then picks one of two variants:
 
-- ``"wgmma"``: bf16 at head dim 64 or 128 (every dense config trains at
-  128), on the tensor cores (``csrc/flash_bwd_wgmma.cuh``): a dK/dV kernel
-  of one block per (128 keys, batch row, kv head, run of ``splits``
-  consecutive query heads of the group), each run's f32 partials added in
-  run order by a sum kernel when there is more than one, then a dQ kernel
-  of one block per 128 query rows of a head;
-- ``"simt"``: f32 at every head dim and bf16 at 16, 32 and 256, the
-  CUDA-core dK/dV and dQ kernels.
+- ``"wgmma"``: bf16 at head dim 64, 128 (every dense config trains at
+  128) or 256 (recurrentgemma-9b), on the tensor cores
+  (``csrc/flash_bwd_wgmma.cuh``): a dK/dV kernel of one block per
+  (``KEY_BLOCK`` keys, batch row, kv head, run of ``splits`` consecutive
+  query heads of the group), each run's f32 partials added in run order by
+  a sum kernel when there is more than one, then a dQ kernel of one block
+  per 128 query rows of a head (64 at head dim 256, where the block's two
+  warpgroups split the products by role instead of the rows);
+- ``"simt"``: f32 at every head dim and bf16 at 16 and 32, the CUDA-core
+  dK/dV and dQ kernels.
 
 Both are deterministic: every sum has a fixed order and no data goes
 through an atomic.  It has no Pallas counterpart: the JAX package
@@ -56,10 +58,12 @@ VARIANTS = ("wgmma", "simt")
 VARIANT_CALLS = {name: 0 for name in VARIANTS}
 
 #: head dims of the tensor-core variant (bf16)
-TC_HEAD_DIMS = (64, 128)
-#: keys of a tensor-core dK/dV block, and the row padding of its lse and
-#: delta planes (a dQ block's query rows)
-KEY_BLOCK = 128
+TC_HEAD_DIMS = (64, 128, 256)
+#: keys of a tensor-core dK/dV block by head dim: two warpgroups of 64 keys
+#: each at 64 and 128, one tile of 64 keys shared by both at 256
+KEY_BLOCK = {64: 128, 128: 128, 256: 64}
+#: the row padding of the lse and delta planes (a multiple of every dQ
+#: block's query rows)
 ROW_PAD = 128
 
 
@@ -76,13 +80,15 @@ def plan(b: int, sq: int, sk: int, h: int, kh: int, d: int, dtype,
     """Which variant a call takes.  bf16 at ``TC_HEAD_DIMS`` takes the
     tensor cores, with the fewest runs of the G = H / K query heads (a
     divisor of G) that give at least one dK/dV block an SM: at
-    starcoder2-3b's shape (2, 2048, 32/2 heads) 64 key blocks need 4 runs
-    of 4 heads, 256 blocks.  Everything else takes the CUDA cores (f32
-    would run the tensor cores in TF32)."""
+    starcoder2-3b's shape (2, 2048, 32/2 heads of 128) 64 key blocks need
+    4 runs of 4 heads, 256 blocks; at recurrentgemma-9b's (1, 2048, 16/1
+    heads of 256) 32 key blocks of 64 need 8 runs of 2 heads, 256 blocks.
+    Everything else takes the CUDA cores (f32 would run the tensor cores
+    in TF32)."""
     if dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
         return Plan("simt", 1)
     g = h // kh
-    blocks = math.ceil(sk / KEY_BLOCK) * b * kh
+    blocks = math.ceil(sk / KEY_BLOCK[d]) * b * kh
     splits = next(n for n in range(1, g + 1)
                   if g % n == 0 and (blocks * n >= sms or n == g))
     return Plan("wgmma", splits)

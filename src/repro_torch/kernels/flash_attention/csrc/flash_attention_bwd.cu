@@ -32,16 +32,19 @@
 //
 // Two variants; backward.py's plan picks one a call:
 //
-// - "wgmma", bf16 at head dim 64 and 128 (every dense config trains at
-//   128; flash_bwd_wgmma.cuh): the delta pre-pass, then dK/dV on the
-//   tensor cores, one block per (128 keys, batch row, kv head, run of
-//   query heads), the runs' f32 partials added in order by a sum kernel,
-//   then dQ on the tensor cores, one block per 128 query rows of a head.
-//   Bound by operations: 10 * B * H * pairs * D flops (S, dP, dV, dK, dQ)
-//   at 989 TFLOP/s; the design does 14 (dQ's kernel recomputes S and dP)
-//   so that no float atomic sums dQ.
-// - "simt", f32 at every head dim and bf16 at 16, 32 and 256 (no model
-//   path trains there): the delta pre-pass, then two CUDA-core kernels of
+// - "wgmma", bf16 at head dim 64, 128 and 256 (every dense config trains
+//   at 128, recurrentgemma-9b at 256; flash_bwd_wgmma.cuh): the delta
+//   pre-pass, then dK/dV on the tensor cores, one block per (128 keys, or
+//   64 at 256, batch row, kv head, run of query heads), the runs' f32
+//   partials added in order by a sum kernel, then dQ on the tensor cores,
+//   one block per 128 query rows of a head (64 at 256).  At 256 the two
+//   warpgroups of a block share its 64 keys or rows and split the
+//   products by role (one computes P, the other dS).  Bound by
+//   operations: 10 * B * H * pairs * D flops (S, dP, dV, dK, dQ) at 989
+//   TFLOP/s; the design does 14 (dQ's kernel recomputes S and dP) so that
+//   no float atomic sums dQ.
+// - "simt", f32 at every head dim and bf16 at 16 and 32 (no model path
+//   trains there): the delta pre-pass, then two CUDA-core kernels of
 //   256 threads, f32 FMAs, tiles of T = 64 rows (32 at head dim 256, so
 //   that four f32 tiles of T x D stay within shared memory):
 //     dK, dV: one block per (b, kv head, key tile).  Walks the G query
@@ -530,19 +533,19 @@ int launch(const Params& p, long long b, cudaStream_t stream) {
 }
 
 // f32 at every head dim; bf16 only where the tensor-core variant does not
-// reach (head dim 16, 32, 256)
+// reach (head dim 16, 32)
 template <typename TT>
 int launch_dim(const Params& p, int head_dim, long long b,
                cudaStream_t stream) {
   switch (head_dim) {
     case 16: return launch<TT, 16>(p, b, stream);
     case 32: return launch<TT, 32>(p, b, stream);
-    case 256: return launch<TT, 256>(p, b, stream);
   }
   if constexpr (std::is_same<TT, float>::value) {
     switch (head_dim) {
       case 64: return launch<TT, 64>(p, b, stream);
       case 128: return launch<TT, 128>(p, b, stream);
+      case 256: return launch<TT, 256>(p, b, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -559,7 +562,7 @@ int launch_dim(const Params& p, int head_dim, long long b,
 // descriptor cannot be made.
 //
 // The CUDA-core variant: dtype 0 is float32 (every head dim), 1 bfloat16
-// (head dim 16, 32, 256); delta is (B, H, Sq) f32 scratch.
+// (head dim 16, 32); delta is (B, H, Sq) f32 scratch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const float* lse,
@@ -582,8 +585,8 @@ extern "C" int flash_attention_bwd_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16, head dim 64 or 128, base and strides of
-// q, k, v and dout 16-byte aligned (the wrapper checks).  lse2 and delta
+// The tensor-core variant: bf16, head dim 64, 128 or 256, base and strides
+// of q, k, v and dout 16-byte aligned (the wrapper checks).  lse2 and delta
 // are (B, H, sqp) f32 scratch, sqp = Sq rounded up to 128; with splits > 1
 // runs of query heads, ws is (2, splits, B, Sk, K, D) f32 scratch.
 extern "C" int flash_attention_bwd_wgmma_launch(
@@ -642,6 +645,12 @@ extern "C" int flash_attention_bwd_wgmma_launch(
       rc = launch_delta<__nv_bfloat16, 128>(p, b, delta, lse2, sqp, s);
       if (rc != 0) return rc;
       return fa_bwd_wgmma::launch<128>(q, k, v, dout, w, q_sb, q_ss, q_sh,
+                                       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                                       d_sb, d_ss, d_sh, s);
+    case 256:
+      rc = launch_delta<__nv_bfloat16, 256>(p, b, delta, lse2, sqp, s);
+      if (rc != 0) return rc;
+      return fa_bwd_wgmma::launch<256>(q, k, v, dout, w, q_sb, q_ss, q_sh,
                                        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                                        d_sb, d_ss, d_sh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

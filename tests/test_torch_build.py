@@ -88,6 +88,15 @@ def test_the_shared_header_directory_is_the_packages():
     ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_63886b0a19fa_bwd_"
      "delta_kernelI13__nv_bfloat16Li128EEEvPKvS3_PKfPfS6_llllllllll",
      "fa_bwd_delta_kernel<bf16,128>"),
+    # the tensor-core backward at head dim 256: two kernels of no template
+    # argument, and the delta pre-pass's instance
+    ("_ZN12fa_bwd_wgmma24fa_bwd_dkdv_roles_kernelE14CUtensorMap_stS0_S0_S0_"
+     "NS_6ParamsE", "fa_bwd_dkdv_roles_kernel"),
+    ("_ZN12fa_bwd_wgmma22fa_bwd_dq_roles_kernelE14CUtensorMap_stS0_S0_S0_NS_"
+     "6ParamsE", "fa_bwd_dq_roles_kernel"),
+    ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_63886b0a19fa_bwd_"
+     "delta_kernelI13__nv_bfloat16Li256EEEvPKvS3_PKfPfS6_llllllllll",
+     "fa_bwd_delta_kernel<bf16,256>"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from

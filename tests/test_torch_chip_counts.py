@@ -138,15 +138,33 @@ def test_backward_bound_counts_ten_flops_a_valid_pair():
     assert chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2)[0] == ms
 
 
+def test_backward_bound_at_recurrentgemma_training_shape():
+    """recurrentgemma-9b's microbatch (1, 2048^2, 16 heads of 256), its
+    2048 window masking nothing: about 0.0869 ms at 989 TFLOP/s in bf16;
+    the CUDA-core variant's f32 row is bound at 67 TFLOP/s."""
+    ms, by = chip_smoke.fa_bwd_bound_ms(1, 2048, 2048, 16, 1, 256, 2, 2048)
+    pairs = 2048 * 2049 // 2
+    assert by == "operations"
+    assert ms == pytest.approx(10 * 16 * pairs * 256 /
+                               chip_smoke.BF16_FLOPS_PER_S * 1e3)
+    assert ms == pytest.approx(0.0869, abs=5e-5)
+    f32, by32 = chip_smoke.fa_bwd_bound_ms(
+        1, 2048, 2048, 16, 1, 256, 4, 2048,
+        flops_per_s=chip_smoke.FP32_FLOPS_PER_S)
+    assert by32 == "operations"
+    assert f32 == pytest.approx(ms * chip_smoke.BF16_FLOPS_PER_S /
+                                chip_smoke.FP32_FLOPS_PER_S)
+
+
 @pytest.mark.parametrize("arch,want", [
     # 3 units of (rec, rec, attn) x 8 microbatches x 3 steps, no remat:
-    # 72 flash forwards on the tensor cores and 72 backwards on the CUDA
-    # cores (head dim 256), 144 RG-LRU scans and backwards
+    # 72 flash forwards and 72 backwards (head dim 256), all on the tensor
+    # cores, 144 RG-LRU scans and backwards
     ("recurrentgemma-9b", {"flash_attention": 72,
                            "flash_attention.wgmma": 72,
                            "flash_attention_bwd": 72,
-                           "flash_attention_bwd.simt": 72,
-                           "flash_attention_bwd.wgmma": 0,
+                           "flash_attention_bwd.simt": 0,
+                           "flash_attention_bwd.wgmma": 72,
                            "rglru_scan": 144, "rglru_scan_bwd": 144,
                            "mlstm": 0, "mlstm_bwd": 0}),
     # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, all on the tensor cores
@@ -172,7 +190,8 @@ def test_recurrent_train_launch_counts(arch, want):
                 cfg.head_dim, torch.bfloat16)
         assert fa_kernel.plan(*args, True, cfg.attention_window,
                               with_lse=True).variant == "wgmma"
-        assert fa_bwd.plan(*args).variant == "simt"
+        # 32 key blocks of 64: 8 runs of 2 heads give 256 blocks
+        assert fa_bwd.plan(*args) == fa_bwd.Plan("wgmma", 8)
     else:
         from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
         assert (cfg.num_layers, mb) == (24, 2)

@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention import backward as fa_backward
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (
-    flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
+    flash_attention_bwd_ref, flash_attention_bwd_split_ref,
+    flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.mlstm_scan import backward as ml_backward
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
@@ -922,8 +923,8 @@ def test_flash_backward_kernel_matches_plain_version(cuda, b, sq, sk, h, kh,
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, dtype, seed=sq * 3 + d)
     variant = _bwd_variant(q, k)
-    assert variant == ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
-                       else "simt")
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and
+                       d in fa_backward.TC_HEAD_DIMS else "simt")
     before = dict(fa_backward.LAUNCHES)
     calls = dict(fa_backward.VARIANT_CALLS)
     out, got, dout = _bwd(q, k, v, **kw)
@@ -947,7 +948,10 @@ def test_flash_backward_kernel_matches_plain_version(cuda, b, sq, sk, h, kh,
 # Sq and Sk no multiple of the 64/128-row tiles, Sq < Sk, windows, caps,
 # not causal, G = 1 (one run: bf16 straight from the dK/dV kernel), 5 and
 # 16 (runs of heads summed by the sum kernel), rows that see no key, and a
-# run through many query tiles of the ring
+# run through many query tiles of the ring; then head dim 256 (the
+# kernels whose warpgroups split the products by role): MQA 16:1 at a
+# ragged S, a window, a softcap, S under one 64-row tile, G = 1, Sq < Sk,
+# not causal, and rows that see no key
 TC_BWD_CASES = [
     (2, 100, 100, 4, 4, 64, {}),
     (1, 130, 200, 10, 2, 128, {}),
@@ -959,6 +963,15 @@ TC_BWD_CASES = [
     (1, 5, 3, 2, 1, 64, {"causal": False, "window": 1}),
     (1, 7, 3, 16, 1, 128, {"causal": False, "window": 1}),
     (2, 1024, 1024, 8, 2, 128, {}),
+    (1, 300, 300, 16, 1, 256, {}),
+    (1, 260, 260, 4, 1, 256, {"window": 70}),
+    (2, 130, 130, 4, 2, 256, {"logit_cap": 30.0}),
+    (1, 40, 40, 6, 1, 256, {}),
+    (2, 17, 17, 2, 1, 256, {"window": 5}),
+    (1, 200, 200, 4, 4, 256, {}),
+    (2, 70, 200, 8, 1, 256, {}),
+    (1, 150, 190, 8, 2, 256, {"causal": False, "window": 50}),
+    (1, 7, 3, 16, 1, 256, {"causal": False, "window": 1}),
 ]
 
 
@@ -966,19 +979,24 @@ TC_BWD_CASES = [
 def test_tensor_core_backward_matches_plain_version(cuda, b, sq, sk, h, kh,
                                                     d, kw):
     """The wgmma variant against the plain backward in f32 on the same
-    values (BWD_TOL bf16), its lse from the forward launch; rows that see
-    no key get a dq of exactly 0; two launches give the same bits."""
+    values (BWD_TOL bf16), dk and dv also against the plain backward
+    summed in the plan's runs of heads (flash_attention_bwd_split_ref),
+    its lse from the forward launch; rows that see no key get a dq of
+    exactly 0; two launches give the same bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _fa_inputs(cuda, b, sq, sk, h, kh, d, torch.bfloat16,
                          seed=sq + 7 * h + d)
-    assert _bwd_variant(q, k) == "wgmma"
+    pl = fa_backward.plan(b, sq, sk, h, kh, d, torch.bfloat16)
+    assert pl.variant == "wgmma"
     calls = fa_backward.VARIANT_CALLS["wgmma"]
     out, got, dout = _bwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa_backward.VARIANT_CALLS["wgmma"] == calls + 1
-    want = flash_attention_bwd_ref(*(x.float() for x in (q, k, v, out,
-                                                        dout)), **kw)
-    _held_to_plain(got, want, torch.bfloat16)
+    f32 = [x.float() for x in (q, k, v, out, dout)]
+    _held_to_plain(got, flash_attention_bwd_ref(*f32, **kw), torch.bfloat16)
+    _, dk_runs, dv_runs = flash_attention_bwd_split_ref(
+        *f32, splits=pl.splits, **kw)
+    _held_to_plain(got[1:], (dk_runs, dv_runs), torch.bfloat16)
     if kw.get("window") == 1:      # queries from Sk on see no key
         assert float(got[0][:, sk:].float().abs().max()) == 0.0
     _, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)

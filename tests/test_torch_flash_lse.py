@@ -185,8 +185,15 @@ def test_split_ref_refuses_runs_that_do_not_divide_the_group():
     ((1, 200, 200, 4, 4, 64), torch.bfloat16, ("wgmma", 1)),   # G = 1
     ((1, 130, 200, 10, 2, 128), torch.bfloat16, ("wgmma", 5)),
     ((8, 4096, 4096, 32, 8, 128), torch.bfloat16, ("wgmma", 1)),
-    ((1, 100, 100, 6, 1, 256), torch.bfloat16, ("simt", 1)),   # D 256
+    # D 256: 2 key blocks of 64 reach no 132 SMs, so every head is a run
+    ((1, 100, 100, 6, 1, 256), torch.bfloat16, ("wgmma", 6)),
+    # recurrentgemma-9b's microbatch: 2048 keys are 32 blocks of 64; 4 runs
+    # give 128 blocks (< 132 SMs), so 8 runs of 2 heads, 256 blocks
+    ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, ("wgmma", 8)),
+    ((1, 2048, 2048, 16, 1, 256), torch.float32, ("simt", 1)),
+    ((1, 100, 100, 6, 1, 256), torch.float32, ("simt", 1)),
     ((2, 40, 40, 4, 2, 16), torch.bfloat16, ("simt", 1)),
+    ((1, 45, 45, 2, 1, 32), torch.bfloat16, ("simt", 1)),
     ((2, 2048, 2048, 32, 2, 128), torch.float32, ("simt", 1)),
 ])
 def test_backward_plan(shape, dtype, want):
