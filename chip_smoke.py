@@ -72,11 +72,15 @@ Phases, each printing one JSON line:
    bit for bit to rglru_scan_bwd_chunked_ref and within BWD_TOL of the
    plain backward; the mLSTM forward's row stats (L = m + log n, sg)
    against the plain ones in f32 (mlstm_stats_check), and its backward at
-   xlstm-350m's training microbatch (2, 2048, 4, 512) bf16 and at small
-   and f32 cases, dq, dk, dv, d log_i and d log_f each within BWD_TOL of
-   the largest value of the plain backward (mlstm_bwd_ref) in f32 on the
-   same values and stats.  Two launches of every case must give the same
-   bits;
+   xlstm-350m's training microbatch (2, 2048, 4, 512) bf16, with the
+   model's forget gates (F ~ -600 at 2048), off that shape (S 300 and 37,
+   sg = 0 rows, q, k, v as views of one fused tensor), and at small and
+   f32 cases, dq, dk, dv, d log_i and d log_f each within BWD_TOL of the
+   largest value of the plain backward (mlstm_bwd_ref) in f32 on the same
+   values and stats; bf16 at head dim 512 must take the tensor-core
+   variant (mlstm_bwd_wgmma.cuh) and lie within TWIN_TOL of its
+   arithmetic in plain PyTorch (mlstm_bwd_split_ref), the rest the
+   CUDA-core one.  Two launches of every case must give the same bits;
 4. serve   — the paper's event workload (64 scalars, 4096 tracks x 63
    vars, 256 events per brick, replication 2) on 4 nodes, resident on the
    card; the serve workload (64 queries, 4 tenants, window 16, streamed)
@@ -326,6 +330,15 @@ LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 # same values; where that plain backward is itself outside BWD_TOL of its
 # f64 evaluation (an ill-conditioned call), against the f64 value instead
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# the mLSTM's tensor-core backward against its arithmetic in plain
+# PyTorch (mlstm_bwd_split_ref) on the same values and stats: max |kernel
+# - twin| <= TWIN_TOL * max |twin| for dq, dk, dv (bf16 outputs: one unit
+# in the last place of the largest is up to 2^-7 = 7.8e-3 of it; the f32
+# sums' other order can move a rounding that far), d log i, d log f (f32
+# sums in another order, on F and its exp2 terms rounded at |F| ~ 600).
+# Readings on an H100 80GB HBM3 at 700 W: dq, dk 2.0e-3, dv 3.4e-3, d log i
+# 4.4e-5, d log f 6.8e-5
+TWIN_TOL = (8e-3, 8e-3, 8e-3, 2e-4, 2e-4)
 BWD_ROWS = 256        # query rows a pass of the plain backward (memory)
 # the lse the forward writes for the backward against the plain lse in f32
 # on the same values (rtol, atol): the scores' sums in another order
@@ -1058,10 +1071,13 @@ def scan_operands(gen, b, s, w, with_h0):
     return a, x, h0
 
 
-def mlstm_operands(gen, b, s, h, d, dtype, fused=False, i_shift=0.0):
+def mlstm_operands(gen, b, s, h, d, dtype, fused=False, i_shift=0.0,
+                   f_bias=None):
     """q, k, v ~ N(0, 1) in ``dtype``, log_i ~ N(i_shift, 1), log_f =
     -|N(0, 1)| / 2 (f32), as the reference's kernel tests draw them; with
-    ``fused`` q, k and v are views of one (B, S, 3, H, D) tensor."""
+    ``fused`` q, k and v are views of one (B, S, 3, H, D) tensor; with
+    ``f_bias`` log_f = logsigmoid(f_bias + 2.6 N(0, 1)), the model's form
+    (xlstm's forget-gate bias is 3: F ~ -600 at S = 2048)."""
     if fused:
         qkv = torch.randn((b, s, 3, h, d), generator=gen,
                           device=DEVICE).to(dtype)
@@ -1070,7 +1086,9 @@ def mlstm_operands(gen, b, s, h, d, dtype, fused=False, i_shift=0.0):
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=DEVICE)
                    .to(dtype) for _ in range(3))
     log_i = torch.randn((b, s, h), generator=gen, device=DEVICE) + i_shift
-    log_f = -torch.randn((b, s, h), generator=gen, device=DEVICE).abs() * 0.5
+    log_f = torch.randn((b, s, h), generator=gen, device=DEVICE)
+    log_f = -log_f.abs() * 0.5 if f_bias is None else \
+        torch.nn.functional.logsigmoid(f_bias + 2.6 * log_f)
     return q, k, v, log_i, log_f
 
 
@@ -1183,10 +1201,15 @@ SCAN_BWD_CASES = [(1, TRAIN_SEQ, 4096, False, False),
                   (3, 100, 48, True, False), (2, 8, 4096, False, True),
                   (2, 77, 50, True, True), (1, 9000, 128, True, True)]
 # (B, S, H, D, dtype, flags): the B5 backward at xlstm-350m's training
-# microbatch (its forward on the tensor cores), the tensor-core forward
-# off it (a ragged S under low input gates, q, k, v as views of one fused
-# projection), then the CUDA-core forward at small head dims and in f32
+# microbatch and with the model's forget gates (F ~ -600 at 2048), then
+# the tensor-core variant off it (S no multiple of 64, S under one block,
+# a ragged S under low input gates (sg = 0 rows), q, k, v as views of one
+# fused projection), then the CUDA-core variant at small head dims and in
+# f32
 MLSTM_BWD_CASES = [(2, TRAIN_SEQ, 4, 512, torch.bfloat16, {}),
+                   (1, TRAIN_SEQ, 4, 512, torch.bfloat16, {"f_bias": 3.0}),
+                   (1, 300, 4, 512, torch.bfloat16, {}),
+                   (1, 37, 2, 512, torch.bfloat16, {}),
                    (1, 300, 4, 512, torch.bfloat16, {"i_shift": -3.0}),
                    (2, 200, 4, 512, torch.bfloat16, {"fused": True}),
                    (2, 100, 2, 16, torch.float32, {}),
@@ -1235,11 +1258,14 @@ def phase_scan_backward(gen):
     backward (rglru_scan_bwd_ref); the mLSTM forward's row stats against
     the plain ones (mlstm_stats_check) and its backward's dq, dk, dv, d
     log_i, d log_f each within BWD_TOL of the largest value of the plain
-    backward (mlstm_bwd_ref) in f32 on the same values and stats; two
-    launches of every case give the same bits."""
+    backward (mlstm_bwd_ref) in f32 on the same values and stats, and the
+    tensor-core variant's also within TWIN_TOL of its arithmetic in plain
+    PyTorch (mlstm_bwd_split_ref); two launches of every case give the
+    same bits."""
     from repro_torch.kernels.mlstm_scan import backward as ml_backward
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
-    from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref
+    from repro_torch.kernels.mlstm_scan.ref import (mlstm_bwd_ref,
+                                                    mlstm_bwd_split_ref)
     from repro_torch.kernels.rglru_scan import backward as rg_backward
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     from repro_torch.kernels.rglru_scan.ref import (
@@ -1293,18 +1319,30 @@ def phase_scan_backward(gen):
                              out.float(), dout.float(), (lse, sg),
                              rows=BWD_ROWS)
         errs = [rel_err(g, w) for g, w in zip(got, want)]
+        del want
         if max(errs) > BWD_TOL[dtype]:
             raise AssertionError(f"{name}: max |kernel - plain| / max "
                                  f"|plain| for dq, dk, dv, d log_i, d log_f "
                                  f"= {errs} (BWD_TOL {BWD_TOL[dtype]})")
+        variant = ml_backward.plan(b, s, h, d, dtype)
+        twin = None
+        if variant == "wgmma":
+            emul = mlstm_bwd_split_ref(q, k, v, log_i, log_f, out, dout,
+                                       (lse, sg))
+            twin = [rel_err(g, e) for g, e in zip(got, emul)]
+            del emul
+            if any(e > tol for e, tol in zip(twin, TWIN_TOL)):
+                raise AssertionError(f"{name}: off mlstm_bwd_split_ref: "
+                                     f"{twin} (TWIN_TOL {TWIN_TOL})")
         rows.append({"kernel": "mlstm_bwd", "shape": [b, s, h, d],
                      "dtype": str(dtype).split(".")[-1], "flags": kw,
+                     "variant": variant, "rel_err_split_ref": twin,
                      "forward_variant": ml_kernel.plan(b, s, h, d,
                                                        dtype).variant,
                      "sg_zero_share": float((sg == 0).float().mean()),
                      "stats_err_over_band": ratio, "stats_tie_rows": ties,
                      "rel_err_dq_dk_dv_dli_dlf": errs})
-        del ops, out, lse, sg, dout, got, again, want
+        del ops, out, lse, sg, dout, got, again
     return rows
 
 
@@ -1448,13 +1486,47 @@ def time_scan_bwd(gen, b, s, w):
                        "bound_by": by, "max_abs_err": err})
 
 
+def kernel_ms(calls, iters, counts=None):
+    """Device ms a launch of each device kernel by name, torch.profiler
+    over ``iters`` calls cycling through ``calls``, each kernel launching
+    once a call (a few kernels a call: key_averages() is quick here).  A
+    launch's time is the kernel's total over the launches the profiler
+    recorded of it, which ``counts`` (a dict) receives by name: divided
+    by ``iters``, the totals of 16 calls in this script's timing phase
+    came to about half the call's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for call in calls[:2]:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
+    if counts is not None:
+        counts.update({e.key[:90]: e.count for e in events})
+    return {e.key[:90]: e.self_device_time_total / 1e3 / e.count
+            for e in events}
+
+
+#: the mLSTM backward's device kernels by their names' distinct parts
+MLSTM_BWD_KERNELS = {"cumsum": "mlstm_bwd_cumsum",
+                     "planes": "mlstm_bwd_planes", "delta": "mlstm_bwd_prep",
+                     "dkdv": "mlstm_bwd_dkdv", "dq": "mlstm_bwd_dq",
+                     "finish": "mlstm_bwd_finish"}
+
+
 def time_mlstm_bwd(gen, b, s, h, d, iters=16):
     """The mLSTM backward at xlstm-350m's training microbatch (bf16, the
     stats and output of one tensor-core forward launch a set) over
     TIMING_ROTATION / 4 operand sets, beside its plain version
     (mlstm_bwd_ref in f32 on the same values, given the kernel's stats,
     as the checks evaluate it); each checked first against the plain
-    backward.  No library call: no PyTorch call computes the mLSTM or its
+    backward; each of its device kernels apart (``kernels_ms``, the
+    profiler).  No library call: no PyTorch call computes the mLSTM or its
     gradient."""
     from repro_torch.kernels.mlstm_scan import backward as ml_backward
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
@@ -1480,7 +1552,21 @@ def time_mlstm_bwd(gen, b, s, h, d, iters=16):
         err = max([err] + [float((g.float() - w).abs().max())
                            for g, w in zip(got, want)])
     bound, by = mlstm_bwd_bound_ms(b, s, h, d, 2)
-    return with_share({**time_pair(kern, plain, iters),
+    counts = {}
+    by_name = kernel_ms(kern, iters, counts)
+    split = {key: sum(ms for name, ms in by_name.items() if sub in name)
+             for key, sub in MLSTM_BWD_KERNELS.items()}
+    recorded = {key: sum(n for name, n in counts.items() if sub in name)
+                for key, sub in MLSTM_BWD_KERNELS.items()}
+    return with_share({"variant": ml_backward.plan(b, s, h, d,
+                                                   torch.bfloat16),
+                       **time_pair(kern, plain, iters),
+                       "kernels_ms": {k: v for k, v in split.items() if v},
+                       # launches the profiler recorded of each, over
+                       # kernels_calls calls
+                       "kernels_recorded": {k: n for k, n in
+                                            recorded.items() if n},
+                       "kernels_calls": iters,
                        "library_ms": None, "bound_ms": bound,
                        "bound_by": by, "max_abs_err": err})
 
@@ -2733,11 +2819,13 @@ def train_launches(cfg, steps):
     flash forward (tensor cores, lse) and backward (the tensor-core
     variant at head dim 256) once, each recurrent layer the RG-LRU scan
     and its backward once, each mLSTM layer the mLSTM (tensor cores,
-    stats) and its backward once."""
+    stats) and its backward (the tensor-core variant at head dim 512)
+    once."""
     from repro_torch.models import hybrid, xlstm
     calls = max(1, cfg.microbatches) * steps
     bwd = {"flash_attention_bwd.wgmma": 0, "flash_attention_bwd.simt": 0,
-           "rglru_scan_bwd": 0, "mlstm_bwd": 0}
+           "rglru_scan_bwd": 0, "mlstm_bwd": 0, "mlstm_bwd.wgmma": 0,
+           "mlstm_bwd.simt": 0}
     if cfg.family == "hybrid":
         unit, n_super, tail = hybrid._pattern(cfg)
         attn = n_super * unit.count("attn") * calls
@@ -2749,7 +2837,7 @@ def train_launches(cfg, steps):
         unit, n_super = xlstm._pattern(cfg)
         ml = n_super * unit.count("mlstm") * calls
         return {**lm_launches(mlstm=ml), **bwd, "flash_attention_bwd": 0,
-                "mlstm_bwd": ml}
+                "mlstm_bwd": ml, "mlstm_bwd.wgmma": ml}
     calls *= cfg.num_layers
     return {**lm_launches(wgmma=2 * calls), **bwd,
             "flash_attention_bwd": calls,
@@ -2758,13 +2846,14 @@ def train_launches(cfg, steps):
 
 def train_counted(run):
     """``run()`` with the LM kernels' launch counts (forwards and
-    backwards, flash_attention's also by variant) zeroed just before it
-    and read just after."""
+    backwards, flash_attention's and the mLSTM backward's also by variant)
+    zeroed just before it and read just after."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.mlstm_scan import backward as ml_backward
     from repro_torch.kernels.rglru_scan import backward as rg_backward
     counters = (fa_backward.LAUNCHES, fa_backward.VARIANT_CALLS,
-                rg_backward.LAUNCHES, ml_backward.LAUNCHES)
+                rg_backward.LAUNCHES, ml_backward.LAUNCHES,
+                ml_backward.VARIANT_CALLS)
     for c in counters:
         for key in c:
             c[key] = 0
@@ -2775,6 +2864,8 @@ def train_counted(run):
                      for key, n in fa_backward.VARIANT_CALLS.items()})
     launches.update(rg_backward.LAUNCHES)
     launches.update(ml_backward.LAUNCHES)
+    launches.update({f"mlstm_bwd.{key}": n
+                     for key, n in ml_backward.VARIANT_CALLS.items()})
     return out, launches
 
 
@@ -3072,6 +3163,9 @@ def build_all():
                     (ml_backward, "mlstm_bwd_dkdv_kernel"),
                     (ml_backward, "mlstm_bwd_dq_kernel"),
                     (ml_backward, "mlstm_bwd_finish_kernel"),
+                    (ml_backward, "mlstm_bwd_planes_kernel"),
+                    (ml_backward, "mlstm_bwd_dkdv_wgmma_kernel"),
+                    (ml_backward, "mlstm_bwd_dq_wgmma_kernel"),
                     (fa_backward, "fa_bwd_delta_kernel"),
                     (fa_backward, "fa_bwd_dkdv_wgmma_kernel"),
                     (fa_backward, "fa_bwd_sum_kernel"),
@@ -3213,7 +3307,8 @@ def main(argv=None) -> int:
     for key in ("rglru_scan", "mlstm"):
         launches[key] += sum(t[key] for t in train.values())
     for key in ("flash_attention_bwd", "flash_attention_bwd.wgmma",
-                "flash_attention_bwd.simt", "rglru_scan_bwd", "mlstm_bwd"):
+                "flash_attention_bwd.simt", "rglru_scan_bwd", "mlstm_bwd",
+                "mlstm_bwd.wgmma", "mlstm_bwd.simt"):
         launches[key] = sum(t[key] for t in train.values())
 
     # 7. timing at the shapes the main path gave each kernel
@@ -3393,9 +3488,8 @@ def main(argv=None) -> int:
     bwd_src, bwd_replaces = sources["flash_attention_bwd"]
     tc_src = bwd_src.replace("flash_attention_bwd.cu", "flash_bwd_wgmma.cuh")
 
-    def instances(*names):
-        return [row for row in ptxas[fa_bwd_lib]
-                if row["kernel"] in names]
+    def instances(*names, lib=fa_bwd_lib):
+        return [row for row in ptxas[lib] if row["kernel"] in names]
 
     for kern in kernels:
         if kern["name"] == "flash_attention_bwd":
@@ -3416,6 +3510,22 @@ def main(argv=None) -> int:
                 {"variant": "simt", "dtype": "float32", "head_dim": 256,
                  **entry("flash_attention_bwd", bwd_src, bwd_replaces,
                          bwd_simt, launches["flash_attention_bwd.simt"])}]
+        if kern["name"] == "mlstm_bwd":
+            # the tensor-core variant at xlstm-350m's training microbatch,
+            # each of its device kernels apart, with ptxas's registers and
+            # spills
+            ml_src, ml_replaces = sources["mlstm_bwd"]
+            kern["variants"] = [
+                {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 512,
+                 **entry("mlstm_bwd", ml_src.replace(
+                     "mlstm_scan_bwd.cu", "mlstm_bwd_wgmma.cuh"),
+                     ml_replaces, timed["mlstm_bwd"],
+                     launches["mlstm_bwd.wgmma"]),
+                 "kernels_ms": timed["mlstm_bwd"]["kernels_ms"],
+                 "ptxas": instances("mlstm_bwd_dkdv_wgmma_kernel",
+                                    "mlstm_bwd_dq_wgmma_kernel",
+                                    "mlstm_bwd_planes_kernel",
+                                    lib="mlstm_scan_bwd.cu")}]
     took("timing")
     emit({"phase": "durations", "seconds": seconds,
           "total_s": sum(seconds.values())})

@@ -49,24 +49,6 @@ PREFILL_SHAPE = (1, 2048, 2048, 48, 8, 128)
 SETS = 4
 
 
-def kernel_ms(calls, iters):
-    """Device ms a call of each device kernel by name, torch.profiler over
-    ``iters`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for call in calls[:2]:
-        call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            calls[i % len(calls)]()
-        torch.cuda.synchronize()
-    return {e.key[:90]: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0}
-
-
 def operands(gen, b, sq, sk, h, kh, d):
     return [cs.fa_operands(gen, b, sq, sk, h, kh, d, torch.bfloat16)
             for _ in range(SETS)]
@@ -101,7 +83,7 @@ def time_backward(gen, shape, window, iters):
     return {"shape": list(shape), "window": window,
             "plan": {"variant": pl.variant, "splits": pl.splits},
             "ms": cs.device_time_ms(calls, iters),
-            "kernels": kernel_ms(calls, iters),
+            "kernels": cs.kernel_ms(calls, iters),
             "sdpa_ms": cs.call_time_ms([sdpa_bwd(*x) for x in sets], iters)}
 
 

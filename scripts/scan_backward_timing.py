@@ -13,17 +13,21 @@ finds its inputs cold in L2:
   4, 512) and training microbatch (2, 2048, 4, 512), bf16, without row
   stats (serving) and, where the checkout has them, with (training);
 - ``mlstm_bwd_ms``: device ms a call of ``mlstm_bwd_cuda`` at (2, 2048,
-  4, 512) bf16, and ``mlstm_bwd_kernels``: device ms a call of each of its
-  kernels by name (the pre-pass, dK/dV, dQ, the reverse cumulative sum),
-  from torch.profiler over ``--iters`` calls;
+  4, 512) bf16 (``mlstm_bwd_variant``: the tensor-core variant since it
+  exists, the CUDA cores before), and ``mlstm_bwd_kernels``: device ms a
+  call of each of its kernels by name (F's cumulative sum, the pre-pass,
+  dK/dV, dQ, the reverse cumulative sum), from torch.profiler over
+  ``--iters`` calls (``mlstm_bwd_kernel_counts``: the launches it
+  recorded of each);
 - ``rglru_bwd_ms``: device ms a call of ``rglru_scan_bwd_cuda`` at
   recurrentgemma-9b's training microbatch (1, 2048, 4096) f32, beside the
   forward kernel at the same shape (``rglru_fwd_ms``).
 
 ``--src`` imports the package from another checkout's ``src/`` (the
-parent of a change, to compare the forward in one call); with
-``--forward-only`` only the mLSTM forward is timed, which any checkout
-has."""
+parent of a change; ``module`` in the line says which was imported): run
+the script on the parent and on the change in one call (parent, change,
+change, parent) to compare them on one card.  With ``--forward-only``
+only the mLSTM forward is timed, which any checkout has."""
 from __future__ import annotations
 
 import argparse
@@ -37,7 +41,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (adds this checkout's src/ to the path)
-from flash_backward_timing import kernel_ms  # noqa: E402
 
 SERVE_SHAPE = (1, 2048, 4, 512)
 TRAIN_SHAPE = (2, 2048, 4, 512)
@@ -62,7 +65,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     has_stats = "with_stats" in ml_kernel.mlstm_cuda.__code__.co_varnames
-    row = {"src": args.src, "nvidia_smi": cs.nvidia_smi_line(),
+    row = {"src": args.src, "module": ml_kernel.__file__,
+           "nvidia_smi": cs.nvidia_smi_line(),
            "device": torch.cuda.get_device_name(0), "iters": args.iters,
            "forward_ms": {}}
     for name, shape in (("serve", SERVE_SHAPE), ("train", TRAIN_SHAPE)):
@@ -88,8 +92,13 @@ def main(argv=None) -> int:
                                device="cuda").to(torch.bfloat16)
             sets.append((*ops, out, dout, lse, sg))
         calls = [lambda x=x: ml_backward.mlstm_bwd_cuda(*x) for x in sets]
+        row["mlstm_bwd_variant"] = ml_backward.plan(
+            *TRAIN_SHAPE, torch.bfloat16) if hasattr(ml_backward, "plan") \
+            else "simt"
         row["mlstm_bwd_ms"] = cs.device_time_ms(calls, args.iters)
-        row["mlstm_bwd_kernels"] = kernel_ms(calls, args.iters)
+        row["mlstm_bwd_kernel_counts"] = {}
+        row["mlstm_bwd_kernels"] = cs.kernel_ms(
+            calls, args.iters, row["mlstm_bwd_kernel_counts"])
         del sets, calls
         scans = []
         for _ in range(SETS):

@@ -219,6 +219,24 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  // D (64 x 16, f32) {+}= A (64 x 16, bf16, shared) . B (16 x 16, bf16,
+  // shared); TB: B is MN-major (1) or K-major (0)
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <>
 struct Wgmma<32> {
   // D (64 x 32, f32) {+}= A (64 x 16, bf16, shared) . B (16 x 32, bf16,
   // shared); TB: B is MN-major (1) or K-major (0)

@@ -57,6 +57,13 @@
 //  4. finish: one warp per (b, h): d log f by a reverse scan of dF, 32
 //     rows at a time from the end.
 //
+// Bf16 at head dim 512 (xlstm-350m) takes the tensor cores instead
+// (mlstm_bwd_wgmma.cuh, entry point mlstm_bwd_wgmma_launch): 0., then a
+// planes pass (delta and the gates' exp2 terms as padded (B * H, S)
+// planes), the wgmma dK/dV and dQ kernels, then 4.; backward.py: plan
+// picks it.  The kernels below stay for f32 at every head dim and bf16 at
+// 16, 32 and 64: their bf16 instance at 512 is not built.
+//
 // Bound on this card: operations.  Seven products of D per valid (query,
 // key) pair (sc and dP in each of dK/dV and dQ, dv, dk, dq): 14 D flops,
 // ~120 GFLOP at xlstm-350m's training microbatch (2, 2048, 4, 512); in
@@ -72,7 +79,9 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
+#include "mlstm_bwd_wgmma.cuh"
 #include "mlstm_simt.cuh"
 
 namespace {
@@ -462,6 +471,42 @@ mlstm_bwd_dq_kernel(const Params p) {
   }
 }
 
+// 1'. the tensor-core path's planes (3, B * H, sp), one warp a row: delta_t
+// = sg_t (dO_t . o_t), c_t = (F_t - L_t) log2(e) + log2(D^-1/2) and g_t =
+// (i_t - F_t) log2(e); rows in [S, sp) get zeros (the products mask them)
+__global__ void __launch_bounds__(32 * kPrepRows)
+mlstm_bwd_planes_kernel(const Params p, float* planes, int sp,
+                        float log2_scale) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int D = mlstm_bwd_wgmma::D;
+  const int lane = threadIdx.x % 32;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kPrepRows +
+                    threadIdx.x / 32;
+  if (t >= sp) return;
+  const int64_t hh = blockIdx.y, bb = blockIdx.z;
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * p.h * sp;
+  float* row = planes + (bb * p.h + hh) * sp + t;
+  if (t >= p.s) {
+    if (lane == 0) row[0] = row[plane] = row[2 * plane] = 0.0f;
+    return;
+  }
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) +
+                           bb * p.o_sb + t * p.o_ss + hh * p.o_sh;
+  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(p.g) +
+                           bb * p.g_sb + t * p.g_ss + hh * p.g_sh;
+  float acc = 0.0f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_f32(g[d]), to_f32(o[d]), acc);
+  const float dot = warp_sum(acc);
+  if (lane == 0) {
+    const int64_t at = plane_at(p, bb, t, hh);
+    const float f = p.f[at];
+    row[0] = p.sg[at] * dot;
+    row[plane] = (f - p.lse[at]) * kLog2e + log2_scale;
+    row[2 * plane] = (p.li[at] - f) * kLog2e;
+  }
+}
+
 // 4. d log f_j = sum_{t >= j} (rowsum_t - d log i_t): one warp per (b, h),
 // 32 rows at a time from the end, each lane's next row loaded before the
 // current rows' scan
@@ -530,6 +575,8 @@ int launch(const Params& p, long long b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 at every head dim; bf16 only where the tensor-core variant does not
+// reach (head dim 16, 32, 64)
 template <typename T>
 int launch_dim(const Params& p, int head_dim, long long b,
                cudaStream_t stream) {
@@ -537,16 +584,19 @@ int launch_dim(const Params& p, int head_dim, long long b,
     case 16: return launch<T, 16>(p, b, stream);
     case 32: return launch<T, 32>(p, b, stream);
     case 64: return launch<T, 64>(p, b, stream);
-    case 512: return launch<T, 512>(p, b, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if constexpr (std::is_same<T, float>::value) {
+    if (head_dim == 512) return launch<T, 512>(p, b, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  dtype 0 is float32, 1 is
-// bfloat16 (q, k, v, o, dO, and dq, dk, dv); q, k, v, o and dO have a
-// contiguous head dim and the given strides (in elements); lf (log f),
+// Plain C entry point (bound with ctypes).  dtype 0 is float32 (head dim
+// 16, 32, 64, 512), 1 is bfloat16 (16, 32, 64) (q, k, v, o, dO, and dq,
+// dk, dv); q, k, v, o and dO have a contiguous head dim and the given
+// strides (in elements); lf (log f),
 // li, lse and sg are contiguous (B,S,H) f32 (lse and sg from the forward
 // launch); f, delta and rowsum are (B,S,H) f32 scratch; dq, dk, dv
 // contiguous (B,S,H,D), dli and dlf contiguous (B,S,H) f32; scale is
@@ -604,4 +654,75 @@ extern "C" int mlstm_bwd_launch(
   if (dtype == 0) return launch_dim<float>(p, head_dim, b, st);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, head_dim, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry point of the tensor-core path (bf16, head dim 512): the
+// operands as mlstm_bwd_launch's (rowsum the row sums' (B,S,H) f32
+// scratch), planes a (3, B * H, sp) f32 scratch, sp = S rounded up to 64;
+// q, k, v and dO 16-byte aligned (TMA); log2_scale is log2(D^-1/2).  F's
+// cumulative sum, the planes, dK/dV, dQ and d log f's reverse sum on
+// `stream`; does not synchronise, and returns 0, a cudaError_t, or a
+// hopper:: status code (negative) when a tensor map cannot be encoded.
+extern "C" int mlstm_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* g, const void* lf, void* f, const void* li, const void* lse,
+    const void* sg, void* rowsum, void* planes, void* dq, void* dk,
+    void* dv, void* dli, void* dlf, long long b, long long s, long long h,
+    long long sp, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, long long g_sb, long long g_ss, long long g_sh,
+    float log2_scale, void* stream) {
+  namespace tc = mlstm_bwd_wgmma;
+  if (b <= 0 || s <= 0 || h <= 0 || b > 65535 || h > 65535 ||
+      sp != (s + tc::kBlock - 1) / tc::kBlock * tc::kBlock ||
+      2 * sp / tc::kBlock * b * h > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q, k, v, o, g,
+           static_cast<const float*>(lf),
+           static_cast<float*>(f),
+           static_cast<const float*>(li),
+           static_cast<const float*>(lse),
+           static_cast<const float*>(sg),
+           nullptr,
+           static_cast<float*>(rowsum),
+           dq, dk, dv,
+           static_cast<float*>(dli),
+           static_cast<float*>(dlf),
+           s, h,
+           q_sb, q_ss, q_sh,
+           k_sb, k_ss, k_sh,
+           v_sb, v_ss, v_sh,
+           o_sb, o_ss, o_sh,
+           g_sb, g_ss, g_sh,
+           0.0f,
+           false};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned bh = static_cast<unsigned>(b * h);
+  mlstm_bwd_cumsum_kernel<<<bh, 32, 0, st>>>(p);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  mlstm_bwd_planes_kernel<<<dim3(static_cast<unsigned>(sp / kPrepRows),
+                                 static_cast<unsigned>(h),
+                                 static_cast<unsigned>(b)),
+                            32 * kPrepRows, 0, st>>>(
+      p, static_cast<float*>(planes), static_cast<int>(sp), log2_scale);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const tc::Params tp{static_cast<const float*>(planes),
+                      static_cast<__nv_bfloat16*>(dq),
+                      static_cast<__nv_bfloat16*>(dk),
+                      static_cast<__nv_bfloat16*>(dv),
+                      static_cast<float*>(dli),
+                      static_cast<float*>(rowsum),
+                      static_cast<int>(s),
+                      static_cast<int>(h),
+                      static_cast<int>(bh),
+                      static_cast<int>(sp)};
+  const int tc_rc = tc::launch(q, k, v, g, tp, b, q_sb, q_ss, q_sh, k_sb,
+                               k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss,
+                               g_sh, st);
+  if (tc_rc != 0) return tc_rc;
+  mlstm_bwd_finish_kernel<<<bh, 32, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

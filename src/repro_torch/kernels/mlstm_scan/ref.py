@@ -154,6 +154,75 @@ def mlstm_bwd_ref(q, k, v, log_i, log_f, out, dout, stats=None, *,
     return dq, dk, dv, col, dlf
 
 
+def mlstm_bwd_split_ref(q, k, v, log_i, log_f, out, dout, stats):
+    """The tensor-core backward's arithmetic (``csrc/mlstm_bwd_wgmma.cuh``)
+    in plain PyTorch, on the forward's row stats ``stats = (L, sg)``:
+
+    - ``c_t = (F_t - L_t) log2(e) + log2(D^-1/2)``, ``g_s = (i_s - F_s)
+      log2(e)`` and ``W = 2^(c_t + g_s)`` where ``s <= t``, else 0 (W is E
+      with the scale folded in);
+    - S = q.k and dP = dO.v in f32 chains of 128 head dims, added as ((c0
+      + c1) + (c2 + c3)) at D 512 (chains in pairs, then the pairs' sums,
+      in general);
+    - ``P = W S``, ``dS = W (dP - delta)``, ``delta_t = sg_t (dO_t.o_t)``;
+    - dV and dK from P and dS rounded to bf16 (one term each), summed over
+      stages of 16 query rows in order; dQ from dS over stages of 16 keys
+      in order.  A key block or output half of the kernel
+      sums the same stages in the same order (the stages before its
+      diagonal add exact zeros), so neither appears here;
+    - d log_i the column sums of ``dlogw = P (dP - delta)`` in f32 (P not
+      rounded), stage by stage; the row sums the same over key stages;
+      d log_f the reverse cumulative sum of their differences.
+
+    q, k, v, out, dout (B,S,H,D) (the kernel's are bf16; f32 operands
+    holding bf16 values give its arithmetic before the outputs'
+    rounding), log_i, log_f, L, sg (B,S,H) f32 -> dq, dk, dv in q's dtype,
+    d log_i, d log_f f32 (B,S,H).  Every pair of the sequence at once:
+    (B, S, S, H) tensors, for small S or the card."""
+    b, s, h, d = q.shape
+    tile, slice_k = 16, 128                 # a stage's rows or keys; a chain
+    log2e = 1.0 / math.log(2.0)
+    lse, sg = stats
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
+    fcum = torch.cumsum(log_f, dim=1)
+    c = (fcum - lse) * log2e + math.log2(d ** -0.5)
+    g = (log_i - fcum) * log2e
+    pos = torch.arange(s, device=q.device)
+    causal = pos[None, :] <= pos[:, None]                   # (t, s)
+    w = torch.where(causal[None, :, :, None],
+                    torch.exp2(c[:, :, None, :] + g[:, None, :, :]), 0.0)
+
+    def chains(x, y):
+        parts = [torch.einsum("bthd,bshd->btsh", x[..., c0:c0 + slice_k],
+                              y[..., c0:c0 + slice_k])
+                 for c0 in range(0, d, slice_k)]
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] if i + 1 < len(parts)
+                     else parts[i] for i in range(0, len(parts), 2)]
+        return parts[0]
+
+    delta = sg * (gf * of).sum(dim=-1)
+    p = w * chains(qf, kf)                                   # (B,t,s,H)
+    dpd = chains(gf, vf) - delta[:, :, None, :]
+    dlogw = p * dpd
+    pb = p.to(torch.bfloat16).float()
+    db = (w * dpd).to(torch.bfloat16).float()
+    dq = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    col = torch.zeros((b, s, h), dtype=torch.float32, device=q.device)
+    row = torch.zeros_like(col)
+    for t0 in range(0, s, tile):
+        st = slice(t0, t0 + tile)
+        dv += torch.einsum("btsh,bthd->bshd", pb[:, st], gf[:, st])
+        dk += torch.einsum("btsh,bthd->bshd", db[:, st], qf[:, st])
+        col += dlogw[:, st].sum(dim=1)
+        dq += torch.einsum("btsh,bshd->bthd", db[:, :, st], kf[:, st])
+        row += dlogw[:, :, st].sum(dim=2)
+    dlf = (row - col).flip(1).cumsum(1).flip(1)
+    return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), col, dlf)
+
+
 def mlstm_split_ref(q, k, v, log_i, log_f, *, chunk: int,
                     rows: int = 64, slice_k: int = 128):
     """The tensor-core kernel's arithmetic (``csrc/mlstm_wgmma.cuh``) in

@@ -97,6 +97,15 @@ def test_the_shared_header_directory_is_the_packages():
     ("_ZN55_GLOBAL__N__62bea9e3_22_flash_attention_bwd_cu_63886b0a19fa_bwd_"
      "delta_kernelI13__nv_bfloat16Li256EEEvPKvS3_PKfPfS6_llllllllll",
      "fa_bwd_delta_kernel<bf16,256>"),
+    # the mLSTM backward's tensor-core variant: its planes pass and the
+    # dK/dV and dQ kernels, none with a template argument
+    ("_ZN50_GLOBAL__N__1a2b3c4d_17_mlstm_scan_bwd_cu_5e6f7a8b23mlstm_bwd_"
+     "planes_kernelENS_6ParamsEPfif",
+     "mlstm_bwd_planes_kernel"),
+    ("_ZN15mlstm_bwd_wgmma27mlstm_bwd_dkdv_wgmma_kernelE14CUtensorMap_stS0_"
+     "S0_S0_NS_6ParamsE", "mlstm_bwd_dkdv_wgmma_kernel"),
+    ("_ZN15mlstm_bwd_wgmma25mlstm_bwd_dq_wgmma_kernelE14CUtensorMap_stS0_S0_"
+     "S0_NS_6ParamsE", "mlstm_bwd_dq_wgmma_kernel"),
 ])
 def test_ptxas_report_names_each_kernel_instance(mangled, name):
     """chip_smoke.py reads registers and spills per kernel instance from
@@ -108,3 +117,25 @@ def test_ptxas_report_names_each_kernel_instance(mangled, name):
         sys.path.insert(0, root)
     import chip_smoke
     assert chip_smoke.kernel_name(mangled) == name
+
+
+def test_mlstm_backward_ablation_switches_are_the_kernels_own():
+    """scripts/mlstm_bwd_ablation.py times the mLSTM tensor-core backward
+    with #defines set before its source: each switch it sets must be one
+    that mlstm_bwd_wgmma.cuh reads and defaults to 0."""
+    import importlib.util
+    root = Path(__file__).resolve().parent.parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location(
+        "mlstm_bwd_ablation", root / "scripts" / "mlstm_bwd_ablation.py")
+    ablation = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablation)
+    header = (root / "src" / ablation.SOURCE).with_name(
+        "mlstm_bwd_wgmma.cuh").read_text()
+    switches = {s for names in ablation.SWITCHES.values() for s in names}
+    assert ablation.SWITCHES["full"] == ()
+    assert switches
+    for switch in switches:
+        assert f"#ifndef {switch}\n#define {switch} 0\n#endif" in header
+        assert f"{switch} != 0" in header

@@ -166,11 +166,14 @@ def test_backward_bound_at_recurrentgemma_training_shape():
                            "flash_attention_bwd.simt": 0,
                            "flash_attention_bwd.wgmma": 72,
                            "rglru_scan": 144, "rglru_scan_bwd": 144,
-                           "mlstm": 0, "mlstm_bwd": 0}),
-    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, all on the tensor cores
+                           "mlstm": 0, "mlstm_bwd": 0,
+                           "mlstm_bwd.wgmma": 0, "mlstm_bwd.simt": 0}),
+    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, all on the tensor
+    # cores, the backward too (bf16 at head dim 512)
     ("xlstm-350m", {"flash_attention": 0, "flash_attention_bwd": 0,
                     "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 42,
-                    "mlstm.wgmma": 42, "mlstm_bwd": 42}),
+                    "mlstm.wgmma": 42, "mlstm_bwd": 42,
+                    "mlstm_bwd.wgmma": 42, "mlstm_bwd.simt": 0}),
 ])
 def test_recurrent_train_launch_counts(arch, want):
     """The recurrent models' train phase: depth, batch and steps as cut in
@@ -193,10 +196,12 @@ def test_recurrent_train_launch_counts(arch, want):
         # 32 key blocks of 64: 8 runs of 2 heads give 256 blocks
         assert fa_bwd.plan(*args) == fa_bwd.Plan("wgmma", 8)
     else:
+        from repro_torch.kernels.mlstm_scan import backward as ml_backward
         from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
         assert (cfg.num_layers, mb) == (24, 2)
         assert ml_kernel.plan(mb, seq, 4, 512,
                               torch.bfloat16).variant == "wgmma"
+        assert ml_backward.plan(mb, seq, 4, 512, torch.bfloat16) == "wgmma"
 
 
 def test_scan_backward_bounds():

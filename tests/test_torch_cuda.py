@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention.ref import (
 from repro_torch.kernels.mlstm_scan import backward as ml_backward
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
-from repro_torch.kernels.mlstm_scan.ref import mlstm_bwd_ref, mlstm_ref
+from repro_torch.kernels.mlstm_scan.ref import (mlstm_bwd_ref,
+                                                mlstm_bwd_split_ref,
+                                                mlstm_ref)
 from repro_torch.kernels.rglru_scan import backward as rg_backward
 from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -1339,6 +1341,111 @@ def test_mlstm_backward_matches_plain_version(cuda, b, s, h, d, dtype,
         err = float((x.float() - w).abs().max())
         assert err <= tol * float(w.abs().max()), (name, err,
                                                    float(w.abs().max()))
+
+
+# (b, s, h, flags): the tensor-core backward off xlstm-350m's training
+# shape: S no multiple of 64, S under one 64-key block, input gates low
+# enough that sg = 0 on most rows, q, k, v as views of one fused
+# projection, and the model's forget gates (logsigmoid(3 + 2.6 N(0, 1)):
+# F ~ -600 at S = 2048)
+MLSTM_TC_BWD_CASES = [(1, 300, 4, {}), (1, 37, 2, {}),
+                      (1, 300, 4, {"i_shift": -3.0}),
+                      (2, 200, 4, {"fused": True}),
+                      (1, 2048, 4, {"f_bias": 3.0})]
+# chip_smoke.py's TWIN_TOL: the tensor-core backward against its
+# arithmetic in plain PyTorch (mlstm_bwd_split_ref), dq, dk, dv (bf16: one
+# unit in the last place of the largest value is up to 2^-7 of it),
+# d log_i, d log_f
+TWIN_TOL = (8e-3, 8e-3, 8e-3, 2e-4, 2e-4)
+
+
+def _mlstm_tc_inputs(dev, b, s, h, seed, i_shift=0.0, fused=False,
+                     f_bias=None):
+    """bf16 q, k, v at head dim 512 (with ``fused`` views of one (B, S, 3,
+    H, 512) tensor), log i ~ N(i_shift, 1), log f = -|N(0, 1)| / 2 or,
+    with ``f_bias``, logsigmoid(f_bias + 2.6 N(0, 1))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if fused:
+        q, k, v = torch.randn((b, s, 3, h, 512), generator=g,
+                              device=dev).bfloat16().unbind(2)
+    else:
+        q, k, v = (torch.randn((b, s, h, 512), generator=g,
+                               device=dev).bfloat16() for _ in range(3))
+    log_i = torch.randn((b, s, h), generator=g, device=dev) + i_shift
+    log_f = torch.randn((b, s, h), generator=g, device=dev)
+    log_f = -log_f.abs() * 0.5 if f_bias is None else \
+        torch.nn.functional.logsigmoid(f_bias + 2.6 * log_f)
+    return q, k, v, log_i, log_f
+
+
+@pytest.mark.parametrize("b,s,h,flags", MLSTM_TC_BWD_CASES)
+def test_mlstm_tensor_core_backward_matches_plain_version(cuda, b, s, h,
+                                                          flags):
+    """bf16 at head dim 512 takes the tensor-core variant (the plan and
+    VARIANT_CALLS say so): dq, dk, dv, d log_i and d log_f within 2e-2 of
+    the largest value of the plain backward (mlstm_bwd_ref) in f32 on the
+    same values and the forward launch's stats, and within TWIN_TOL of the
+    kernels' arithmetic in plain PyTorch (mlstm_bwd_split_ref); two
+    launches give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _mlstm_tc_inputs(cuda, b, s, h, seed=s + b, **flags)
+    out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dout = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    assert ml_backward.plan(b, s, h, 512, torch.bfloat16) == "wgmma"
+    before = dict(ml_backward.VARIANT_CALLS)
+    got = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+    again = ml_backward.mlstm_bwd_cuda(*ops, out, dout, lse, sg)
+    torch.cuda.synchronize()
+    assert ml_backward.VARIANT_CALLS == {
+        "wgmma": before["wgmma"] + 2, "simt": before["simt"]}
+    q, k, v, log_i, log_f = ops
+    want = mlstm_bwd_ref(q.float(), k.float(), v.float(), log_i, log_f,
+                         out.float(), dout.float(), (lse, sg))
+    twin = mlstm_bwd_split_ref(q, k, v, log_i, log_f, out, dout, (lse, sg))
+    for name, x, y, w, e, tol in zip(("dq", "dk", "dv", "dli", "dlf"), got,
+                                     again, want, twin, TWIN_TOL):
+        assert torch.equal(x, y), name
+        assert x.dtype == e.dtype, name
+        err = float((x.float() - w).abs().max())
+        assert err <= 2e-2 * float(w.abs().max()), (name, err)
+        err = float((x.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("d,dtype,variant", [
+    (512, torch.bfloat16, "wgmma"), (512, torch.float32, "simt"),
+    (64, torch.bfloat16, "simt"), (16, torch.float32, "simt")])
+def test_mlstm_backward_counts_its_variant(cuda, d, dtype, variant):
+    """Each call adds one to LAUNCHES and to the plan's variant."""
+    ops = _mlstm_inputs(cuda, 1, 70, 2, d, dtype, seed=d)
+    out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+    before = (ml_backward.LAUNCHES["mlstm_bwd"],
+              dict(ml_backward.VARIANT_CALLS))
+    ml_backward.mlstm_bwd_cuda(*ops, out, torch.ones_like(out), lse, sg)
+    torch.cuda.synchronize()
+    assert ml_backward.plan(1, 70, 2, d, dtype) == variant
+    assert ml_backward.LAUNCHES["mlstm_bwd"] == before[0] + 1
+    assert ml_backward.VARIANT_CALLS == {
+        key: n + (key == variant) for key, n in before[1].items()}
+
+
+def test_mlstm_tensor_core_backward_raises_where_it_cannot_launch(cuda):
+    """A bf16 head-dim-512 call whose q is not 16-byte aligned (TMA) raises
+    before any launch: no fallback to the CUDA-core variant or the plain
+    version."""
+    ops = _mlstm_tc_inputs(cuda, 1, 64, 2, seed=5)
+    out, lse, sg = ml_kernel.mlstm_cuda(*ops, with_stats=True)
+    wide = torch.zeros((1, 64, 2, 520), device=cuda, dtype=torch.bfloat16)
+    wide[..., 1:513] = ops[0]
+    q = wide[..., 1:513]
+    before = (ml_backward.LAUNCHES["mlstm_bwd"],
+              dict(ml_backward.VARIANT_CALLS))
+    with pytest.raises(ValueError, match="misaligned"):
+        ml_backward.mlstm_bwd_cuda(q, *ops[1:], out, torch.ones_like(out),
+                                   lse, sg)
+    assert (ml_backward.LAUNCHES["mlstm_bwd"],
+            ml_backward.VARIANT_CALLS) == before
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])

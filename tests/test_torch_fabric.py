@@ -5,16 +5,21 @@ bounds, single-flight adoptions, bus counters and catalogue epochs; the
 bus drops the same messages for one seed; and an L2 checkpoint or a
 fragment registry saved by either package loads in the other."""
 import dataclasses
+import itertools
+import time
+import types
 
 import numpy as np
 import pytest
 
 from repro import fabric as ref_fabric
+from repro.core import jse as ref_jse
 from repro.core import merge as ref_merge
 from repro.fabric import gossip as ref_gossip
 from repro.fabric import leases as ref_leases
 from repro.service import planner as ref_planner
 from repro_torch import fabric as port_fabric
+from repro_torch.core import jse as port_jse
 from repro_torch.core import merge as port_merge
 from repro_torch.fabric import gossip as port_gossip
 from repro_torch.fabric import leases as port_leases
@@ -60,6 +65,17 @@ def expr_of(i):
     if i % 3 != 2:
         return HOT[(i // 3) % len(HOT)]
     return f"e_total > {20 + (i % 7) * 10} && count(pt > 15) >= {1 + i % 4}"
+
+
+def packet_clock(monkeypatch, jse):
+    """Give ``jse``'s packet timing a clock that advances 1 ms a read.  The
+    health evidence of a sim fleet is each packet's wall seconds; on the
+    real clock a slow packet (a first compile, a pause of the host) can
+    turn a node degraded in one run and not the next, so the policy's
+    states would differ between the two packages by chance."""
+    ticks = itertools.count()
+    monkeypatch.setattr(jse, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(ticks) * 1e-3, time=time.time))
 
 
 def run_fleet(pkg, case, store, window=8):
@@ -117,8 +133,10 @@ def summary(fleet, gtids, snaps):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_fleet_matches_the_reference(name):
+def test_fleet_matches_the_reference(name, monkeypatch):
     case = CASES[name]
+    packet_clock(monkeypatch, ref_jse)
+    packet_clock(monkeypatch, port_jse)
     ref_store, port_store = stores(n_events=256, seed=0)
     want = summary(*run_fleet("ref", case, ref_store))
     got = summary(*run_fleet("port", case, port_store))
