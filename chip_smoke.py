@@ -151,6 +151,20 @@ Phases, each printing one JSON line:
    logits' spread must stay within LM_REL_TOL, and the top-1 agreement at
    or above LM_TOP1_MIN.  One more generate() under torch.profiler gives the
    device time by kernel and the busy share;
+   brick   — qwen3-14b on the same weights decoding through the
+   grid-brick KV cache (core/brick_attention.py): a cache of 8192 slots
+   on a (1, 4) ("data", "model") mesh emulated on the card, so its 4
+   bricks of 2048 slots each compute a partial softmax that an exact
+   log-sum-exp combine merges (brick_active holds).  A prompt of 8189
+   tokens fills the ring from one batched forward (fill_ring), so every
+   brick holds live tokens; from copies of that cache, 6 teacher-forced
+   decode steps on each mesh write the last 3 slots of brick 3 and then
+   wrap into brick 0.  The (1, 1) decode attends over the ring's filled
+   prefix through B3's decode kernel (40 x 6 = 240 launches, the brick
+   path 0).  Each step's logits must agree within LM_REL_TOL with top-1
+   agreement at least LM_TOP1_MIN, and the first layer's k/v and kpos
+   end bit-equal; ms a step and device launches (profiler, one more
+   step) for both;
 6. prefill — one forward() for each LM: qwen3-14b over 1 x 2048 tokens
    (40 flash launches), recurrentgemma-9b over 1 x 4096 (26 rglru_scan
    and 12 flash launches; the window bites), every flash call on the
@@ -181,20 +195,21 @@ Phases, each printing one JSON line:
    batches of 2048-token rows from the brick pipeline: starcoder2-3b
    whole (30 layers, d_model 3072, 32 (24 real) q heads x 128 over 2 kv
    heads, d_ff 12288, vocab 49152; 6.74 GB of bf16 params; 4
-   microbatches, remat "full", 8 x 2048, 3 steps), recurrentgemma-9b at 3
-   of its 12 (rec, rec, attn) units (9 of 38 layers, 2.83 B params; 8
-   microbatches of 1 x 2048, 3 steps) and xlstm-350m whole (global batch
-   cut to 2 x 2048, one microbatch, 2 steps).  Launch counts by kernel
-   and variant (train_launches; zeroed just before, read just after):
-   starcoder2-3b's flash forward 30 x 4 x 3 x 2 = 720 (the remat
-   recompute doubles it) on ``flash_attention.wgmma`` and its backward
-   360 on ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 3 x 8 x 3 =
-   72 flash forwards (wgmma) and backwards (``flash_attention_bwd.wgmma``
-   at head dim 256, none on ``.simt``) and 6 x 8 x 3 = 144 RG-LRU scans
-   and backwards;
-   xlstm-350m's 21 x 2 = 42 mLSTM forwards (``mlstm.wgmma``) and
-   backwards.  Every backward call of step 1 (B3, B4, B5) is held
-   against its plain backward in f32 (against its f64 value where that
+   microbatches, remat "full", 8 x 2048, 3 steps), recurrentgemma-9b at 5
+   of its 12 (rec, rec, attn) units (15 of 38 layers, 4.02 B params;
+   remat "full" of each super-block; 8 microbatches of 1 x 2048, 3 steps)
+   and xlstm-350m whole (remat "full" of each super-block and the sLSTM
+   loop in chunks of 256 steps; global batch cut to 2 x 2048, one
+   microbatch, 2 steps).  Launch counts by kernel and variant
+   (train_launches; zeroed just before, read just after): starcoder2-3b's
+   flash forward 30 x 4 x 3 x 2 = 720 (the remat recompute doubles it) on
+   ``flash_attention.wgmma`` and its backward 360 on
+   ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 5 x 8 x 3 x 2 = 240
+   flash forwards (wgmma) and 120 backwards (``flash_attention_bwd.wgmma``
+   at head dim 256, none on ``.simt``), 10 x 8 x 3 x 2 = 480 RG-LRU scans
+   and 240 backwards; xlstm-350m's 21 x 2 x 2 = 84 mLSTM forwards
+   (``mlstm.wgmma``) and 42 backwards.  Every backward call of step 1
+   (B3, B4, B5) is held against its plain backward in f32 (against its f64 value where that
    plain backward is off; the RG-LRU backward also bit-equal to its
    chunked order; the mLSTM's on its forward's row stats, held against
    the plain ones: shadow_backward); loss and grad norm finite at every
@@ -205,6 +220,13 @@ Phases, each printing one JSON line:
    (reckoned in phase_train) and, for one more step, the busy share
    under torch.profiler, with each family's kernels listed by name
    (TRAIN_BREAKDOWN);
+   remat_check — one super-block of each recurrent family at full width
+   (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1
+   sLSTM; REMAT_CHECK), one microbatch of its training shape: step 1's
+   gradients with remat "full" and "none" on the same weights and batch
+   must be equal bit for bit (every kernel on the path is deterministic),
+   or, where a leaf differs, within TRAIN_REL_TOL of its largest
+   gradient; "full" launches every forward kernel twice;
    trainer — Trainer with starcoder2-3b at full width and 1 of its 30
    layers (TRAINER_LAYERS), bf16, checkpoints into a temporary directory
    (removed afterwards): a calm run of 4 steps; a run of 2 steps resumed
@@ -238,7 +260,8 @@ Phases, each printing one JSON line:
    backward, with no library call (no PyTorch call computes either); and
    the mLSTM forward writing its row stats, beside the row without;
 9. the kernels line (flash_attention's, rglru_scan's and mlstm's
-   launches summed over every LM path and the train phase; the
+   launches summed over every LM path, the brick phase's (1, 1) decode
+   and the train phase; the
    backwards' from the train phase, flash's variants listed under
    ``variants``: the tensor-core one at head dim 128 and at 256, each
    with its train launches and its instances' registers and spills, and
@@ -348,15 +371,33 @@ TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
 TRAIN_LR = 3e-4
 # the models trained at full width, each with its cuts: recurrentgemma-9b
-# at 3 of its 12 (rec, rec, attn) units (9 of 38 layers: 2.83 B params,
-# ~45 GB of training state and ~12 GB of activations and logits, where 4
-# units reckon ~69 GB) over its 8 microbatches of 1 x 2048; xlstm-350m
-# whole, its global batch cut from 8 to 2 rows (one microbatch of 2 x
-# 2048, the shape its 4 microbatches of 8 give) and 2 steps: the sLSTM's
-# Python loop over 2048 steps under autograd takes seconds a microbatch
+# at 5 of its 12 (rec, rec, attn) units (15 of 38 layers: 4.02 B params,
+# 64.3 GB of training state at 16 bytes a param; with remat "full" each
+# super-block keeps its input, so the logits' f32 copies (~2.1 GB each)
+# and one super-block's recompute come on top: ~70-74 GB) over its 8
+# microbatches of 1 x 2048; xlstm-350m whole, its global batch cut from
+# 8 to 2 rows (one microbatch of 2 x 2048, the shape its 4 microbatches
+# of 8 give) and 2 steps: the sLSTM's Python loop over 2048 steps under
+# autograd takes seconds a microbatch, and remat runs it three times
 TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
-               RG_ARCH: {"batch": 8, "steps": 3, "layers": 9},
+               RG_ARCH: {"batch": 8, "steps": 3, "layers": 15},
                XL_ARCH: {"batch": 2, "steps": 2, "microbatches": 1}}
+# the remat check: one super-block of each recurrent family at full width
+# (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1 sLSTM),
+# one microbatch of its training shape, step 1's gradients with remat
+# "full" against "none" on the same weights and batch
+REMAT_CHECK = {RG_ARCH: {"layers": 3, "batch": 1},
+               XL_ARCH: {"layers": 8, "batch": 2}}
+# the brick phase: qwen3-14b decoding through the grid-brick KV cache on a
+# mesh of (1, 4) emulated on the card (tensor_size 4 cuts a cache of 8192
+# slots, unwindowed, into 4 bricks: brick_active holds), against the same
+# decode on the (1, 1) mesh (the ring's filled prefix through B3's decode
+# kernel), gated as LM_ARCH is: LM_REL_TOL and LM_TOP1_MIN.  BRICK_FILL
+# prompt tokens fill the ring (every brick live), and the BRICK_STEPS
+# decode steps write the last slots of brick 3, then wrap into brick 0
+BRICK_MESH, BRICK_CACHE = (1, 4), 8192
+BRICK_STEPS = 6
+BRICK_FILL = BRICK_CACHE - BRICK_STEPS // 2
 # the trainer's restart and failure scenarios at full width, 1 of 30
 # layers; only the restart run checkpoints before its last step
 TRAINER_LAYERS, TRAINER_STEPS = 1, 4
@@ -1602,7 +1643,7 @@ def profile_run(phase, run, breakdown=(), host_ops=True, **extra):
     its rank.  ``host_ops=False`` records the device activity alone (for a
     run of hundreds of thousands of launches, whose host ops add millions
     of events to collect).  ``extra`` goes into the line, with the seconds
-    the events took to sum (``analysis_s``)."""
+    the events took to sum (``analysis_s``); the line is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1630,14 +1671,16 @@ def profile_run(phase, run, breakdown=(), host_ops=True, **extra):
                   reverse=True)
     extra["analysis_s"] = time.perf_counter() - t0
     busy_s = sum(us for us, _, _ in rows) / 1e6
-    emit({"phase": phase, **extra, "wall_s": wall, "device_busy_s": busy_s,
-          "device_busy_share": busy_s / wall,
-          "device_launches": sum(n for _, _, n in rows),
-          "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
-                  for us, key, n in rows[:12]],
-          "breakdown": [{"name": key[:100], "device_ms": us / 1e3,
-                         "count": n} for us, key, n in rows
-                        if any(b in key for b in breakdown)]})
+    line = {"phase": phase, **extra, "wall_s": wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall,
+            "device_launches": sum(n for _, _, n in rows),
+            "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
+                    for us, key, n in rows[:12]],
+            "breakdown": [{"name": key[:100], "device_ms": us / 1e3,
+                           "count": n} for us, key, n in rows
+                          if any(b in key for b in breakdown)]}
+    emit(line)
+    return line
 
 
 def profile_serve(make_service):
@@ -2811,35 +2854,38 @@ def train_config(arch):
 
 def train_launches(cfg, steps):
     """What ``steps`` train steps of ``cfg`` must launch, each kernel and
-    each variant.  The dense family: each attention layer of each
-    microbatch runs the forward twice (the step's forward and remat
-    "full"'s recompute in the backward), on the tensor-core kernel, and
-    the backward once, on the tensor-core variant.  The hybrid and ssm
-    families run no remat: per microbatch each attention layer runs the
-    flash forward (tensor cores, lse) and backward (the tensor-core
-    variant at head dim 256) once, each recurrent layer the RG-LRU scan
-    and its backward once, each mLSTM layer the mLSTM (tensor cores,
-    stats) and its backward (the tensor-core variant at head dim 512)
-    once."""
+    each variant.  Per microbatch each attention layer runs the flash
+    forward (tensor cores, lse) and backward (the tensor-core variant),
+    each recurrent layer the RG-LRU scan and its backward, each mLSTM
+    layer the mLSTM (tensor cores, stats) and its backward (the
+    tensor-core variant at head dim 512), the backwards once.  Under remat
+    (``cfg.remat_policy`` not "none") every checkpointed layer's forward
+    runs twice: the step's forward and the recompute in the backward.
+    The dense family checkpoints each layer, the hybrid and ssm families
+    each super-block; the hybrid family's tail is not checkpointed."""
     from repro_torch.models import hybrid, xlstm
     calls = max(1, cfg.microbatches) * steps
+    again = 1 if cfg.remat_policy == "none" else 2
     bwd = {"flash_attention_bwd.wgmma": 0, "flash_attention_bwd.simt": 0,
            "rglru_scan_bwd": 0, "mlstm_bwd": 0, "mlstm_bwd.wgmma": 0,
            "mlstm_bwd.simt": 0}
     if cfg.family == "hybrid":
         unit, n_super, tail = hybrid._pattern(cfg)
         attn = n_super * unit.count("attn") * calls
-        rec = (n_super * unit.count("rec") + tail.count("rec")) * calls
-        return {**lm_launches(rglru_scan=rec, wgmma=attn), **bwd,
+        rec_super = n_super * unit.count("rec") * calls
+        rec = rec_super + tail.count("rec") * calls
+        return {**lm_launches(rglru_scan=rec + (again - 1) * rec_super,
+                              wgmma=again * attn), **bwd,
                 "flash_attention_bwd": attn,
                 "flash_attention_bwd.wgmma": attn, "rglru_scan_bwd": rec}
     if cfg.family == "ssm":
         unit, n_super = xlstm._pattern(cfg)
         ml = n_super * unit.count("mlstm") * calls
-        return {**lm_launches(mlstm=ml), **bwd, "flash_attention_bwd": 0,
-                "mlstm_bwd": ml, "mlstm_bwd.wgmma": ml}
+        return {**lm_launches(mlstm=again * ml), **bwd,
+                "flash_attention_bwd": 0, "mlstm_bwd": ml,
+                "mlstm_bwd.wgmma": ml}
     calls *= cfg.num_layers
-    return {**lm_launches(wgmma=2 * calls), **bwd,
+    return {**lm_launches(wgmma=again * calls), **bwd,
             "flash_attention_bwd": calls,
             "flash_attention_bwd.wgmma": calls}
 
@@ -2901,10 +2947,10 @@ def phase_train(arch):
     Peak memory reckoned for starcoder2-3b: 6.74 GB bf16 params + 26.96
     GB f32 moments + 13.48 GB f32 gradient sum + 6.74 GB bf16 microbatch
     grads = 53.9 GB of state, plus the logits' f32 copies (~0.8 GB each,
-    a few) and one layer's recompute: ~59 GB; for recurrentgemma-9b at 9
-    layers ~45 GB of state and ~12 GB of activations (no remat) and
-    logits (~2.1 GB an f32 copy at 2048 x 256,000); measured and
-    reported."""
+    a few) and one layer's recompute: ~59 GB; for recurrentgemma-9b at 15
+    layers (remat "full") 64.3 GB of state, the logits (~2.1 GB an f32
+    copy at 2048 x 256,000) and one super-block's recompute: ~70-74 GB;
+    measured and reported beside the card's memory."""
     from repro_torch.models import model_zoo
     from repro_torch.optim.adamw import AdamW, global_norm, init_opt_state
     from repro_torch.train import steps as steps_lib
@@ -3002,16 +3048,207 @@ def phase_train(arch):
                                                  batches[-1]),
                 breakdown=TRAIN_BREAKDOWN[cfg.family], host_ops=host_ops,
                 arch=cfg.name, host_ops_recorded=host_ops)
+    total = torch.cuda.get_device_properties(0).total_memory
     emit({"phase": "train", "arch": cfg.name, "steps": steps,
           "global_batch": batch, "seq_len": TRAIN_SEQ,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
+          "remat": cfg.remat_policy,
           "launches": launches, "metrics": metrics, "step_wall_s": walls,
           "ms_per_step": step_s * 1e3,
           "tokens_per_s": batch * TRAIN_SEQ / step_s,
-          "peak_memory_gb": peak / 1e9, "step1_vs_plain": e2e,
+          "peak_memory_gb": peak / 1e9, "card_memory_gb": total / 1e9,
+          "free_at_peak_gb": (total - peak) / 1e9, "step1_vs_plain": e2e,
           "end_to_end_gated": gated, "backward_per_call": shadow})
     del params, opt_state, batches
     return launches
+
+
+def phase_remat_check():
+    """One super-block of each recurrent family at full width
+    (REMAT_CHECK), bf16, one microbatch of its training shape from the
+    brick pipeline: step 1's gradients (``make_grads_fn``) with remat
+    "full" and with "none" on the same weights and batch.  Every kernel
+    on these paths is deterministic, so the gradients must be equal bit
+    for bit; where they are not, the largest difference relative to the
+    largest gradient of its leaf is reported and must stay within
+    TRAIN_REL_TOL.  The launches of each run are counted
+    (train_launches): "full" runs every forward kernel twice."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import _flatten
+    from repro_torch.train import steps as steps_lib
+    out = {}
+    for arch, spec in REMAT_CHECK.items():
+        base = dataclasses.replace(get_config(arch),
+                                   num_layers=spec["layers"], microbatches=1)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        params = model_zoo.build_model(base).table.init(gen, DEVICE)
+        data = train_pipeline(base, spec["batch"]).next_device_batch()
+        runs = {}
+        row = {"layers": base.num_layers, "batch": [spec["batch"], TRAIN_SEQ]}
+        for policy in ("full", "none"):
+            cfg = dataclasses.replace(base, remat_policy=policy)
+            grads_fn = steps_lib.make_grads_fn(cfg,
+                                               model_zoo.build_model(cfg))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (grads, total, _), launches = train_counted(
+                lambda: grads_fn(params, data))
+            row[policy] = {"s": time.perf_counter() - t0,
+                           "peak_memory_gb":
+                               torch.cuda.max_memory_allocated() / 1e9,
+                           "loss": float(total), "launches": launches}
+            check_launches(f"{arch} remat {policy}", launches,
+                           train_launches(cfg, 1))
+            runs[policy] = _flatten(grads)
+            del grads
+        differ, worst = 0, 0.0
+        for path, g in runs["full"].items():
+            h = runs["none"][path]
+            if not torch.equal(g, h):
+                differ += 1
+                worst = max(worst, float((g.float() - h.float()).abs().max()
+                                         / h.float().abs().max()))
+        row.update(leaves=len(runs["full"]), leaves_not_bit_equal=differ,
+                   max_rel_diff=worst)
+        del runs, params
+        release()
+        if worst > TRAIN_REL_TOL or row["full"]["loss"] != \
+                row["none"]["loss"]:
+            raise AssertionError(f"{arch} remat check: {row}")
+        out[arch] = row
+    emit({"phase": "remat_check", "rel_tol": TRAIN_REL_TOL, **out})
+
+
+def fill_ring(cfg, params, tokens, cache):
+    """A decoder LM's empty ring ``cache`` as decoding ``tokens`` (B, S)
+    one at a time would leave it, up to rounding, from one batched forward
+    run layer by layer: each layer's k/v of positions [0, S) in slots
+    [0, S), ``kpos[:S] = arange(S)`` and ``t = S``.  S must not pass the
+    cache's W (no wrap)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tr
+    s = tokens.shape[1]
+    if cache["t"] or s > cache["k"].shape[2]:
+        raise ValueError(f"fill_ring takes an empty cache of at least {s} "
+                         "slots")
+    pos = torch.arange(s, dtype=torch.int64, device=tokens.device)
+    x = tr.embed_tokens(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        p = tr.layer_params(params["layers"], i)
+        h = L.norm(cfg, x, p["ln1"]["scale"], p["ln1"].get("bias"))
+        _, k, v = tr.attn_qkv(cfg, p["attn"], h, pos)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        x, _ = tr._layer(cfg, p, x, pos)
+    cache["kpos"][:s] = pos.to(cache["kpos"].dtype)
+    return {**cache, "t": s}
+
+
+@torch.inference_mode()
+def phase_brick(cfg, model, params):
+    """qwen3-14b decoding through the grid-brick KV cache: a cache of
+    BRICK_CACHE slots on an emulated BRICK_MESH mesh (``brick_active``),
+    against the same decode on the (1, 1) mesh.  BRICK_FILL prompt tokens
+    fill slots [0, BRICK_FILL) from one batched forward (``fill_ring``), so
+    every brick holds live tokens and the merge adds every brick's
+    partial; from copies of that cache, BRICK_STEPS teacher-forced decode
+    steps on each mesh write the last slots of the last brick, then wrap
+    into brick 0 (overwriting its oldest positions).  Each step's logits
+    are compared (LM_REL_TOL, LM_TOP1_MIN: the gate of LM_ARCH's
+    end-to-end agreement), and the first layer's k/v and kpos must end
+    bit-equal (the same projections written into the same slots).  The
+    brick path runs no flash kernel (the bricks' attention is plain
+    einsums, as the reference's brick path has no Pallas kernel); the (1,
+    1) decode launches B3's decode kernel once a layer and step.  ms a
+    step (steps after the first) for both, and device launches a step
+    from one more step of each under torch.profiler.  Returns the (1, 1)
+    decode's launches."""
+    from repro_torch.core.brick_attention import brick_active
+    from repro_torch.launch.mesh import make_mesh_of
+    from repro_torch.parallel.sharding import Sharder
+    shards = {
+        "brick": Sharder(cfg, make_mesh_of(BRICK_MESH, ("data", "model"),
+                                           device=DEVICE, emulate=True)),
+        "one": Sharder(cfg, make_mesh_of((1, 1), ("data", "model"),
+                                         device=DEVICE))}
+    if not brick_active(cfg, shards["brick"], BRICK_CACHE) or \
+            brick_active(cfg, shards["one"], BRICK_CACHE):
+        raise AssertionError("brick_active does not pick the brick mesh")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (LM_BATCH, BRICK_FILL + BRICK_STEPS + 1),
+                         generator=gen, device=DEVICE)
+    t0 = time.perf_counter()
+    filled = fill_ring(cfg, params, toks[:, :BRICK_FILL],
+                       model.init_cache(LM_BATCH, BRICK_CACHE, DEVICE))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    n_bricks = shards["brick"].tensor_size
+    live = (filled["kpos"].view(n_bricks, -1) >= 0).sum(1).tolist()
+    if min(live) == 0:
+        raise AssertionError(f"a brick holds no live slot: {live}")
+    slots = [(BRICK_FILL + s) % BRICK_CACHE for s in range(BRICK_STEPS)]
+    row, logits, caches = {}, {}, {}
+    for name, shd in shards.items():
+        # the brick run decodes from a copy; the (1, 1) run, last, from
+        # the filled cache itself
+        cache = {**filled, **{key: filled[key].clone()
+                              for key in ("k", "v", "kpos")}} \
+            if name == "brick" else filled
+
+        def run():
+            c, out, ms = cache, [], []
+            for s in range(BRICK_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lg, c = model.decode_step(
+                    params, c, toks[:, BRICK_FILL + s:BRICK_FILL + s + 1],
+                    shd)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                out.append(lg[:, -1].float())
+            return torch.stack(out), c, ms
+
+        (logits[name], caches[name], ms), launches = lm_counted(run)
+        want = lm_launches() if name == "brick" else \
+            lm_launches(decode=cfg.num_layers * BRICK_STEPS)
+        check_launches(f"{cfg.name} {name} decode", launches, want)
+        row[name] = {"mesh": list(shd.mesh.devices.shape),
+                     "emulated": shd.mesh.emulated, "ms_per_step": ms,
+                     "ms_per_decode_step": sum(ms[1:]) / (len(ms) - 1),
+                     "launches": launches}
+    rel, top1 = compare_logits(logits["brick"], logits["one"],
+                               cfg.vocab_size)
+    check_logits(f"{cfg.name} brick decode vs (1, 1)", rel, top1)
+    same = {key: bool(torch.equal(caches["brick"][key][0],
+                                  caches["one"][key][0]))
+            for key in ("k", "v")}
+    same["kpos"] = bool(torch.equal(caches["brick"]["kpos"],
+                                    caches["one"]["kpos"]))
+    if not all(same.values()):
+        raise AssertionError(f"brick and ring caches differ: {same}")
+    for name, shd in shards.items():
+        c = caches[name]
+        prof = profile_run(
+            "brick_profile", lambda: model.decode_step(
+                params, c, toks[:, -1:], shd), mesh=name)
+        row[name].update(device_launches_per_step=prof["device_launches"],
+                         device_busy_share=prof["device_busy_share"])
+    emit({"phase": "brick", "arch": cfg.name, "layers": cfg.num_layers,
+          "batch": LM_BATCH, "cache_slots": BRICK_CACHE,
+          "bricks": n_bricks, "fill_tokens": BRICK_FILL, "fill_s": fill_s,
+          "live_slots_per_brick": live, "decode_steps": BRICK_STEPS,
+          "step_slots": slots,
+          "step_bricks": [sl // (BRICK_CACHE // n_bricks) for sl in slots],
+          "rel_logit_diff_per_step": rel, "max_rel_logit_diff": max(rel),
+          "top1_agreement": top1, "rel_tol": LM_REL_TOL,
+          "top1_min": LM_TOP1_MIN, "first_layer_cache_bit_equal": same,
+          **row})
+    return row["one"]["launches"]
 
 
 def phase_trainer():
@@ -3263,9 +3500,12 @@ def main(argv=None) -> int:
     lm = build_lm(LM_ARCH)
     flash[LM_ARCH] = (phase_lm(*lm)["flash_attention"],
                       phase_prefill(*lm)["flash_attention"])
+    took(f"lm {LM_ARCH}")
+    # the grid-brick KV cache on the same weights, and its (1, 1) decode
+    brick_one = phase_brick(*lm)
     del lm
     release()
-    took(f"lm {LM_ARCH}")
+    took("brick")
     lm = build_lm(RG_ARCH)
     rg_serve = phase_lm(*lm)
     rg_forward = phase_prefill(*lm)
@@ -3291,19 +3531,23 @@ def main(argv=None) -> int:
         del lm
         release()
         took(f"lm {arch}")
-    # the training stack: starcoder2-3b whole, recurrentgemma-9b at 9
-    # layers, xlstm-350m whole, then the trainer's restart and failure
-    # scenarios
+    # the training stack: starcoder2-3b whole, recurrentgemma-9b at 15
+    # layers, xlstm-350m whole, the recurrent families' remat check, then
+    # the trainer's restart and failure scenarios
     train = {}
     for arch in TRAIN_ARCHS:
         train[arch] = phase_train(arch)
         release()
         took(f"train {arch}")
+    phase_remat_check()
+    release()
+    took("remat_check")
     phase_trainer()
     release()
     took("trainer")
     launches["flash_attention"] = sum(sum(n) for n in flash.values()) + \
-        sum(t["flash_attention"] for t in train.values())
+        sum(t["flash_attention"] for t in train.values()) + \
+        brick_one["flash_attention"]
     for key in ("rglru_scan", "mlstm"):
         launches[key] += sum(t[key] for t in train.values())
     for key in ("flash_attention_bwd", "flash_attention_bwd.wgmma",

@@ -6,10 +6,12 @@ kernel package does not import the model.  A wrapper runs it for CPU
 tensors, and the CUDA kernel is held against it on the card."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG = -1e30
 
@@ -51,9 +53,9 @@ def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024,
     fc = fcum.reshape(b, n_chunks, c, h)
     idx = torch.arange(sp, device=q.device).reshape(n_chunks, c)
 
-    outs, stats = [], []
-    for i in range(n_chunks):
-        q_i, f_i, qidx = qc[:, i].float(), fc[:, i], idx[i]
+    def q_block(i, q_i, f_i):
+        """Query chunk ``i`` over key chunks 0..i: (out, L, sg)."""
+        q_i, qidx = q_i.float(), idx[i]
         m = torch.full((b, c, h), NEG, dtype=torch.float32, device=q.device)
         num = torch.zeros((b, c, h, hd), dtype=torch.float32,
                           device=q.device)
@@ -75,16 +77,20 @@ def mlstm_ref(q, k, v, log_i, log_f, *, chunk_size: int = 1024,
             den = den * corr + a.sum(dim=-1)
             m = m_new
         normalizer = torch.maximum(den.abs(), torch.exp(-m))
-        outs.append((num / normalizer[..., None]).to(q.dtype))
-        if with_stats:
-            stats.append((m + torch.log(normalizer),
-                          torch.where(den.abs() > torch.exp(-m),
-                                      torch.sign(den), 0.0)))
-    out = torch.cat(outs, dim=1)[:, :s]
+        return ((num / normalizer[..., None]).to(q.dtype),
+                m + torch.log(normalizer),
+                torch.where(den.abs() > torch.exp(-m), torch.sign(den), 0.0))
+
+    # as the reference's jax.checkpoint of q_block: under autograd each
+    # query chunk keeps its inputs and is recomputed in the backward
+    block = (functools.partial(checkpoint, q_block, use_reentrant=False)
+             if torch.is_grad_enabled() else q_block)
+    parts = [block(i, qc[:, i], fc[:, i]) for i in range(n_chunks)]
+    out = torch.cat([x[0] for x in parts], dim=1)[:, :s]
     if not with_stats:
         return out
-    return (out, torch.cat([x[0] for x in stats], dim=1)[:, :s],
-            torch.cat([x[1] for x in stats], dim=1)[:, :s])
+    return (out, torch.cat([x[1] for x in parts], dim=1)[:, :s],
+            torch.cat([x[2] for x in parts], dim=1)[:, :s])
 
 
 def mlstm_bwd_ref(q, k, v, log_i, log_f, out, dout, stats=None, *,

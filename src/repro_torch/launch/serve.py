@@ -49,8 +49,14 @@ and write its span trace and metrics snapshot.  ``--autotune`` (spmd,
 with ``--use-pallas``, on the card) sweeps the event_filter kernel's
 launch shape per chunk shape class and prints the winner.
 
-Not ported yet: ``--production-mesh`` (the training slice's
-``launch/mesh.py``); it exits with a message saying so.
+``--mode lm`` decodes on a (1, 1) mesh over ``("data", "model")`` of its
+one device (:func:`lm_mesh`, ``launch/mesh.py``), whose ``Sharder``
+every decode step gets; the port drives one card however many the host
+has.  ``--production-mesh`` asks for the reference's 16 x 16 mesh:
+``make_production_mesh`` raises with the CUDA device count this process
+sees.  A mesh emulated on the one card (``make_mesh_of(...,
+emulate=True)``), on which the decode attends through the grid-brick
+cache, is asked for through the API.
 """
 from __future__ import annotations
 
@@ -59,8 +65,6 @@ import json
 import time
 
 import torch
-
-NOT_PORTED = "is not ported to repro_torch yet"
 
 
 def _backend_kwargs(args):
@@ -254,31 +258,34 @@ def serve_fleet(args):
     fleet.close()
 
 
-def prefill_into_cache(cfg, model, params, cache, tokens):
+def prefill_into_cache(cfg, model, params, cache, tokens, shd=None):
     """Feed a prompt through decode steps to fill the ring cache (token by
     token, as the reference does for correctness and small prompts)."""
     for i in range(tokens.shape[1]):
-        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
+        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                          shd)
     return logits, cache
 
 
 @torch.inference_mode()
 def generate(cfg, model, params, prompt, max_new_tokens=16, cache_len=256,
-             cache=None):
+             cache=None, shd=None):
     """Greedy generation: prompt (B, P) int64 -> (B, max_new_tokens) token
     ids, on the prompt's device.  ``cache`` is the decode state to start
     from (for whisper, one whose cross-attention K/V
     :func:`encoder_cache` filled); None starts from a fresh
-    ``model.init_cache(B, cache_len)``."""
+    ``model.init_cache(B, cache_len)``.  ``shd`` is the mesh's Sharder
+    every decode step gets (None: the one-card path)."""
     b = prompt.shape[0]
     if cache is None:
         cache = model.init_cache(b, cache_len, prompt.device)
-    logits, cache = prefill_into_cache(cfg, model, params, cache, prompt)
+    logits, cache = prefill_into_cache(cfg, model, params, cache, prompt,
+                                       shd)
     out = []
     tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
     for _ in range(max_new_tokens):
         out.append(tok)
-        logits, cache = model.decode_step(params, cache, tok)
+        logits, cache = model.decode_step(params, cache, tok, shd)
         tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
                            dim=-1).reshape(b, 1)
     return torch.cat(out, dim=1)
@@ -300,20 +307,32 @@ def encoder_cache(cfg, model, params, batch, generator, cache_len=256):
     return encdec.prefill_cross_cache(cfg, params, frames, cache), frames
 
 
+def lm_mesh(device, production: bool = False):
+    """The mesh ``--mode lm`` decodes on: with ``production`` the
+    reference's 16 x 16 mesh, which ``make_production_mesh`` refuses with
+    the CUDA device count, else a (1, 1) mesh of ``device``, however many
+    devices the host has (a real mesh of several cards is outside the
+    one-card port)."""
+    from repro_torch.launch.mesh import make_mesh_of, make_production_mesh
+    if production:
+        return make_production_mesh()
+    return make_mesh_of((1, 1), ("data", "model"), device=device)
+
+
 def serve_lm(args):
     """LM mode: build the model on ``--device`` with weights drawn from a
     seeded generator, generate for random prompts, report tok/s."""
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.kernels import resolve_device
     from repro_torch.models import model_zoo
+    from repro_torch.parallel.sharding import Sharder
 
     if args.arch is None:
         raise SystemExit("--arch is required for --mode lm")
-    if args.production_mesh:
-        raise SystemExit(f"--mode lm --production-mesh {NOT_PORTED}")
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else \
         get_config(args.arch)
+    shd = Sharder(cfg, lm_mesh(device, production=args.production_mesh))
     model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -331,7 +350,7 @@ def serve_lm(args):
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     tokens = generate(cfg, model, params, prompt,
-                      max_new_tokens=args.new_tokens, cache=cache)
+                      max_new_tokens=args.new_tokens, cache=cache, shd=shd)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0

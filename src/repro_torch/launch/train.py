@@ -3,9 +3,10 @@
 
 Runs the trainer on one device, the card unless ``--device cpu``
 (``--reduced`` for a smoke-scale config on the CPU).  ``--production-mesh``
-asks for the reference's 16 x 16 mesh of 256 devices, which one process
-on one card does not have: it raises, as the reference does with fewer
-devices.  Every family trains on the card, through the hand-written
+asks for the reference's 16 x 16 mesh of 256 devices:
+``launch/mesh.make_production_mesh`` raises with the CUDA device count
+this process sees (a real mesh of more than one card is outside the
+one-card port).  Every family trains on the card, through the hand-written
 backward kernels of B3, B4 and B5 (``kernels/*/ops.py``); recurrentgemma-9b
 whole does not fit one card's memory, its training state alone ~137 GB.
 """
@@ -18,10 +19,8 @@ import tempfile
 from repro_torch.configs.registry import get_config, list_archs, \
     reduced_config
 from repro_torch.kernels import resolve_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-#: devices the reference's production mesh needs (16 x 16)
-PRODUCTION_DEVICES = 256
 
 
 def main(argv=None):
@@ -43,10 +42,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.production_mesh:
-        raise RuntimeError(
-            f"production mesh needs {PRODUCTION_DEVICES} devices, this "
-            f"process drives one (the mesh and its sharding are not ported "
-            f"yet: ROADMAP.md, queue A item 9)")
+        make_production_mesh()
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     tcfg = TrainerConfig(

@@ -16,10 +16,11 @@ decoder's is causal, over the ring's filled prefix at decode as in
 ``transformer.decode_step``; cross-attention is non-causal over the
 ``encoder_seq_len`` encoder positions.
 
-The reference's ``brick_active`` branch (the decode cache's sequence
-sharded over a tensor-parallel axis, ``core/brick_attention.py``) needs a
-mesh whose tensor axis is larger than 1; one card never takes it, so it
-has no port and ``decode_step(..., use_brick=True)`` raises.
+Given a Sharder for which ``brick_active`` holds (an emulated mesh whose
+``model`` axis cuts an unwindowed cache of more than 4096 slots into
+bricks), the decoder's self-attention decodes through the grid-brick
+cache (``core/brick_attention.py``), as the reference's does on that
+mesh; ``use_brick=True`` asks for that path whatever the cache length.
 
 Param layout:
   enc/layers/*          (L_enc-stacked: ln1, attn, ln2, mlp)
@@ -32,6 +33,7 @@ Param layout:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -245,18 +247,26 @@ def prefill_cross_cache(cfg, params, frames, cache):
     return dict(cache, xk=torch.stack(ks), xv=torch.stack(vs))
 
 
-def decode_step(cfg, params, cache, tokens, *, use_brick: bool = False):
+def decode_step(cfg, params, cache, tokens, shd=None, *,
+                use_brick: Optional[bool] = None):
     """tokens: (B, 1) -> (logits (B,1,Vp), cache).  The ring's tensors
     are updated in place and the returned dict holds them with ``t``
     advanced; the self-attention attends over the ring's filled prefix
     (see ``transformer.decode_step``), the cross-attention over every
-    encoder position."""
-    if use_brick:
-        raise NotImplementedError(
-            "brick attention (core/brick_attention.py) is not ported: it "
-            "needs the cache sharded over a tensor axis of more than one "
-            "device, and one card has none")
+    encoder position.
+
+    ``use_brick`` None takes the grid-brick cache where ``brick_active``
+    holds for ``shd``, as the reference; True takes it whatever the cache
+    length (the Sharder's bricks must cut the cache), False never."""
+    from repro_torch.core import brick_attention
     t, slot, n = ring_slot(cache, None)
+    w = cache["k"].shape[2]
+    if use_brick is None:
+        use_brick = shd is not None and brick_attention.brick_active(
+            cfg, shd, w)
+    elif use_brick and shd is None:
+        raise ValueError("use_brick needs the Sharder of a mesh whose model "
+                         "axis cuts the cache into bricks")
     cache["kpos"][slot] = t
     row = min(max(t, 0), cfg.max_positions - 1)
     x = _embed(cfg, params, tokens,
@@ -267,10 +277,14 @@ def decode_step(cfg, params, cache, tokens, *, use_brick: bool = False):
         k_i, v_i = cache["k"][i], cache["v"][i]
         h = _ln(cfg, x, p["ln1"])
         q, k_new, v_new = _proj_qkv(cfg, p["attn"], h, h)
-        k_i[:, slot] = k_new[:, 0].to(k_i.dtype)
-        v_i[:, slot] = v_new[:, 0].to(v_i.dtype)
-        # every slot of [0, n) holds one of the last n positions <= t
-        out = _attend(cfg, q, k_i[:, :n], v_i[:, :n], True)
+        if use_brick:
+            out = brick_attention.decode_attention(
+                cfg, shd, q, k_i, v_i, cache["kpos"], k_new, v_new, slot, t)
+        else:
+            k_i[:, slot] = k_new[:, 0].to(k_i.dtype)
+            v_i[:, slot] = v_new[:, 0].to(v_i.dtype)
+            # every slot of [0, n) holds one of the last n positions <= t
+            out = _attend(cfg, q, k_i[:, :n], v_i[:, :n], True)
         x = x + _attn_out(cfg, p["attn"], out)
 
         h = _ln(cfg, x, p["lnx"])
@@ -292,7 +306,7 @@ def build(cfg) -> "model_zoo.Model":
         table=param_table(cfg),
         forward=lambda params, batch: forward(
             cfg, params, batch["tokens"], batch["frames"]),
-        decode_step=lambda params, cache, tokens: decode_step(
-            cfg, params, cache, tokens),
+        decode_step=lambda params, cache, tokens, shd=None: decode_step(
+            cfg, params, cache, tokens, shd),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
     )

@@ -4,10 +4,12 @@ tensors (port of ``models/hybrid.py``).
 Block pattern: (recurrent, recurrent, local-attention) repeated.  38 layers
 = 12 super-blocks of 3 + a tail of 2 recurrent blocks; the super-blocks'
 parameters are stacked (``blocks/u{j}``), the tail's are not
-(``tail/u{j}``).  Layers run in a Python loop, as in the dense port; the
-reference's ``lax.scan`` and its remat of the super-blocks
-(``src/repro/models/hybrid.py:112``) have no port yet (ROADMAP.md), so
-training keeps every layer's activations.
+(``tail/u{j}``).  Layers run in a Python loop, as in the dense port.  With
+grad mode on each super-block runs under ``transformer._remat``
+(``cfg.remat_policy``: ``"full"`` checkpoints it whole, so the backward
+keeps one input a super-block and recomputes the rest), as the
+reference's remat of its ``lax.scan`` body; the tail is not checkpointed,
+as in the reference.  Serving (grad mode off) runs the plain loop.
 
 Each block unit is a Griffin residual pair: x += temporal(norm(x));
 x += geglu_mlp(norm(x)).  Temporal is either the RG-LRU recurrent block
@@ -17,7 +19,9 @@ sliding-window MQA attention through ``kernels/flash_attention/ops.py``.
 
 Decode state: per recurrent layer an RG-LRU hidden (B, W_lru) f32 + conv
 state (B, 3, W_lru); per attention layer a ring KV cache bounded by the
-attention window (2048).  ``decode_step`` updates them in place.
+attention window (2048).  ``decode_step`` updates them in place; the
+local attention's cache is bounded by its window, so the grid-brick cache
+(``brick_active``) never applies and the step takes no Sharder.
 """
 from __future__ import annotations
 
@@ -95,13 +99,19 @@ def forward(cfg, params, tokens):
     positions = torch.arange(s, dtype=torch.int64, device=tokens.device)
     x = embed_tokens(cfg, params, tokens)
     unit, n_super, tail = _pattern(cfg)
-    for i in range(n_super):
-        p = layer_params(params["blocks"], i)
+
+    def super_block(p, x):
         for j, kind in enumerate(unit):
             if kind == "rec":
                 x, _ = _rec_unit(cfg, p[f"u{j}"], x)
             else:
                 x = _attn_unit(cfg, p[f"u{j}"], x, positions)
+        return x
+
+    body = (transformer._remat(cfg, super_block) if torch.is_grad_enabled()
+            else super_block)
+    for i in range(n_super):
+        x = body(layer_params(params["blocks"], i), x)
     for j in range(len(tail)):
         x, _ = _rec_unit(cfg, params["tail"][f"u{j}"], x)
     x = L.norm(cfg, x, params["final_norm"]["scale"])
@@ -195,8 +205,9 @@ def build(cfg) -> Model:
     return Model(
         cfg=cfg,
         table=param_table(cfg),
-        forward=lambda params, batch: forward(cfg, params, batch["tokens"]),
-        decode_step=lambda params, cache, tokens: decode_step(
+        forward=lambda params, batch: forward(
+            cfg, params, batch["tokens"]),
+        decode_step=lambda params, cache, tokens, shd=None: decode_step(
             cfg, params, cache, tokens),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
     )

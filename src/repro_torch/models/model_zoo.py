@@ -3,13 +3,17 @@
 moe and vlm), the encoder-decoder (audio: whisper), the hybrid
 recurrent/attention family (recurrentgemma) and the xLSTM family.
 
-  table                               -> ParamTable
-  forward(params, batch)              -> (logits, aux_loss)   prefill
-  init_cache(batch, seq_len, device)  -> decode state         decode
-  decode_step(params, cache, tokens)  -> (logits, cache)
+  table                                   -> ParamTable
+  forward(params, batch)                  -> (logits, aux_loss)  prefill
+  init_cache(batch, seq_len, device)      -> decode state        decode
+  decode_step(params, cache, tokens, shd=None) -> (logits, cache)
 
 ``batch`` holds ``tokens`` and the family's extra inputs: ``patch_embeds``
-(vlm, optional) or ``frames`` (audio).  ``LanguageModel`` is the
+(vlm, optional) or ``frames`` (audio).  ``shd`` is the reference's
+``Sharder`` (``parallel/sharding.py``): a decode step given one attends
+through the grid-brick cache where ``brick_active`` holds.  The forward
+takes none: on the port's meshes (one card, or a mesh emulated on it) a
+Sharder changes no computation of it.  ``LanguageModel`` is the
 ``nn.Module`` that serves any of them.
 """
 from __future__ import annotations
@@ -27,7 +31,8 @@ class Model:
     cfg: object
     table: ParamTable
     forward: Callable  # (params, batch) -> (logits, aux)
-    decode_step: Callable  # (params, cache, tokens) -> (logits, cache)
+    # (params, cache, tokens, shd=None) -> (logits, cache)
+    decode_step: Callable
     init_cache: Callable  # (batch, seq_len, device) -> cache
 
 
@@ -54,8 +59,8 @@ def _decoder_lm(cfg) -> Model:
         forward=lambda params, batch: transformer.forward(
             cfg, params, batch["tokens"],
             patch_embeds=batch.get("patch_embeds")),
-        decode_step=lambda params, cache, tokens: transformer.decode_step(
-            cfg, params, cache, tokens),
+        decode_step=lambda params, cache, tokens, shd=None:
+            transformer.decode_step(cfg, params, cache, tokens, shd),
         init_cache=lambda b, s, device: transformer.init_cache(
             cfg, b, s, device),
     )
@@ -104,8 +109,8 @@ class LanguageModel(nn.Module):
             batch["frames"] = frames
         return self.model.forward(self.tree(), batch)
 
-    def decode_step(self, cache, tokens):
-        return self.model.decode_step(self.tree(), cache, tokens)
+    def decode_step(self, cache, tokens, shd=None):
+        return self.model.decode_step(self.tree(), cache, tokens, shd)
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
         device = next(iter(self.weights.values())).device

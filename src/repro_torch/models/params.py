@@ -5,12 +5,16 @@ Each architecture family builds a ``ParamTable`` (path -> ParamDef).  From
 the table the port derives its parameters:
 
 - ``init(generator, device)``  -> real parameter tree, drawn with torch's RNG
+- ``specs(sharder)``            -> partition specs (``parallel/sharding.py``)
+- ``shardings(sharder)``        -> ``NamedSharding`` tree
+- ``abstract_sharded(sharder)`` -> ``meta`` tensors with their specs
 - ``params_from_reference(cfg, tree)`` -> the JAX package's parameters
   (numpy arrays) as the port's, so both packages compute the same thing
 
-Paths are "/"-separated; the tree is a nested dict split on "/".  The
-sharding roles are kept as data: one card has no mesh, and nothing reads
-them.
+Paths are "/"-separated; the tree is a nested dict split on "/".  On the
+port's meshes (one card, or a mesh emulated on it) every shard of a
+parameter is the whole parameter, so the specs place nothing: they are
+what the reference's mesh would do with each leaf.
 """
 from __future__ import annotations
 
@@ -38,6 +42,15 @@ class ParamDef:
         if len(self.shape) != len(self.roles):
             raise ValueError(f"shape {self.shape} and roles {self.roles} "
                              "differ in length")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractParam:
+    """A leaf without storage (the reference's sharded
+    ``ShapeDtypeStruct``): ``value`` on the ``meta`` device, ``spec`` its
+    partition spec."""
+    value: torch.Tensor
+    spec: tuple
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -116,6 +129,19 @@ class ParamTable:
             axis, real = d.zero_pad
             val.narrow(axis, real, d.shape[axis] - real).zero_()
         return val.to(dt)
+
+    def specs(self, sharder) -> dict:
+        return self._nested(lambda path, d: sharder.spec(d.roles, d.shape))
+
+    def shardings(self, sharder) -> dict:
+        return self._nested(lambda path, d: sharder.named(d.roles, d.shape))
+
+    def abstract_sharded(self, sharder) -> dict:
+        """Each leaf as an ``AbstractParam``: a tensor of its shape and
+        dtype on the ``meta`` device (no storage) and its spec."""
+        return self._nested(lambda path, d: AbstractParam(
+            torch.empty(d.shape, dtype=self.dtype(d), device="meta"),
+            sharder.spec(d.roles, d.shape)))
 
     def num_params(self) -> int:
         return sum(int(np_prod(d.shape)) for d in self.defs.values())

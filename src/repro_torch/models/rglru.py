@@ -12,8 +12,9 @@ full-sequence recurrence goes through ``kernels/rglru_scan/ops.py``: a
 CUDA tensor launches the hand-written kernel (in training, through
 ``RglruScanFn``, whose backward is the hand-written backward kernel), a
 CPU tensor takes the plain doubling scan.  Decode is the O(1) step.
-``shd.ws`` / ``shd.act_btd`` (sharding constraints) have no port: one
-card has no mesh.
+The reference's ``shd.ws`` / ``shd.act_btd`` constraints are no-ops on
+the port's meshes (one card, or a mesh emulated on it,
+``parallel/sharding.py``), so the block takes no Sharder.
 """
 from __future__ import annotations
 

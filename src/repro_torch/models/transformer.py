@@ -2,8 +2,12 @@
 backbone; port of ``models/transformer.py``).
 
 Layers run in a Python loop over the stacked layer parameters (the
-reference's ``scan_layers`` and ``Sharder`` are TPU and mesh devices with
-no port).  With grad mode on, ``run_layers`` applies the reference's
+reference's ``scan_layers`` is a TPU compile-size device with no port).
+The reference's ``Sharder`` constraints are no-ops on the port's meshes
+(one card, or a mesh emulated on it), so the forward takes none; the
+decode step takes one, and where ``brick_active`` holds for it the step
+attends through the grid-brick cache (``core/brick_attention.py``).
+With grad mode on, ``run_layers`` applies the reference's
 remat: ``remat_policy`` ``"full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
 products without batch dims and recomputes the rest, and
@@ -314,12 +318,21 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
             "t": 0}
 
 
-def decode_attention(cfg, p, h, positions, k_i, v_i, slot, n):
+def decode_attention(cfg, p, h, positions, k_i, v_i, slot, n, brick=None):
     """The attention sub-block of one decode step (no residual): write the
     new k/v into ``slot`` of the layer's ring cache ``k_i``/``v_i``
     (B, W, K, hd) in place, attend over the filled prefix ``[0, n)``.
+    With ``brick = (shd, kpos, t)`` the step attends instead over all W
+    slots of the grid-brick cache, ``kpos`` masking the empty ones, as
+    the reference's brick path (``core/brick_attention.py``).
     h:(B,1,d) -> (B,1,d)."""
     q, k_new, v_new = attn_qkv(cfg, p, h, positions)
+    if brick is not None:
+        from repro_torch.core import brick_attention
+        shd, kpos, t = brick
+        out = brick_attention.decode_attention(cfg, shd, q, k_i, v_i, kpos,
+                                               k_new, v_new, slot, t)
+        return attn_out_proj(cfg, p, out)
     k_i[:, slot] = k_new[:, 0].to(k_i.dtype)
     v_i[:, slot] = v_new[:, 0].to(v_i.dtype)
     # every slot of [0, n) holds one of the last n positions <= t, all
@@ -346,12 +359,13 @@ def ring_slot(cache: dict, window) -> tuple:
     return t, t % w, min(t + 1, w)
 
 
-def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
+def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n, brick=None):
     """Decode step for one layer: write the new k/v into ``slot`` of the
-    layer's cache (in place), attend over the filled prefix ``[0, n)``.
-    x:(B,1,d)."""
+    layer's cache (in place), attend over the filled prefix ``[0, n)`` (or
+    the brick cache, see ``decode_attention``).  x:(B,1,d)."""
     h = L.norm(cfg, x, p["ln1"]["scale"], p["ln1"].get("bias"))
-    a = decode_attention(cfg, p["attn"], h, positions, k_i, v_i, slot, n)
+    a = decode_attention(cfg, p["attn"], h, positions, k_i, v_i, slot, n,
+                         brick)
     if cfg.post_attn_norm:
         a = L.norm(cfg, a, p["ln1_post"]["scale"])
     x = x + a
@@ -362,7 +376,7 @@ def _decode_layer(cfg, p, x, positions, k_i, v_i, slot, n):
     return x + m
 
 
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, shd=None):
     """tokens: (B, 1) -> (logits (B,1,Vp), cache).
 
     The cache's tensors are updated in place (the reference returns new
@@ -372,16 +386,28 @@ def decode_step(cfg, params, cache, tokens):
     prefix ``[0, n)``, ``n = min(t + 1, W)``, which holds exactly the slots
     the reference finds valid: before the ring wraps ``kpos[j] = j <= t``;
     after it wraps all W slots hold the last W positions; and a windowed
-    cache has ``W <= window``, so no filled slot lies outside the window."""
+    cache has ``W <= window``, so no filled slot lies outside the window.
+
+    Given a Sharder ``shd`` for which ``brick_active`` holds (an
+    unwindowed cache of more than 4096 slots cut into the mesh's
+    ``tensor_size`` bricks), every layer attends as the reference does on
+    that mesh: over all W slots of the brick cache, ``kpos`` masking the
+    empty ones, the bricks merged by an exact log-sum-exp combine."""
+    from repro_torch.core import brick_attention
     t, slot, n = ring_slot(cache, cfg.sliding_window or
                            cfg.attention_window)
     positions = torch.full((1,), t, dtype=torch.int64, device=tokens.device)
     cache["kpos"][slot] = t
+    brick = None
+    if shd is not None and brick_attention.brick_active(
+            cfg, shd, cache["k"].shape[2]):
+        brick = (shd, cache["kpos"], t)
 
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.num_layers):
         x = _decode_layer(cfg, layer_params(params["layers"], i), x,
-                          positions, cache["k"][i], cache["v"][i], slot, n)
+                          positions, cache["k"][i], cache["v"][i], slot, n,
+                          brick)
     x = L.norm(cfg, x, params["final_norm"]["scale"],
                params["final_norm"].get("bias"))
     logits = unembed(cfg, params, x)

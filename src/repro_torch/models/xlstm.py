@@ -13,11 +13,16 @@ normalisation).  Decode is the O(1) recurrent update on the (H, hd, hd)
 matrix state, in plain PyTorch as in the reference.
 
 sLSTM: scalar-memory cell with per-head block-diagonal recurrent weights;
-inherently sequential, so a time loop in f32.  The reference's remat in
-training (the mLSTM's ``q_block`` checkpoint, the sLSTM loop's chunked
-remat and the super-blocks' remat, ``src/repro/models/xlstm.py:170,318,
-356``) has no port yet (ROADMAP.md): training keeps every step's
-activations.
+inherently sequential, so a time loop in f32.
+
+Remat in training (grad mode on), as the reference: each super-block runs
+under ``transformer._remat`` (``cfg.remat_policy``); the sLSTM's time
+loop is checkpointed in chunks of ``SLSTM_REMAT_CHUNK`` steps when the
+sequence is longer than one chunk and a multiple of it (the backward
+keeps one state a chunk and recomputes the chunk's steps), nested in the
+super-block's checkpoint; and the plain mLSTM checkpoints each query
+chunk (``kernels/mlstm_scan/ref.py``; on the card ``MlstmFn`` saves only
+its inputs and the row stats).  Serving runs the plain loops.
 
 Both blocks keep O(1) decode state; ``decode_step`` updates it in place.
 """
@@ -27,6 +32,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.mlstm_scan.ops import mlstm as mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import NEG, mlstm_ref
@@ -34,11 +40,13 @@ from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import ParamTable, torch_dtype
 from repro_torch.models.rglru import causal_conv1d
-from repro_torch.models.transformer import embed_tokens, layer_params, \
-    unembed
+from repro_torch.models.transformer import _remat, embed_tokens, \
+    layer_params, unembed
 
 MLSTM_PF = 2.0  # mLSTM up-projection factor
 SLSTM_PF = 4.0 / 3.0  # sLSTM post-FFN factor
+#: time steps of one checkpointed chunk of the sLSTM loop in training
+SLSTM_REMAT_CHUNK = 256
 
 
 def _dims(cfg):
@@ -245,17 +253,29 @@ def slstm_block(cfg, p, x, state=None, decode=False):
         state["m"] = torch.full((b, d), NEG, dtype=torch.float32,
                                 device=x.device)
 
-    if decode:
-        h_out, state = _slstm_cell(cfg, rec_w, tuple(g[:, 0] for g in pre),
-                                   state)
-        hs = h_out[:, None, :]
-    else:
+    def steps(state, lo, hi):
+        """Time steps [lo, hi): (their h (B, hi - lo, d), the state)."""
         outs = []
-        for t in range(s):
+        for t in range(lo, hi):
             h_out, state = _slstm_cell(cfg, rec_w,
                                        tuple(g[:, t] for g in pre), state)
             outs.append(h_out)
-        hs = torch.stack(outs, dim=1)  # (B,S,d)
+        return torch.stack(outs, dim=1), state
+
+    chunk = SLSTM_REMAT_CHUNK
+    if decode:
+        hs, state = steps(state, 0, 1)
+    elif torch.is_grad_enabled() and s > chunk and s % chunk == 0:
+        # time-chunked remat: the backward keeps one state a chunk, not
+        # every step's, and recomputes the chunk's steps
+        parts = []
+        for lo in range(0, s, chunk):
+            h_c, state = ckpt.checkpoint(steps, state, lo, lo + chunk,
+                                         use_reentrant=False)
+            parts.append(h_c)
+        hs = torch.cat(parts, dim=1)  # (B,S,d)
+    else:
+        hs, state = steps(state, 0, s)
 
     hs = L.rmsnorm(hs.to(x.dtype), p["out_norm"]["scale"], cfg.norm_eps)
     x = x + hs
@@ -275,13 +295,19 @@ def forward(cfg, params, tokens):
     """tokens: (B, S) -> (logits (B, S, Vp), aux loss 0)."""
     unit, n_super = _pattern(cfg)
     x = embed_tokens(cfg, params, tokens)
-    for i in range(n_super):
-        p = layer_params(params["blocks"], i)
+
+    def super_block(p, x):
         for j, kind in enumerate(unit):
             if kind == "mlstm":
                 x = mlstm_block(cfg, p[f"u{j}"], x)
             else:
                 x, _ = slstm_block(cfg, p[f"u{j}"], x)
+        return x
+
+    body = (_remat(cfg, super_block) if torch.is_grad_enabled()
+            else super_block)
+    for i in range(n_super):
+        x = body(layer_params(params["blocks"], i), x)
     x = L.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux
@@ -353,8 +379,9 @@ def build(cfg) -> Model:
     return Model(
         cfg=cfg,
         table=param_table(cfg),
-        forward=lambda params, batch: forward(cfg, params, batch["tokens"]),
-        decode_step=lambda params, cache, tokens: decode_step(
+        forward=lambda params, batch: forward(
+            cfg, params, batch["tokens"]),
+        decode_step=lambda params, cache, tokens, shd=None: decode_step(
             cfg, params, cache, tokens),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
     )

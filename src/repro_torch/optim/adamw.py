@@ -9,8 +9,9 @@ leaf, which for starcoder2-3b's ``layers/mlp/w_in`` (1.13 B elements) is
 4.5 GB each on top of 54 GB of training state.  Each element still takes
 the reference's operations in the reference's order, so a slice gives
 the same bits as the whole leaf.  The grad norm's squares are summed in
-f64 (``global_norm``, C-ref13).  The reference's ``abstract_opt_state``
-and ``opt_specs`` are mesh plumbing with no port yet.
+f64 (``global_norm``, C-ref13).  ``abstract_opt_state`` and ``opt_specs``
+give the state's shapes and partition specs without storage, leaf for
+leaf those of the parameters (``ParamTable.abstract_sharded``).
 """
 from __future__ import annotations
 
@@ -75,6 +76,29 @@ def init_opt_state(params, opt: AdamW):
     return {"m": _map(zeros, params), "v": _map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=_leaves(params)[0].device)}
+
+
+def abstract_opt_state(params_abstract, opt: AdamW):
+    """The state of ``init_opt_state`` without storage: each moment an
+    ``AbstractParam`` (``meta`` tensor in the moment dtype) keeping its
+    parameter's spec, ``count`` a 0-dim int32 ``meta`` tensor."""
+    from repro_torch.models.params import AbstractParam
+    dt = torch_dtype(opt.moment_dtype)
+
+    def mirror(p):
+        return AbstractParam(torch.empty(p.value.shape, dtype=dt,
+                                         device="meta"), p.spec)
+
+    return {"m": _map(mirror, params_abstract),
+            "v": _map(mirror, params_abstract),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_specs(param_specs):
+    """The partition-spec tree of the optimizer state for the parameters'
+    spec tree: the moments sharded as their parameters, ``count``
+    replicated."""
+    return {"m": param_specs, "v": param_specs, "count": ()}
 
 
 def opt_state_from_reference(cfg, state: dict,

@@ -10,6 +10,13 @@ parameters enter autograd as per-layer leaves (views of the stacked
 tensors), so each layer's gradient is its own tensor, added into its
 slice of the sum, and no full-size zero-filled gradient is made per
 layer.
+
+``make_decode_step`` takes the reference's ``mesh`` (``launch/mesh.py``)
+as an optional keyword and hands each decode step its ``Sharder``: on a
+mesh for which ``brick_active`` holds, the step attends through the
+grid-brick cache.  Without a mesh the step gets no Sharder: the one-card
+path.  The train and prefill factories take no mesh: a Sharder changes
+no computation of the forward on the port's meshes.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.models.params import _flatten, torch_dtype
 from repro_torch.optim.adamw import AdamW, adamw_update
+from repro_torch.parallel.sharding import Sharder
 
 #: model families whose parameters under a path prefix are stacked on a
 #: leading layer axis (super-block axis for hybrid and ssm) and read per
@@ -166,10 +174,15 @@ def make_prefill_step(cfg, model):
     return prefill_step
 
 
-def make_decode_step(cfg, model):
-    """serve decode: one token in, one token's logits out, cache updated."""
+def make_decode_step(cfg, model, *, mesh=None):
+    """serve decode: one token in, one token's logits out, cache updated
+    (through the grid-brick cache where ``brick_active`` holds for the
+    mesh's Sharder)."""
+    shd = None if mesh is None else Sharder(cfg, mesh)
+
     def decode_step(params, cache, batch):
-        logits, cache = model.decode_step(params, cache, batch["tokens"])
+        logits, cache = model.decode_step(params, cache, batch["tokens"],
+                                          shd)
         return logits[:, -1, :], cache
 
     return decode_step

@@ -157,28 +157,31 @@ def test_backward_bound_at_recurrentgemma_training_shape():
 
 
 @pytest.mark.parametrize("arch,want", [
-    # 3 units of (rec, rec, attn) x 8 microbatches x 3 steps, no remat:
-    # 72 flash forwards and 72 backwards (head dim 256), all on the tensor
-    # cores, 144 RG-LRU scans and backwards
-    ("recurrentgemma-9b", {"flash_attention": 72,
-                           "flash_attention.wgmma": 72,
-                           "flash_attention_bwd": 72,
+    # 5 units of (rec, rec, attn) x 8 microbatches x 3 steps, remat "full"
+    # of each unit: 240 flash forwards (the recompute doubles them) and
+    # 120 backwards (head dim 256), all on the tensor cores, 480 RG-LRU
+    # scans and 240 backwards
+    ("recurrentgemma-9b", {"flash_attention": 240,
+                           "flash_attention.wgmma": 240,
+                           "flash_attention_bwd": 120,
                            "flash_attention_bwd.simt": 0,
-                           "flash_attention_bwd.wgmma": 72,
-                           "rglru_scan": 144, "rglru_scan_bwd": 144,
+                           "flash_attention_bwd.wgmma": 120,
+                           "rglru_scan": 480, "rglru_scan_bwd": 240,
                            "mlstm": 0, "mlstm_bwd": 0,
                            "mlstm_bwd.wgmma": 0, "mlstm_bwd.simt": 0}),
-    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, all on the tensor
-    # cores, the backward too (bf16 at head dim 512)
+    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, remat "full" of each
+    # super-block: 84 forwards, 42 backwards, all on the tensor cores
+    # (bf16 at head dim 512)
     ("xlstm-350m", {"flash_attention": 0, "flash_attention_bwd": 0,
-                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 42,
-                    "mlstm.wgmma": 42, "mlstm_bwd": 42,
+                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 84,
+                    "mlstm.wgmma": 84, "mlstm_bwd": 42,
                     "mlstm_bwd.wgmma": 42, "mlstm_bwd.simt": 0}),
 ])
 def test_recurrent_train_launch_counts(arch, want):
     """The recurrent models' train phase: depth, batch and steps as cut in
-    TRAIN_ARCHS, each forward and backward kernel once a layer and
-    microbatch; every microbatch's calls take the counted variants."""
+    TRAIN_ARCHS, each backward kernel once a layer and microbatch, each
+    forward twice (remat "full" of the super-blocks); every microbatch's
+    calls take the counted variants."""
     cfg = chip_smoke.train_config(arch)
     spec = chip_smoke.TRAIN_ARCHS[arch]
     got = chip_smoke.train_launches(cfg, spec["steps"])
@@ -186,8 +189,9 @@ def test_recurrent_train_launch_counts(arch, want):
         assert got[key] == n, key
     mb = spec["batch"] // cfg.microbatches
     seq = chip_smoke.TRAIN_SEQ
+    assert cfg.remat_policy == "full"
     if arch == "recurrentgemma-9b":
-        assert (cfg.num_layers, mb) == (9, 1)
+        assert (cfg.num_layers, mb) == (15, 1)
         from repro_torch.kernels.flash_attention import backward as fa_bwd
         args = (mb, seq, seq, cfg.num_heads_padded, cfg.num_kv_heads,
                 cfg.head_dim, torch.bfloat16)
@@ -216,3 +220,100 @@ def test_scan_backward_bounds():
     ms, by = chip_smoke.mlstm_bwd_bound_ms(2, 2048, 4, 512, 2)
     assert by == "operations"
     assert ms == pytest.approx(0.0869, abs=2e-4)
+
+
+@pytest.mark.parametrize("arch,full,none", [
+    # one (rec, rec, attn) unit: the attention and the two scans
+    ("recurrentgemma-9b", {"flash_attention": 2, "rglru_scan": 4},
+     {"flash_attention": 1, "rglru_scan": 2}),
+    # one 8-layer super-block: 7 mLSTMs
+    ("xlstm-350m", {"mlstm": 14}, {"mlstm": 7}),
+])
+def test_remat_check_launch_counts(arch, full, none):
+    """The remat check's step 1 on one super-block and one microbatch:
+    "full" runs each forward kernel twice, "none" once; the backwards
+    once either way.  The hybrid unit has no tail."""
+    spec = chip_smoke.REMAT_CHECK[arch]
+    base = dataclasses.replace(get_config(arch), num_layers=spec["layers"],
+                               microbatches=1)
+    for policy, want in (("full", full), ("none", none)):
+        got = chip_smoke.train_launches(
+            dataclasses.replace(base, remat_policy=policy), 1)
+        for key, n in want.items():
+            assert got[key] == n, (policy, key)
+        assert got["rglru_scan_bwd"] == none.get("rglru_scan", 0)
+        assert got["mlstm_bwd"] == none.get("mlstm", 0)
+        assert got["flash_attention_bwd"] == none.get("flash_attention", 0)
+
+
+def test_brick_phase_takes_the_brick_path_at_qwen3_14b():
+    """The brick phase's (1, 4) mesh cuts qwen3-14b's unwindowed cache of
+    8192 slots into 4 bricks (``brick_active``), the (1, 1) mesh does not;
+    the fill leaves every brick live and the steps write the last brick,
+    then wrap into brick 0; and the (1, 1) decode's flash calls over the
+    prefixes of 8190 to 8192 slots take the decode kernel: 40 x 6 = 240
+    launches."""
+    from repro_torch.core.brick_attention import brick_active
+    from repro_torch.launch.mesh import make_mesh_of
+    from repro_torch.parallel.sharding import Sharder
+    cfg = get_config(chip_smoke.LM_ARCH)
+    assert cfg.num_layers == 40 and not (cfg.sliding_window or
+                                         cfg.attention_window)
+
+    def shd(shape):
+        return Sharder(cfg, make_mesh_of(shape, ("data", "model"),
+                                         device="cpu",
+                                         emulate=shape != (1, 1)))
+    assert brick_active(cfg, shd(chip_smoke.BRICK_MESH),
+                        chip_smoke.BRICK_CACHE)
+    assert shd(chip_smoke.BRICK_MESH).tensor_size == 4
+    assert not brick_active(cfg, shd((1, 1)), chip_smoke.BRICK_CACHE)
+    w, fill, steps = (chip_smoke.BRICK_CACHE, chip_smoke.BRICK_FILL,
+                      chip_smoke.BRICK_STEPS)
+    brick = w // 4
+    assert fill > 3 * brick and fill < w < fill + steps
+    slots = [(fill + s) % w for s in range(steps)]
+    assert {sl // brick for sl in slots} == {0, 3}
+    want = chip_smoke.lm_launches(decode=40 * steps)
+    assert want["flash_attention"] == want["flash_attention.decode"] == 240
+    for t in range(fill, fill + steps + 1):
+        assert fa_kernel.plan(chip_smoke.LM_BATCH, 1, min(t + 1, w),
+                              cfg.num_heads_padded, cfg.num_kv_heads,
+                              cfg.head_dim, torch.bfloat16).variant == \
+            "decode"
+
+
+@pytest.mark.parametrize("arch,fill,w", [("qwen3-14b", 11, 16),
+                                         ("qwen3-32b", 16, 16)])
+def test_fill_ring_gives_the_token_by_token_cache(arch, fill, w):
+    """``chip_smoke.fill_ring`` (one batched forward) leaves reduced f32
+    caches as ``prefill_into_cache`` (one decode step a token) does: k/v
+    within 1e-5 of their largest magnitude (readings ~1e-7: the batched
+    and the one-token products round differently), kpos and t equal; and
+    a decode step from either gives logits within 1e-5 of their
+    spread."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import model_zoo
+    cfg = reduced_config(arch, dtype="float32", param_dtype="float32")
+    model = model_zoo.build_model(cfg)
+    params = model.table.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, fill + 1),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        got = chip_smoke.fill_ring(cfg, params, toks[:, :fill],
+                                   model.init_cache(2, w, "cpu"))
+        _, want = prefill_into_cache(cfg, model, params,
+                                     model.init_cache(2, w, "cpu"),
+                                     toks[:, :fill])
+        assert got["t"] == want["t"] == fill
+        assert torch.equal(got["kpos"], want["kpos"])
+        for key in ("k", "v"):
+            scale = float(want[key].abs().max())
+            assert float((got[key] - want[key]).abs().max()) <= 1e-5 * scale
+        a, _ = model.decode_step(params, got, toks[:, fill:])
+        b, _ = model.decode_step(params, want, toks[:, fill:])
+    assert float((a - b).abs().max()) <= 1e-5 * float(b.max() - b.min())
+    with pytest.raises(ValueError, match="empty cache"):
+        chip_smoke.fill_ring(cfg, params, toks.repeat(1, 2),
+                             model.init_cache(2, w, "cpu"))

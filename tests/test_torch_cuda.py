@@ -1451,9 +1451,11 @@ def test_mlstm_tensor_core_backward_raises_where_it_cannot_launch(cuda):
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
 def test_reduced_recurrent_train_step_on_the_card(cuda, arch):
     """One train step of a reduced recurrent model in bf16 (two
-    microbatches): every RG-LRU scan or mLSTM of each microbatch launches
-    its forward kernel once and its backward kernel once, and the loss and
-    grad norm are finite.  End to end the recurrent models are not held
+    microbatches, remat "full"): every RG-LRU scan or mLSTM of each
+    microbatch launches its backward kernel once and its forward kernel
+    twice where a super-block holds it (the step's forward and the
+    recompute), once in the hybrid family's tail, and the loss and grad
+    norm are finite.  End to end the recurrent models are not held
     against the plain path (C-ref5, C-ref6: two plain runs already
     disagree), chip_smoke holds each backward call instead."""
     from repro_torch.configs.registry import reduced_config
@@ -1469,22 +1471,132 @@ def test_reduced_recurrent_train_step_on_the_card(cuda, arch):
     params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
                               cuda)
     fn = make_train_step(cfg, model, AdamW())
+    assert cfg.remat_policy == "full"
     if arch == "recurrentgemma-9b":
         from repro_torch.models import hybrid
         unit, n_super, tail = hybrid._pattern(cfg)
-        per_mb = n_super * unit.count("rec") + len(tail)
+        in_super, per_mb = n_super * unit.count("rec"), len(tail)
         fwd, bwd, name = rg_kernel.LAUNCHES, rg_backward.LAUNCHES, \
             "rglru_scan"
     else:
         from repro_torch.models import xlstm
         unit, n_super = xlstm._pattern(cfg)
-        per_mb = n_super * unit.count("mlstm")
+        in_super, per_mb = n_super * unit.count("mlstm"), 0
         fwd, bwd, name = ml_kernel.LAUNCHES, ml_backward.LAUNCHES, "mlstm"
     f0, b0 = fwd[name], bwd[name + "_bwd"]
     _, _, metrics = fn(params, init_opt_state(params, AdamW()),
                        {"tokens": toks, "labels": toks})
     torch.cuda.synchronize()
-    assert fwd[name] - f0 == 2 * per_mb
-    assert bwd[name + "_bwd"] - b0 == 2 * per_mb
+    assert fwd[name] - f0 == 2 * (2 * in_super + per_mb)
+    assert bwd[name + "_bwd"] - b0 == 2 * (in_super + per_mb)
     for key in ("loss", "grad_norm"):
         assert np.isfinite(float(metrics[key])), (key, metrics)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_remat_gives_the_gradients_of_none_on_the_card(cuda, arch):
+    """Reduced recurrent models in bf16, 2 x 512 tokens (the sLSTM's
+    256-step chunks taken): the gradients with remat "full" equal those
+    with "none" bit for bit (every kernel on the path is deterministic),
+    but the embedding table's, which is held within 2e-2 of its largest
+    value (TRAIN_REL_TOL of chip_smoke) and reported: the accumulating
+    ``index_put_`` of the lookup's backward may add a token's rows in
+    another order.  "full" launches every forward kernel of the
+    super-blocks twice."""
+    import dataclasses
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import _flatten
+    from repro_torch.train.steps import make_grads_fn
+    base = reduced_config(arch, dtype="bfloat16", param_dtype="bfloat16")
+    params = model_zoo.build_model(base).table.init(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, base.vocab_size, (2, 512), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    kern, name = (rg_kernel.LAUNCHES, "rglru_scan") \
+        if arch == "recurrentgemma-9b" else (ml_kernel.LAUNCHES, "mlstm")
+    grads, launched = {}, {}
+    for policy in ("full", "none"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        f0 = kern[name]
+        g, total, _ = make_grads_fn(cfg, model_zoo.build_model(cfg))(
+            params, {"tokens": toks, "labels": toks})
+        torch.cuda.synchronize()
+        launched[policy] = kern[name] - f0
+        grads[policy] = (_flatten(g), float(total))
+    (full, t_full), (none, t_none) = grads["full"], grads["none"]
+    assert t_full == t_none and np.isfinite(t_full)
+    assert launched["full"] > launched["none"] > 0
+    for path, g in full.items():
+        h = none[path]
+        if path == "embed/table":
+            rel = float((g - h).abs().max() / h.abs().max())
+            assert rel <= 2e-2, rel
+        else:
+            assert torch.equal(g, h), path
+
+
+def test_brick_decode_matches_the_one_device_decode_on_the_card(cuda):
+    """Reduced qwen3-32b in bf16 and f32, a cache of 8192 slots that
+    ``chip_smoke.fill_ring`` fills with 8189 tokens, so each of the 4
+    bricks holds live slots: 6 decode steps on an emulated (1, 4) mesh
+    (the grid-brick cache, plain einsums: no flash launch), the last 3
+    slots of brick 3 and then past the ring's end into brick 0, against
+    the (1, 1) decode (the ring's filled prefix through the flash decode
+    kernel) from the same cache: the logits within 2e-2 (bf16) or 1e-4
+    (f32) of the (1, 1) logits' spread, the same argmax (at least 0.8 of
+    the rows in bf16, whose near-ties may flip), and the brick decode's
+    k/v cache of the first layer equal to the ring's bit for bit."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.core.brick_attention import brick_active
+    from repro_torch.launch.mesh import make_mesh_of
+    from repro_torch.models import model_zoo
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.steps import make_decode_step
+    w, fill, steps = 8192, 8189, 6
+    for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        cfg = reduced_config("qwen3-32b", dtype=dtype, param_dtype=dtype)
+        model = model_zoo.build_model(cfg)
+        params = model.table.init(
+            torch.Generator(device=cuda).manual_seed(0), cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, fill + steps),
+                             device=cuda, generator=torch.Generator(
+                                 device=cuda).manual_seed(1))
+        with torch.inference_mode():
+            filled = chip_smoke.fill_ring(cfg, params, toks[:, :fill],
+                                          model.init_cache(2, w, cuda))
+        assert (filled["kpos"].view(4, -1) >= 0).sum(1).tolist() == \
+            [2048, 2048, 2048, 2045]
+        runs = {}
+        for shape in ((1, 4), (1, 1)):
+            mesh = make_mesh_of(shape, ("data", "model"), device=cuda,
+                                emulate=shape != (1, 1))
+            dec = make_decode_step(cfg, model, mesh=mesh)
+            cache = {**filled, **{key: filled[key].clone()
+                                  for key in ("k", "v", "kpos")}}
+            f0 = fa_kernel.LAUNCHES["flash_attention"]
+            out = []
+            with torch.inference_mode():
+                for i in range(fill, fill + steps):
+                    lg, cache = dec(params, cache,
+                                    {"tokens": toks[:, i:i + 1]})
+                    out.append(lg.float())
+            torch.cuda.synchronize()
+            runs[shape] = (torch.stack(out), cache,
+                           fa_kernel.LAUNCHES["flash_attention"] - f0)
+        assert brick_active(cfg, Sharder(cfg, mesh=make_mesh_of(
+            (1, 4), ("data", "model"), device=cuda, emulate=True)), w)
+        (brick, c4, n4), (one, c1, n1) = runs[(1, 4)], runs[(1, 1)]
+        assert c1["t"] == fill + steps
+        assert n4 == 0 and n1 == cfg.num_layers * steps
+        spread = float(one.max() - one.min())
+        assert float((brick - one).abs().max()) <= tol * spread, dtype
+        top1 = float((brick.argmax(-1) == one.argmax(-1)).float().mean())
+        assert top1 >= (1.0 if dtype == "float32" else 0.8), (dtype, top1)
+        for key in ("k", "v"):
+            assert torch.equal(c4[key][0], c1[key][0])
+        assert torch.equal(c4["kpos"], c1["kpos"])

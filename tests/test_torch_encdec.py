@@ -247,12 +247,20 @@ def test_c_ref8_the_reference_launcher_decodes_on_zero_cross_kv(
 
 
 def test_decode_refuses_brick_attention(pair):
+    """``use_brick=True`` (the grid-brick cache, tested against the ring in
+    ``tests/test_torch_brick_attention.py``) is refused without a Sharder
+    and on a mesh whose model axis does not cut the cache into bricks."""
+    from repro_torch.launch.mesh import make_mesh_of as port_mesh_of
+    from repro_torch.parallel.sharding import Sharder as PortSharder
     cfg, model, params, *_ = pair
-    cache = model.init_cache(1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="one card"):
-        encdec.decode_step(cfg, params, cache,
-                           torch.zeros((1, 1), dtype=torch.long),
-                           use_brick=True)
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    three = PortSharder(cfg, port_mesh_of((1, 3), ("data", "model"),
+                                          device="cpu", emulate=True))
+    for shd, match in ((None, "needs the Sharder"),
+                       (three, "8 slots does not cut into 3 bricks")):
+        cache = model.init_cache(1, 8, "cpu")
+        with pytest.raises(ValueError, match=match):
+            encdec.decode_step(cfg, params, cache, tok, shd, use_brick=True)
 
 
 def test_param_table_matches_the_reference_at_full_width():

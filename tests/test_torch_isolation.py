@@ -75,6 +75,9 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.data import pipeline\n"
         "from repro_torch.train import steps, trainer\n"
         "from repro_torch.kernels.flash_attention import backward\n"
+        "import repro_torch.parallel, repro_torch.launch.mesh\n"
+        "from repro_torch.parallel import collectives, sharding\n"
+        "from repro_torch.core import brick_attention\n"
         "for arch in ('qwen3-14b', 'recurrentgemma-9b', 'xlstm-350m',\n"
         "             'pixtral-12b', 'phi3.5-moe-42b-a6.6b', 'grok-1-314b',\n"
         "             'whisper-medium'):\n"

@@ -92,12 +92,16 @@ def test_serve_launcher_query_mode_on_cpu():
 
 @pytest.mark.parametrize("argv,flag", [
     (["--mode", "lm", "--arch", "qwen3-14b", "--production-mesh"],
-     "--mode lm --production-mesh"),
+     "need 256 devices for mesh (16, 16)"),
 ])
 def test_serve_launcher_refuses_unported_options(argv, flag):
-    with pytest.raises(SystemExit, match="not ported") as err:
+    """Every option of the launcher is ported: ``--production-mesh``
+    reaches ``make_production_mesh``, which refuses the 16 x 16 mesh with
+    the CUDA device count this process sees."""
+    with pytest.raises(RuntimeError) as err:
         port_serve.main(argv + ["--device", "cpu"])
     assert str(err.value).startswith(flag)
+    assert "CUDA device" in str(err.value)
 
 
 def test_serve_launcher_rejects_scan_knobs_on_sim_backend():
