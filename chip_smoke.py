@@ -227,6 +227,26 @@ Phases, each printing one JSON line:
    must be equal bit for bit (every kernel on the path is deterministic),
    or, where a leaf differs, within TRAIN_REL_TOL of its largest
    gradient; "full" launches every forward kernel twice;
+   dryrun  — the dry run (launch/dryrun.py) of a cell's step on the meta
+   device at full width, held against the card: starcoder2-3b's and
+   recurrentgemma-9b's train steps (each at the end of its train phase,
+   the step traced once more on the card, untimed, its batch in the dry
+   run's int32 tokens) and qwen3-14b's decode step at the lm phase's
+   shape (LM_BATCH rows, a ring of LM_PROMPT + LM_NEW slots, the step
+   that writes the last: 40 B3 decode launches; after the brick phase,
+   on the same weights).  The same OpTrace records both runs: outside
+   the kernel wrappers the op lists (names, shapes, dtypes, in order) and
+   the kernel entries (kernel, variant, shape, count, flops, bytes) must
+   be equal, and each kernel's calls must equal the profiler's launches
+   of one step (PROFILED_CALL: the train phase's profiled step; one more
+   decode step under the profiler).  xlstm-350m's train step is dry-run
+   on meta alone, at one of its three super-blocks and 512 steps
+   (DRYRUN_XL): its B5 calls, three times over, equal the profiler's
+   launches of the train phase's step.  Printed, with nvidia-smi's name
+   and power limit, not gated: MODEL_FLOPS over (ms a step x 989
+   TFLOP/s), the roofline time over the measured and its dominant term
+   (analysis/roofline.py), and the predicted peak memory (arguments and
+   temps) against max_memory_allocated over the traced step;
    trainer — Trainer with starcoder2-3b at full width and 1 of its 30
    layers (TRAINER_LAYERS), bf16, checkpoints into a temporary directory
    (removed afterwards): a calm run of 4 steps; a run of 2 steps resumed
@@ -289,9 +309,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# the H100's rates and the LM kernels' work counts (their bound column)
+from repro_torch.analysis import roofline  # noqa: E402
+
+HBM_BYTES_PER_S = roofline.HBM_BW          # H100 SXM memory rate
+FP32_FLOPS_PER_S = roofline.PEAK_FLOPS_FP32  # fp32 outside the tensor cores
+BF16_FLOPS_PER_S = roofline.PEAK_FLOPS      # bf16 tensor cores, dense
 BAND_RTOL = 1e-5
 CHUNK_SHAPE = (64, 4096, 63)   # the query path's chunk: chunk_events x T x V
 RAGGED_SHAPE = (37, 1000, 63)
@@ -404,6 +427,23 @@ TRAINER_LAYERS, TRAINER_STEPS = 1, 4
 # step-1 loss and grad norm of the kernel path against the plain path in
 # f32, gated where the two plain runs (bf16, f32) agree within it
 TRAIN_REL_TOL = 2e-2
+# the dryrun phase: the device kernel whose launches count one call of a
+# dry-run kernel entry ("kernel.variant", else "kernel") in a profile
+PROFILED_CALL = {"flash_attention.wgmma": "flash_wgmma_kernel",
+                 "flash_attention.decode": "flash_decode_kernel",
+                 "flash_attention_bwd": "fa_bwd_delta_kernel",
+                 "rglru_scan": "rglru_chunked_kernel<0>",
+                 "rglru_scan_bwd": "rglru_chunked_kernel<1>",
+                 "mlstm.wgmma": "mlstm_gates_kernel",
+                 "mlstm_bwd": "mlstm_bwd_cumsum_kernel"}
+# xlstm-350m's train step is dry-run on meta alone, cut to one of its
+# three super-blocks (8 of 24 layers) and 512 of its 2048 steps at the
+# train phase's rows: the sLSTM loops over every step in Python, and an
+# op on meta costs ~0.13 ms of host time on the H100's host (one
+# super-block: 228k ops, 30 s at 512 steps; ~1 M ops, ~130 s at 2048).
+# The B5 calls do not depend on the steps: 14 and 7, a third of the
+# step's
+DRYRUN_XL = {"layers": 8, "seq_len": 512}
 
 
 def emit(obj) -> None:
@@ -801,24 +841,6 @@ def phase_flash_kernels(gen):
     return rows
 
 
-def fa_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None, causal=True):
-    """Least time for attention on these shapes: q, k, v read and the
-    output written once at the HBM rate, against 4 flops per (query,
-    valid key, head, head-dim) pair at the bf16 tensor-core rate (causal:
-    the keys up to the query's position, a window leaving the last
-    ``window`` of them; not causal: every key); the larger of the two,
-    and which one it is."""
-    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * sk * kh * d)
-    if causal:
-        pairs = sum(min(sk, i + sk - sq + 1, window or sk)
-                    for i in range(sq))
-    else:
-        pairs = sq * sk
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-
 def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
     """flash_attention at one main-path shape (bf16) over TIMING_ROTATION
     operand sets: kernel and plain version as in ``time_kernel``, and the
@@ -848,7 +870,8 @@ def time_flash(gen, b, sq, sk, h, kh, d, window=None, causal=True):
         err = max(err, fa_check(out, want, torch.bfloat16, "timing"))
         lib_err = max(lib_err, float((lo.float() - want.float()).abs()
                                      .max()))
-    bound, by = fa_bound_ms(b, sq, sk, h, kh, d, 2, window, causal)
+    bound, by = roofline.bound_ms(roofline.flash_attention_work(
+        b, sq, sk, h, kh, d, "bfloat16", window, causal))
     pl = fa_kernel.plan(b, sq, sk, h, kh, d, torch.bfloat16, causal, window)
     return {"variant": pl.variant, "splits": len(pl.splits),
             **time_pair(kern, plain), "library_ms": device_time_ms(lib),
@@ -1003,24 +1026,6 @@ def phase_flash_backward(gen):
     return rows
 
 
-def fa_bwd_bound_ms(b, sq, sk, h, kh, d, itemsize, window=None,
-                    causal=True, flops_per_s=None):
-    """Least time for attention's backward: q, k, v, out and dout read and
-    dq, dk, dv written once at the HBM rate, against 10 flops per (query,
-    valid key, head, head-dim) (the five products any backward needs: S,
-    dP, dV, dK, dQ) at the bf16 tensor-core rate (``flops_per_s``: another
-    type's); the larger, and which."""
-    nbytes = itemsize * (4 * b * sq * h * d + 4 * b * sk * kh * d)
-    if causal:
-        pairs = sum(min(sk, i + sk - sq + 1, window or sk)
-                    for i in range(sq))
-    else:
-        pairs = sq * sk
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 10 * b * h * pairs * d / (flops_per_s or BF16_FLOPS_PER_S) * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-
 def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None,
                    dtype=torch.bfloat16, iters=TIMING_ITERS):
     """The backward at one main-path shape (causal; bf16 takes the
@@ -1062,9 +1067,8 @@ def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None,
     lib = [sdpa_bwd(*x) for x in sets]
     pl = fa_backward.plan(b, sq, sk, h, kh, d, dtype)
     f32 = dtype == torch.float32
-    bound, by = fa_bwd_bound_ms(b, sq, sk, h, kh, d, 4 if f32 else 2,
-                                window, flops_per_s=FP32_FLOPS_PER_S
-                                if f32 else None)
+    bound, by = roofline.bound_ms(roofline.flash_attention_bwd_work(
+        b, sq, sk, h, kh, d, "float32" if f32 else "bfloat16", window))
     return {"variant": pl.variant, "splits": pl.splits,
             "dtype": str(dtype).split(".")[-1],
             **time_pair(kern, plain, iters),
@@ -1387,28 +1391,6 @@ def phase_scan_backward(gen):
     return rows
 
 
-def scan_bound_ms(b, s, w):
-    """Least time for the recurrence without h0, as the forward calls it:
-    a and b read and h written once at the HBM rate, against 2 flops an
-    element at the fp32 rate; the larger, and which one it is."""
-    nbytes = 4 * 3 * b * s * w
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 2 * b * s * w / FP32_FLOPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-
-def mlstm_bound_ms(b, s, h, d, itemsize):
-    """Least time for the chunkwise mLSTM: q, k, v, log_i, log_f read and
-    the output written once at the HBM rate, against 4 flops per (query,
-    causal key, head, head-dim) at the bf16 tensor-core rate; the larger,
-    and which one it is."""
-    nbytes = itemsize * 4 * b * s * h * d + 4 * 2 * b * s * h
-    pairs = s * (s + 1) // 2
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 4 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-
 def time_scan(gen, b, s, w):
     """rglru_scan at recurrentgemma-9b's forward shape (no h0, as the
     forward calls it) over TIMING_ROTATION operand sets.  No library
@@ -1423,7 +1405,7 @@ def time_scan(gen, b, s, w):
     err = 0.0
     for kc, pc in zip(kern[:2], plain[:2]):
         err = max(err, close_check(kc()[0], pc()[0], *SCAN_TOL, "timing"))
-    bound, by = scan_bound_ms(b, s, w)
+    bound, by = roofline.bound_ms(roofline.rglru_scan_work(b, s, w))
     pl = rg_kernel.plan(b, s, w)
     return with_share({"chunk": pl.chunk, "blocks": pl.blocks,
                        "load": pl.load, **time_pair(kern, plain),
@@ -1453,36 +1435,13 @@ def time_mlstm(gen, b, s, h, d, with_stats=False):
     for kc, ops in zip(kern[:4], sets[:4]):
         err = max(err, close_check(kc(), mlstm_plain_f32(*ops),
                                    *MLSTM_TOL[torch.bfloat16], "timing"))
-    bound, by = mlstm_bound_ms(b, s, h, d, 2)
+    bound, by = roofline.bound_ms(roofline.mlstm_work(b, s, h, d))
     pl = ml_kernel.plan(b, s, h, d, torch.bfloat16)
     return with_share({"variant": pl.variant,
                        "blocks": len(pl.items) * b * h,
                        **time_pair(kern, plain), "library_ms": None,
                        "bound_ms": bound, "bound_by": by,
                        "max_abs_err": err})
-
-
-def scan_bwd_bound_ms(b, s, w):
-    """Least time for the RG-LRU backward without h0 or dh_last, as
-    training calls it: a, dy and h read and db and da written once at the
-    HBM rate, against 3 flops an element at the fp32 rate; the larger,
-    and which one it is."""
-    b_ms = 4 * 5 * b * s * w / HBM_BYTES_PER_S * 1e3
-    f_ms = 3 * b * s * w / FP32_FLOPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-
-def mlstm_bwd_bound_ms(b, s, h, d, itemsize):
-    """Least time for the mLSTM backward: q, k, v, out, dout read and dq,
-    dk, dv written once (and the f32 gates, stats and their gradients) at
-    the HBM rate, against 10 flops per (query, causal key, head, head-dim)
-    (the five products any backward needs: S, dP, dV, dK, dQ) at the
-    bf16 tensor-core rate; the larger, and which one it is."""
-    nbytes = itemsize * 8 * b * s * h * d + 4 * 6 * b * s * h
-    pairs = s * (s + 1) // 2
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = 10 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
 def time_scan_bwd(gen, b, s, w):
@@ -1519,7 +1478,7 @@ def time_scan_bwd(gen, b, s, w):
                                  "plain backward")
         err = max([err] + [float((g - w).abs().max())
                            for g, w in zip(got[:2], want[:2])])
-    bound, by = scan_bwd_bound_ms(b, s, w)
+    bound, by = roofline.bound_ms(roofline.rglru_scan_bwd_work(b, s, w))
     pl = rg_kernel.plan(b, s, w)
     return with_share({"chunk": pl.chunk, "blocks": pl.blocks,
                        "load": pl.load, **time_pair(kern, plain),
@@ -1592,7 +1551,7 @@ def time_mlstm_bwd(gen, b, s, h, d, iters=16):
                                  "backward")
         err = max([err] + [float((g.float() - w).abs().max())
                            for g, w in zip(got, want)])
-    bound, by = mlstm_bwd_bound_ms(b, s, h, d, 2)
+    bound, by = roofline.bound_ms(roofline.mlstm_bwd_work(b, s, h, d))
     counts = {}
     by_name = kernel_ms(kern, iters, counts)
     split = {key: sum(ms for name, ms in by_name.items() if sub in name)
@@ -3044,10 +3003,11 @@ def phase_train(arch):
     # xlstm-350m's step launches ~630,000 kernels (the sLSTM's loop): its
     # profile records the device activity alone
     host_ops = cfg.family != "ssm"
-    profile_run("train_profile", lambda: step_fn(params, opt_state,
-                                                 batches[-1]),
-                breakdown=TRAIN_BREAKDOWN[cfg.family], host_ops=host_ops,
-                arch=cfg.name, host_ops_recorded=host_ops)
+    prof = profile_run("train_profile", lambda: step_fn(params, opt_state,
+                                                        batches[-1]),
+                       breakdown=TRAIN_BREAKDOWN[cfg.family],
+                       host_ops=host_ops, arch=cfg.name,
+                       host_ops_recorded=host_ops)
     total = torch.cuda.get_device_properties(0).total_memory
     emit({"phase": "train", "arch": cfg.name, "steps": steps,
           "global_batch": batch, "seq_len": TRAIN_SEQ,
@@ -3059,8 +3019,146 @@ def phase_train(arch):
           "peak_memory_gb": peak / 1e9, "card_memory_gb": total / 1e9,
           "free_at_peak_gb": (total - peak) / 1e9, "step1_vs_plain": e2e,
           "end_to_end_gated": gated, "backward_per_call": shadow})
+    # the dryrun phase: this step on meta, held against the card (its
+    # batch in the dry run's int32 tokens); xlstm-350m's on meta alone
+    if cfg.family == "ssm":
+        dry = dataclasses.replace(cfg, num_layers=DRYRUN_XL["layers"])
+        dryrun_cell(dry, dry_cell("train", DRYRUN_XL["seq_len"], batch),
+                    prof, share=cfg.num_layers // dry.num_layers)
+    else:
+        int_batch = {key: x.to(torch.int32) for key, x in
+                     batches[-1].items()}
+        dryrun_cell(cfg, dry_cell("train", TRAIN_SEQ, batch), prof,
+                    card=(step_fn, (params, opt_state, int_batch)),
+                    ms_per_step=step_s * 1e3)
     del params, opt_state, batches
     return launches
+
+
+def dry_cell(kind, seq_len, batch):
+    """A dry-run cell of this script: ``kind`` over ``batch`` rows of
+    ``seq_len`` tokens."""
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig(f"{kind}_{batch}x{seq_len}", seq_len=seq_len,
+                       global_batch=batch, kind=kind)
+
+
+def profiled_calls(line) -> dict:
+    """Launches of each dry-run kernel key in a ``profile_run`` line's
+    breakdown (PROFILED_CALL's device kernel)."""
+    return {key: sum(r["count"] for r in line["breakdown"]
+                     if name in r["name"])
+            for key, name in PROFILED_CALL.items()}
+
+
+def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
+                share=1):
+    """The dryrun phase for one cell: ``dryrun.lower`` traces the step on
+    ``meta`` at the cell's width.  ``card = (step, args)``: the same step
+    traced once on the card by the same recorder, untimed; outside the
+    kernel wrappers its op list (names, shapes, dtypes, in order) and its
+    kernel entries (kernel, variant, shape, count, flops, bytes) must
+    equal the meta trace's.  ``profile``: a ``profile_run`` line over one
+    step of the cell; each kernel's calls in the dry run times ``share``
+    (the trained layers over the dry run's) must equal the profiler's
+    launches of that kernel (PROFILED_CALL), and the profiler may launch
+    no LM kernel the dry run lacks.  Printed, not gated, with the card's
+    name and power limit: MODEL_FLOPS over (ms a step x 989 TFLOP/s),
+    ``mfu``; the roofline time over the measured; the dominant term; the
+    predicted peak (arguments and temps) against the card's
+    ``max_memory_allocated`` over the traced step."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    record, meta = dryrun.lower(cfg, shape)
+    line = {"phase": "dryrun", "arch": cfg.name, "cell": shape.name,
+            "kind": shape.kind, "layers": cfg.num_layers,
+            "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+            "meta_s": time.perf_counter() - t0, "ops": record["ops"],
+            "kernel_launches": record["kernel_launches"],
+            "memory": record["memory"], "smi": nvidia_smi_line()}
+    if card is not None:
+        step, args = card
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        traced = dryrun.trace_step(step, args)
+        torch.cuda.synchronize()
+        line["card_s"] = time.perf_counter() - t0
+        bad = dryrun.trace_mismatch(meta.as_dict(), traced.as_dict())
+        if bad:
+            raise AssertionError(f"{cfg.name} {shape.name}: the meta trace "
+                                 f"is not the card's: {bad}")
+        line["card_ops"] = len(traced.ops)
+        mem = record["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        peak = torch.cuda.max_memory_allocated()
+        line["peak_memory"] = {"predicted_gb": predicted / 1e9,
+                               "measured_gb": peak / 1e9,
+                               "predicted_over_measured": predicted / peak}
+    got = profiled_calls(profile)
+    want = {}
+    for key, n in record["kernel_launches"].items():
+        name = key if key in PROFILED_CALL else key.split(".")[0]
+        if name not in PROFILED_CALL:
+            raise AssertionError(f"{key}: no device kernel counts its calls")
+        want[name] = want.get(name, 0) + n * share
+    line["profiled_calls"] = {key: n for key, n in got.items() if n}
+    if line["profiled_calls"] != want:
+        raise AssertionError(f"{cfg.name} {shape.name}: dry-run kernel calls "
+                             f"{want} (x{share}) against the profiler's "
+                             f"{line['profiled_calls']}")
+    if ms_per_step is not None:
+        rl = roofline.analyze_cell(cfg.name, shape.name, record=record,
+                                   trace=meta.as_dict(), cfg=cfg)
+        t_roof = max(rl.t_compute, rl.t_memory, rl.t_collective) * 1e3
+        line["readings"] = {
+            "ms_per_step": ms_per_step,
+            "model_flops": rl.model_flops_total,
+            "step_flops": rl.flops_per_chip,
+            "step_bytes": rl.bytes_per_chip,
+            "useful_ratio": rl.useful_ratio,
+            "mfu": rl.model_flops_total / (ms_per_step / 1e3 *
+                                           roofline.PEAK_FLOPS),
+            "t_compute_ms": rl.t_compute * 1e3,
+            "t_memory_ms": rl.t_memory * 1e3,
+            "roofline_ms": t_roof, "roofline_share": t_roof / ms_per_step,
+            "dominant": rl.dominant}
+    emit(line)
+    return line
+
+
+def phase_dryrun_decode(cfg, model, params):
+    """The dryrun phase's decode cell: qwen3-14b's decode step at the lm
+    phase's shape (LM_BATCH rows, a ring of LM_PROMPT + LM_NEW slots, the
+    step that writes its last slot: 40 B3 decode launches), on ``meta``
+    and traced once on the card from a zero cache; ms a step over 5 steps
+    after one, and one more step under the profiler."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.params import _flatten
+    shape = dry_cell("decode", LM_PROMPT + LM_NEW, LM_BATCH)
+    step, meta_args = dryrun.step_inputs(cfg, shape, dryrun.one_card_mesh())
+    # the weights in the table's order, as the dry run's: the layer loop
+    # selects each leaf in the tree's order (``LanguageModel.tree`` gives
+    # them sorted by path)
+    flat = _flatten(params)
+    params = model.table._nested(lambda path, d: flat[path])
+    cache = model.init_cache(LM_BATCH, shape.seq_len, DEVICE)
+    cache["t"] = meta_args[1]["t"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, 1), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    args = (params, cache, {"tokens": tokens})
+    step(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    prof = profile_run("dryrun_profile", lambda: step(*args),
+                       breakdown=("flash_decode_kernel",), arch=cfg.name)
+    return dryrun_cell(cfg, shape, prof, card=(step, args), ms_per_step=ms)
 
 
 def phase_remat_check():
@@ -3503,9 +3601,12 @@ def main(argv=None) -> int:
     took(f"lm {LM_ARCH}")
     # the grid-brick KV cache on the same weights, and its (1, 1) decode
     brick_one = phase_brick(*lm)
+    took("brick")
+    # the dryrun phase's decode cell on the same weights
+    phase_dryrun_decode(*lm)
     del lm
     release()
-    took("brick")
+    took("dryrun decode")
     lm = build_lm(RG_ARCH)
     rg_serve = phase_lm(*lm)
     rg_forward = phase_prefill(*lm)

@@ -67,7 +67,7 @@ def main() -> int:
     times = {name: [] for name, _ in order}
     for name, calls in order + order[::-1]:
         times[name].append(cs.device_time_ms(calls))
-    bound, by = cs.scan_bound_ms(*SHAPE)
+    bound, by = cs.roofline.bound_ms(cs.roofline.rglru_scan_work(*SHAPE))
     for chunk in CHUNKS:
         ms = sum(times[chunk]) / 2
         print(json.dumps({

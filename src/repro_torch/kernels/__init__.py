@@ -15,7 +15,10 @@
 
 Kernel wrappers dispatch on the tensor's device: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel or raises.
-There is no switch that sends a CUDA tensor to the plain version.
+There is no switch that sends a CUDA tensor to the plain version.  The
+LM kernels (B3, B4, B5) also take ``meta`` tensors, the dry run's device:
+the call is validated and planned as on an H100, its outputs are made
+without storage, and nothing launches (:data:`TRACE` records it).
 """
 from __future__ import annotations
 
@@ -69,11 +72,30 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 #: launch plans
 H100_SMS = 132
 
+#: the op trace of a dry run or a traced step (``launch/dryrun.OpTrace``)
+#: while one records, else None.  The LM kernel wrappers (B3, B4, B5 and
+#: their backwards) call its ``begin()`` on entry and its ``end(kernel,
+#: variant, shape)`` before they return: the ops between are the
+#: wrapper's own (its outputs and workspaces), and the call is one kernel
+#: entry of the trace.
+TRACE = None
+
 
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sms_of(device: torch.device) -> int:
+    """The SMs a launch plan spreads over: the CUDA device's own, and an
+    H100's for a ``meta`` tensor (the dry run plans as on the card)."""
+    return H100_SMS if device.type == "meta" else sm_count(device.index)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``"bfloat16"`` for ``torch.bfloat16`` and so on."""
+    return str(dtype).removeprefix("torch.")
 
 
 def check_tma_aligned(what: str, **tensors) -> None:

@@ -25,7 +25,8 @@ differentiates its plain attention with autodiff, and the port's forward
 on the card is a kernel, so its gradient is one too
 (``ops.FlashAttentionFn``).
 
-The wrapper takes CUDA tensors only: it validates shapes, device, dtype,
+The wrapper takes CUDA tensors, and ``meta`` tensors for the dry run
+(planned as on an H100, nothing launched): it validates shapes, device, dtype,
 the head-dim stride and, for the tensor-core variant, 16-byte alignment
 (it raises, never copies), allocates the gradients and the f32 scratch,
 launches on PyTorch's current stream and raises if the launch was
@@ -43,8 +44,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (H100_SMS, check_tma_aligned,
-                                 load_cuda_library, sm_count)
+from repro_torch import kernels as kernel_pkg
+from repro_torch.kernels import (H100_SMS, check_tma_aligned, dtype_name,
+                                 load_cuda_library, sms_of)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
@@ -119,11 +121,11 @@ def build() -> None:
 def _check(q, k, v, out, dout, lse) -> None:
     fa_kernel.validate(q, k, v)
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(
-            f"the flash_attention backward CUDA kernel takes CUDA tensors, "
-            f"got a tensor on {dev} (CPU tensors are differentiated through "
-            f"the plain version)")
+            f"the flash_attention backward CUDA kernel takes CUDA (or meta) "
+            f"tensors, got a tensor on {dev} (CPU tensors are differentiated "
+            f"through the plain version)")
     if q.dtype not in fa_kernel.DTYPE_CODES:
         raise ValueError(f"flash_attention backward takes float32 or "
                          f"bfloat16, got {q.dtype}")
@@ -163,18 +165,40 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
     contiguous and in the operands' dtype, for ``out`` and ``lse``, the
     forward's output and per-row lse on the same q, k, v and options, and
     ``dout``, the gradient of the loss with respect to ``out``.  Still
-    being computed on the current stream when it returns."""
+    being computed on the current stream when it returns.  On ``meta``
+    tensors (the dry run) it validates and plans the call as on an H100
+    and returns the gradients unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     _check(q, k, v, out, dout, lse)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     dev = q.device
-    pl = plan(b, sq, sk, h, kh, d, q.dtype, sm_count(dev.index))
+    pl = plan(b, sq, sk, h, kh, d, q.dtype, sms_of(dev))
     if pl.variant == "wgmma":
         check_tma_aligned("the tensor-core backward", q=q, k=k, v=v,
                           dout=dout)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, kh, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
+    if dev.type == "cuda":
+        _launch(pl, q, k, v, out, dout, lse, dq, dk, dv, causal, window,
+                scale, logit_cap)
+    if trace is not None:
+        trace.end("flash_attention_bwd", pl.variant, dict(
+            b=b, sq=sq, sk=sk, h=h, kh=kh, d=d, dtype=dtype_name(q.dtype),
+            window=window, causal=causal))
+    return dq, dk, dv
+
+
+def _launch(pl, q, k, v, out, dout, lse, dq, dk, dv, causal, window, scale,
+            logit_cap):
+    """Launch the backward of plan ``pl`` on the current stream and count
+    the call."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    dev = q.device
     scale = float(scale if scale is not None else d ** -0.5)
     flags = (scale, int(causal), int(window is not None), int(window or 0),
              int(logit_cap is not None), float(logit_cap or 0.0))
@@ -208,4 +232,3 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
                            f"{tuple(k.shape)}, {q.dtype})")
     LAUNCHES["flash_attention_bwd"] += 1
     VARIANT_CALLS[pl.variant] += 1
-    return dq, dk, dv

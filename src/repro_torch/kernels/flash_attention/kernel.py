@@ -18,7 +18,8 @@ prefill kernels write it, and the plan never sends such a call to the
 decode kernel, so lse comes from the launch whose output the backward
 differentiates.
 
-The wrapper takes CUDA tensors only: it validates shapes, device, dtype,
+The wrapper takes CUDA tensors, and ``meta`` tensors for the dry run
+(planned as on an H100, nothing launched): it validates shapes, device, dtype,
 the head-dim stride and, for the tensor-core kernels, 16-byte alignment
 (it raises, never copies), allocates the output and the split scratch,
 launches on PyTorch's current stream and raises if the launch was refused
@@ -37,8 +38,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import (H100_SMS, check_tma_aligned,
-                                 load_cuda_library, sm_count)
+from repro_torch import kernels as kernel_pkg
+from repro_torch.kernels import (H100_SMS, check_tma_aligned, dtype_name,
+                                 load_cuda_library, sms_of)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -166,11 +168,11 @@ def build() -> None:
 
 def _check_operands(q, k, v) -> None:
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(
-            f"the flash_attention CUDA kernel takes CUDA tensors, got a "
-            f"tensor on {dev} (CPU tensors go through ops.py to the plain "
-            f"version)")
+            f"the flash_attention CUDA kernel takes CUDA (or meta) tensors, "
+            f"got a tensor on {dev} (CPU tensors go through ops.py to the "
+            f"plain version)")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -203,19 +205,39 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     computed on the current stream; ``with_lse`` returns (out, lse), lse
     the (B, H, Sq) f32 log-sum-exp of each row's scaled (capped) valid
     scores in natural log, +inf for a row with no valid key, written by
-    the same launch (the backward's input)."""
+    the same launch (the backward's input).  On ``meta`` tensors (the dry
+    run, ``launch/dryrun.py``) it validates and plans the call as on an
+    H100 and returns the outputs unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     validate(q, k, v)
     _check_operands(q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     dev = q.device
     pl = plan(b, sq, sk, h, kh, d, q.dtype, causal, window,
-              sm_count(dev.index), with_lse=with_lse)
+              sms_of(dev), with_lse=with_lse)
     if pl.variant != "simt":
         check_tma_aligned("the tensor-core kernels", q=q, k=k, v=v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
         if with_lse else None
+    if dev.type == "cuda":
+        _launch(pl, q, k, v, out, lse, causal, window, scale, logit_cap)
+    if trace is not None:
+        trace.end("flash_attention", pl.variant, dict(
+            b=b, sq=sq, sk=sk, h=h, kh=kh, d=d, dtype=dtype_name(q.dtype),
+            window=window, causal=causal, with_lse=with_lse))
+    return (out, lse) if with_lse else out
+
+
+def _launch(pl, q, k, v, out, lse, causal, window, scale, logit_cap):
+    """Launch the kernel of plan ``pl`` on the current stream and count
+    the call."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    dev = q.device
     scale = float(scale if scale is not None else d ** -0.5)
     flags = (scale, int(causal), int(window is not None), int(window or 0),
              int(logit_cap is not None), float(logit_cap or 0.0))
@@ -255,4 +277,3 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                            f"{tuple(k.shape)}, {q.dtype})")
     LAUNCHES["flash_attention"] += 1
     VARIANT_CALLS[pl.variant] += 1
-    return (out, lse) if with_lse else out

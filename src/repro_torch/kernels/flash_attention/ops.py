@@ -1,6 +1,8 @@
 """Device dispatch of flash attention: a CUDA tensor launches the
 hand-written kernel (``kernel.py``), a CPU tensor takes the plain version
-(``ref.py``), and any other device raises.  There is no switch that sends
+(``ref.py``), a ``meta`` tensor (the dry run) goes through the same
+calls as a CUDA one, its wrapper launching nothing, and any other device
+raises.  There is no switch that sends
 a CUDA tensor to the plain version.
 
 On CUDA operands of which one requires grad, with grad mode on, the call
@@ -57,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention operands are on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
-    if dev.type == "cuda":      # the wrappers validate
+    if dev.type in ("cuda", "meta"):     # the wrappers validate
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttentionFn.apply(q, k, v, causal, window, scale,

@@ -23,7 +23,8 @@ runs give the same bits.  It has no Pallas counterpart: the JAX package
 differentiates its plain ``mlstm_parallel``, and the port's forward on
 the card is a kernel, so its gradient is one too (``ops.MlstmFn``).
 
-It takes CUDA tensors only: it validates shapes, device, dtype, the
+It takes CUDA tensors, and ``meta`` tensors for the dry run (nothing
+launched): it validates shapes, device, dtype, the
 head-dim stride and, for the tensor-core variant, 16-byte alignment (it
 raises, never copies an operand), allocates the gradients and the f32
 scratch, launches on PyTorch's current stream and raises if a launch was
@@ -40,7 +41,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import check_tma_aligned, load_cuda_library
+from repro_torch import kernels as kernel_pkg
+from repro_torch.kernels import (check_tma_aligned, dtype_name,
+                                 load_cuda_library)
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_scan_bwd.cu"
@@ -98,7 +101,11 @@ def mlstm_bwd_cuda(q, k, v, log_i, log_f, out, dout, lse, sg):
     ``(lse, sg)``, the forward's output and row stats on the same q, k, v,
     log_i, log_f, and ``dout``, the gradient of the loss with respect to
     ``out``.  Still being computed on the current stream when it
-    returns."""
+    returns.  On ``meta`` tensors (the dry run) it returns the gradients
+    unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     ml_kernel.validate(q, k, v, log_i, log_f)
     ml_kernel._check_operands(q, k, v, log_i, log_f)
     dev = q.device
@@ -130,6 +137,21 @@ def mlstm_bwd_cuda(q, k, v, log_i, log_f, out, dout, lse, sg):
     dv = torch.empty_like(dq)
     dli = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     dlf = torch.empty_like(dli)
+    if dev.type == "cuda":
+        _launch(variant, q, k, v, lf, li, out, dout, lse, sg, scratch, dq,
+                dk, dv, dli, dlf)
+    if trace is not None:
+        trace.end("mlstm_bwd", variant, dict(b=b, s=s, h=h, d=d,
+                                             dtype=dtype_name(q.dtype)))
+    return dq, dk, dv, dli, dlf
+
+
+def _launch(variant, q, k, v, lf, li, out, dout, lse, sg, scratch, dq, dk,
+            dv, dli, dlf):
+    """Launch the backward's ``variant`` on the current stream and count
+    the call."""
+    b, s, h, d = q.shape
+    dev = q.device
     strides = [st for x in (q, k, v, out, dout) for st in x.stride()[:3]]
     launch = _launchers()[variant]
     with torch.cuda.device(dev):
@@ -162,4 +184,3 @@ def mlstm_bwd_cuda(q, k, v, log_i, log_f, out, dout, lse, sg):
                            f"{what} (q {tuple(q.shape)}, {q.dtype})")
     LAUNCHES["mlstm_bwd"] += 1
     VARIANT_CALLS[variant] += 1
-    return dq, dk, dv, dli, dlf

@@ -13,7 +13,8 @@ device kernels, one chosen per call by :func:`plan`:
 For the CUDA-core kernel, as the Pallas wrapper does, this wrapper forms
 ``F = cumsum(log_f)`` over the sequence in f32 before the launch; the
 tensor-core kernel forms F itself, with the gates' row max.  It takes
-CUDA tensors only: it validates shapes, device, dtype, the head-dim
+CUDA tensors, and ``meta`` tensors for the dry run (planned as on an
+H100, nothing launched): it validates shapes, device, dtype, the head-dim
 stride and, for the tensor-core kernel, 16-byte alignment (it raises,
 never copies), allocates the output and the split scratch, launches on
 PyTorch's current stream and raises if the launch was refused or a TMA
@@ -31,8 +32,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import (H100_SMS, check_tma_aligned,
-                                 load_cuda_library, sm_count)
+from repro_torch import kernels as kernel_pkg
+from repro_torch.kernels import (H100_SMS, check_tma_aligned, dtype_name,
+                                 load_cuda_library, sms_of)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_scan.cu"
 
@@ -161,11 +163,11 @@ def _check_operands(q, k, v, log_i, log_f) -> None:
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), ("log_i", log_i),
                     ("log_f", log_f)):
-        if x.device.type != "cuda":
+        if x.device.type not in ("cuda", "meta"):
             raise ValueError(
-                f"the mlstm CUDA kernel takes CUDA tensors, got {name} on "
-                f"{x.device} (CPU tensors go through ops.py to the plain "
-                f"version)")
+                f"the mlstm CUDA kernel takes CUDA (or meta) tensors, got "
+                f"{name} on {x.device} (CPU tensors go through ops.py to the "
+                f"plain version)")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
     if q.dtype not in DTYPE_CODES:
@@ -197,17 +199,36 @@ def mlstm_cuda(q, k, v, log_i, log_f, *, with_stats: bool = False):
     in q's dtype, still being computed on the current stream; with
     ``with_stats``, (out, L, sg), the row stats the backward reads
     (``ref.mlstm_ref(with_stats=True)``), contiguous (B,S,H) float32
-    written by the same launch."""
+    written by the same launch.  On ``meta`` tensors (the dry run) it
+    validates and plans the call as on an H100 and returns the outputs
+    unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     validate(q, k, v, log_i, log_f)
     _check_operands(q, k, v, log_i, log_f)
     b, s, h, d = q.shape
     dev = q.device
-    pl = plan(b, s, h, d, q.dtype, sm_count(dev.index))
+    pl = plan(b, s, h, d, q.dtype, sms_of(dev))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     lse = sg = None
     if with_stats:
         lse = torch.empty((b, s, h), dtype=torch.float32, device=dev)
         sg = torch.empty_like(lse)
+    if dev.type == "cuda":
+        _launch(pl, q, k, v, log_i, log_f, out, lse, sg)
+    if trace is not None:
+        trace.end("mlstm", pl.variant, dict(b=b, s=s, h=h, d=d,
+                                            dtype=dtype_name(q.dtype),
+                                            with_stats=with_stats))
+    return (out, lse, sg) if with_stats else out
+
+
+def _launch(pl, q, k, v, log_i, log_f, out, lse, sg):
+    """Launch the kernel of plan ``pl`` on the current stream and count
+    the call."""
+    b, s, h, d = q.shape
+    dev = q.device
     stats = (None if lse is None else lse.data_ptr(),
              None if sg is None else sg.data_ptr())
     strides = (q.stride(0), q.stride(1), q.stride(2),
@@ -254,4 +275,3 @@ def mlstm_cuda(q, k, v, log_i, log_f, *, with_stats: bool = False):
                            f"{what} (q {tuple(q.shape)}, {q.dtype})")
     LAUNCHES["mlstm"] += 1
     VARIANT_CALLS[pl.variant] += 1
-    return (out, lse, sg) if with_stats else out

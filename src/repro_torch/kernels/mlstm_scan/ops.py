@@ -1,6 +1,8 @@
 """Device dispatch of the chunkwise mLSTM: a CUDA tensor launches the
 hand-written kernel (``kernel.py``), a CPU tensor takes the plain version
-(``ref.py``), and any other device raises.  There is no switch that
+(``ref.py``), a ``meta`` tensor (the dry run) goes through the same
+calls as a CUDA one, its wrapper launching nothing, and any other device
+raises.  There is no switch that
 sends a CUDA tensor to the plain version.
 
 On CUDA operands of which one requires grad, with grad mode on, the call
@@ -49,7 +51,7 @@ def mlstm(q, k, v, log_i, log_f):
     if any(x.device != dev for x in (k, v, log_i, log_f)):
         raise ValueError("mlstm operands are on different devices: "
                          f"{[str(x.device) for x in (q, k, v, log_i, log_f)]}")
-    if dev.type == "cuda":      # the wrappers validate
+    if dev.type in ("cuda", "meta"):     # the wrappers validate
         if torch.is_grad_enabled() and any(
                 x.requires_grad for x in (q, k, v, log_i, log_f)):
             return MlstmFn.apply(q, k, v, log_i, log_f)

@@ -13,10 +13,11 @@ It has no Pallas counterpart: the JAX package differentiates its plain
 associative scan, and the port's forward on the card is a kernel, so its
 gradient is one too (``ops.RglruScanFn``).
 
-The wrapper takes CUDA tensors only: it validates shapes, device, dtype
-and contiguity, allocates the gradients and the workspace (filled with
-all ones, as the forward's), launches on PyTorch's current stream and
-raises if the launch was refused.  The library is the forward's, built
+The wrapper takes CUDA tensors, and ``meta`` tensors for the dry run
+(nothing launched): it validates shapes, device, dtype and contiguity,
+allocates the gradients and the workspace (filled with all ones, as the
+forward's), launches on PyTorch's current stream and raises if the
+launch was refused.  The library is the forward's, built
 with nvcc at first launch (``repro_torch.kernels``).
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import functools
 
 import torch
 
+from repro_torch import kernels as kernel_pkg
 from repro_torch.kernels import load_cuda_library
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel
 
@@ -58,7 +60,11 @@ def rglru_scan_bwd_cuda(a, h, dy, dh_last=None, h0=None):
     gradient of the loss with respect to h and dh_last (None: zeros) with
     respect to h_last, h0 the forward's initial state (None: zeros); all
     contiguous float32 CUDA tensors on one device.  Still being computed
-    on the current stream when it returns."""
+    on the current stream when it returns.  On ``meta`` tensors (the dry
+    run) it returns the gradients unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     scan_kernel.validate(a, h)
     scan_kernel.validate(a, dy, dh_last)
     scan_kernel.validate(a, h, h0)
@@ -67,11 +73,11 @@ def rglru_scan_bwd_cuda(a, h, dy, dh_last=None, h0=None):
     for name, x in ops:
         if x is None:
             continue
-        if x.device.type != "cuda":
+        if x.device.type not in ("cuda", "meta"):
             raise ValueError(
-                f"the rglru_scan backward CUDA kernel takes CUDA tensors, "
-                f"got {name} on {x.device} (CPU tensors are differentiated "
-                f"through the plain version)")
+                f"the rglru_scan backward CUDA kernel takes CUDA (or meta) "
+                f"tensors, got {name} on {x.device} (CPU tensors are "
+                f"differentiated through the plain version)")
         if x.device != a.device:
             raise ValueError(f"{name} is on {x.device}, a on {a.device}")
         if x.dtype != torch.float32:
@@ -93,14 +99,19 @@ def rglru_scan_bwd_cuda(a, h, dy, dh_last=None, h0=None):
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    with torch.cuda.device(a.device):
-        rc = _launcher()(
-            a.data_ptr(), dy.data_ptr(), ptr(dh_last), h.data_ptr(), ptr(h0),
-            db.data_ptr(), da.data_ptr(), ptr(dh0), ws.data_ptr(),
-            bsz, s, w, pl.chunk, int(pl.load == "bulk"),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rglru_scan backward kernel launch failed: CUDA "
-                           f"error {rc} (a {tuple(a.shape)})")
-    LAUNCHES["rglru_scan_bwd"] += 1
+    if a.device.type == "cuda":
+        with torch.cuda.device(a.device):
+            rc = _launcher()(
+                a.data_ptr(), dy.data_ptr(), ptr(dh_last), h.data_ptr(),
+                ptr(h0), db.data_ptr(), da.data_ptr(), ptr(dh0),
+                ws.data_ptr(), bsz, s, w, pl.chunk, int(pl.load == "bulk"),
+                torch.cuda.current_stream(a.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rglru_scan backward kernel launch failed: "
+                               f"CUDA error {rc} (a {tuple(a.shape)})")
+        LAUNCHES["rglru_scan_bwd"] += 1
+    if trace is not None:
+        trace.end("rglru_scan_bwd", pl.load, dict(
+            b=bsz, s=s, w=w, h0=h0 is not None,
+            dh_last=dh_last is not None))
     return da, db, dh0

@@ -10,8 +10,9 @@ aggregates in a fixed order; :func:`plan` gives the launch shape and the
 load path.  The wrapper takes CUDA tensors only: it validates shapes,
 device, dtype and contiguity, allocates the output and the workspace
 (the ticket counter and the aggregates, filled with all ones), launches
-on PyTorch's current stream and raises if the launch was refused.  It
-never falls back to the plain version; ``ops.py`` picks the plain
+on PyTorch's current stream and raises if the launch was refused (on
+``meta`` tensors, the dry run's, it launches nothing).  It never falls
+back to the plain version; ``ops.py`` picks the plain
 version for CPU tensors.  The library is built with nvcc at first launch
 (``repro_torch.kernels``).
 """
@@ -24,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import kernels as kernel_pkg
 from repro_torch.kernels import load_cuda_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
@@ -126,15 +128,20 @@ def rglru_scan_cuda(a, b, h0=None, *, chunk: int = CHUNK):
     """``h_t = a_t h_{t-1} + b_t`` on the card: a, b (B,S,W) and h0 (B,W)
     (None: zeros), contiguous float32 CUDA tensors on one device; chunks
     of ``chunk`` steps (:func:`plan`).  Returns (h (B,S,W) float32, h_last
-    (B,W), a view of h), still being computed on the current stream."""
+    (B,W), a view of h), still being computed on the current stream.  On
+    ``meta`` tensors (the dry run) it validates and plans the call as on
+    the card and returns h unwritten, launching nothing."""
+    trace = kernel_pkg.TRACE
+    if trace is not None:
+        trace.begin()
     validate(a, b, h0)
     ops = (("a", a), ("b", b)) + ((("h0", h0),) if h0 is not None else ())
     for name, x in ops:
-        if x.device.type != "cuda":
+        if x.device.type not in ("cuda", "meta"):
             raise ValueError(
-                f"the rglru_scan CUDA kernel takes CUDA tensors, got {name} "
-                f"on {x.device} (CPU tensors go through ops.py to the plain "
-                f"version)")
+                f"the rglru_scan CUDA kernel takes CUDA (or meta) tensors, "
+                f"got {name} on {x.device} (CPU tensors go through ops.py to "
+                f"the plain version)")
         if x.device != a.device:
             raise ValueError(f"{name} is on {x.device}, a on {a.device}")
         if x.dtype != torch.float32:
@@ -150,15 +157,19 @@ def rglru_scan_cuda(a, b, h0=None, *, chunk: int = CHUNK):
               b.data_ptr() % 16 == 0, chunk=chunk)
     h = torch.empty_like(a)
     ws = torch.full((pl.ws_words,), -1, dtype=torch.int64, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = _launcher()(
-            a.data_ptr(), b.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, h.data_ptr(),
-            ws.data_ptr(),
-            bsz, s, w, pl.chunk, int(pl.load == "bulk"),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
-                           f"{rc} (a {tuple(a.shape)})")
-    LAUNCHES["rglru_scan"] += 1
+    if a.device.type == "cuda":
+        with torch.cuda.device(a.device):
+            rc = _launcher()(
+                a.data_ptr(), b.data_ptr(),
+                h0.data_ptr() if h0 is not None else None, h.data_ptr(),
+                ws.data_ptr(),
+                bsz, s, w, pl.chunk, int(pl.load == "bulk"),
+                torch.cuda.current_stream(a.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rglru_scan kernel launch failed: CUDA "
+                               f"error {rc} (a {tuple(a.shape)})")
+        LAUNCHES["rglru_scan"] += 1
+    if trace is not None:
+        trace.end("rglru_scan", pl.load, dict(b=bsz, s=s, w=w,
+                                              h0=h0 is not None))
     return h, h[:, -1]

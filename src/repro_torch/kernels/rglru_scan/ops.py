@@ -1,6 +1,8 @@
 """Device dispatch of the RG-LRU recurrence: a CUDA tensor launches the
 hand-written kernel (``kernel.py``), a CPU tensor takes the plain version
-(``ref.py``), and any other device raises.  There is no switch that
+(``ref.py``), a ``meta`` tensor (the dry run) goes through the same
+calls as a CUDA one, its wrapper launching nothing, and any other device
+raises.  There is no switch that
 sends a CUDA tensor to the plain version.
 
 On CUDA operands of which one requires grad, with grad mode on, the call
@@ -56,7 +58,7 @@ def rglru_scan(a, b, h0=None):
         raise ValueError("rglru_scan operands are on different devices: "
                          f"{a.device}, {b.device}, "
                          f"{None if h0 is None else h0.device}")
-    if dev.type == "cuda":      # the wrappers validate
+    if dev.type in ("cuda", "meta"):     # the wrappers validate
         if torch.is_grad_enabled() and any(
                 x is not None and x.requires_grad for x in (a, b, h0)):
             return RglruScanFn.apply(a, b, h0)

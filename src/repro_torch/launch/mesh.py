@@ -28,7 +28,7 @@ class Mesh:
 
 
 def _device_count(device_type: str) -> int:
-    if device_type == "cpu":
+    if device_type in ("cpu", "meta"):     # meta: the dry run's device
         return 1
     if device_type == "cuda":
         return torch.cuda.device_count()

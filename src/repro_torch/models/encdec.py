@@ -232,6 +232,15 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
             "t": 0}
 
 
+def cache_roles(cfg, shd, seq_len: int) -> dict:
+    """The reference's sharding roles of each cache tensor: the ring's as
+    the decoder LM's (``transformer.cache_roles``), the cross K/V's along
+    the kv heads."""
+    roles = transformer.cache_roles(cfg, shd, seq_len)
+    cross = ("null", "batch", "null", "tensor", "null")
+    return {**roles, "xk": cross, "xv": cross}
+
+
 def prefill_cross_cache(cfg, params, frames, cache):
     """Run the encoder once and fill the cross-attention K/V: returns a
     new cache dict whose ``xk``/``xv`` hold every decoder layer's
@@ -309,4 +318,9 @@ def build(cfg) -> "model_zoo.Model":
         decode_step=lambda params, cache, tokens, shd=None: decode_step(
             cfg, params, cache, tokens, shd),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
+        init_cache_abstract=lambda shd, b, s: model_zoo.abstract_cache(
+            init_cache(cfg, b, s, "meta"), cache_roles(cfg, shd, s), shd,
+            s),
+        extra_inputs=model_zoo.embeds_input(cfg, "frames",
+                                            cfg.encoder_seq_len),
     )

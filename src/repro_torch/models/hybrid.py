@@ -31,7 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import rglru
 from repro_torch.models import transformer
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, abstract_cache
 from repro_torch.models.params import ParamTable, torch_dtype
 from repro_torch.models.transformer import (add_attn_layer_params,
                                             decode_attention, embed_tokens,
@@ -200,6 +200,20 @@ def decode_step(cfg, params, cache, tokens):
     return logits, {**cache, "t": t + 1}
 
 
+def cache_roles(cfg) -> dict:
+    """The reference's sharding roles of each cache tensor
+    (``init_cache_abstract``)."""
+    _, _, tail = _pattern(cfg)
+    kv = ("null", "batch", "null", "tensor", "null")
+    roles = {"lru_h": ("null", "null", "batch", "tensor"),
+             "conv": ("null", "null", "batch", "null", "tensor"),
+             "k": kv, "v": kv, "kpos": ("null",)}
+    for j in range(len(tail)):
+        roles[f"tail{j}_h"] = ("batch", "tensor")
+        roles[f"tail{j}_conv"] = ("batch", "null", "tensor")
+    return roles
+
+
 # --------------------------------------------------------------------------- #
 def build(cfg) -> Model:
     return Model(
@@ -210,4 +224,7 @@ def build(cfg) -> Model:
         decode_step=lambda params, cache, tokens, shd=None: decode_step(
             cfg, params, cache, tokens),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
+        init_cache_abstract=lambda shd, b, s: abstract_cache(
+            init_cache(cfg, b, s, "meta"), cache_roles(cfg), shd, s),
+        extra_inputs=lambda shape, shd: {},
     )

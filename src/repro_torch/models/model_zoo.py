@@ -6,7 +6,10 @@ recurrent/attention family (recurrentgemma) and the xLSTM family.
   table                                   -> ParamTable
   forward(params, batch)                  -> (logits, aux_loss)  prefill
   init_cache(batch, seq_len, device)      -> decode state        decode
+  init_cache_abstract(shd, batch, seq_len) -> the same on ``meta``  dry run
   decode_step(params, cache, tokens, shd=None) -> (logits, cache)
+  extra_inputs(shape, shd)                -> abstract extra inputs dry run
+  input_specs(model, shape, shd)          -> abstract batch        dry run
 
 ``batch`` holds ``tokens`` and the family's extra inputs: ``patch_embeds``
 (vlm, optional) or ``frames`` (audio).  ``shd`` is the reference's
@@ -21,9 +24,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
 from torch import nn
 
-from repro_torch.models.params import ParamTable
+from repro_torch.models.params import AbstractParam, ParamTable, \
+    torch_dtype
 
 
 @dataclasses.dataclass
@@ -34,6 +39,59 @@ class Model:
     # (params, cache, tokens, shd=None) -> (logits, cache)
     decode_step: Callable
     init_cache: Callable  # (batch, seq_len, device) -> cache
+    # (shd, batch, seq_len) -> cache of AbstractParam leaves
+    init_cache_abstract: Callable
+    extra_inputs: Callable  # (shape, shd) -> dict of AbstractParam
+
+
+def abstract(shd, shape, dtype, roles) -> AbstractParam:
+    """A ``meta`` tensor of ``shape`` and ``dtype`` with the spec of
+    ``roles`` on ``shd``'s mesh (the reference's sharded
+    ``ShapeDtypeStruct``)."""
+    return AbstractParam(torch.empty(shape, dtype=dtype, device="meta"),
+                         shd.spec(roles, shape))
+
+
+def abstract_cache(cache: dict, roles: dict, shd, seq_len: int) -> dict:
+    """A decode state made on ``meta`` (``init_cache(..., "meta")``) as
+    ``AbstractParam`` leaves with the specs of the reference's ``roles``,
+    and ``t = seq_len - 1``: the step that writes the cache's last
+    position, which attends over every slot of the ring as the
+    reference's step does whatever ``t`` holds (the port's attends over
+    the filled prefix)."""
+    out = {key: AbstractParam(val, shd.spec(roles[key], val.shape))
+           for key, val in cache.items() if key != "t"}
+    out["t"] = seq_len - 1
+    return out
+
+
+def input_specs(model: Model, shape, shd) -> dict:
+    """Abstract inputs (``AbstractParam``: ``meta`` tensor and spec) for
+    one shape cell: int32 tokens (and labels) of (batch, seq_len), one new
+    token a row at decode, and the family's extra inputs."""
+    b = shape.global_batch
+    seq = shape.seq_len if shape.kind in ("train", "prefill") else 1
+    specs = {"tokens": abstract(shd, (b, seq), torch.int32,
+                                ("batch", None))}
+    if shape.kind in ("train", "prefill"):
+        specs["labels"] = abstract(shd, (b, seq), torch.int32,
+                                   ("batch", None))
+    specs.update(model.extra_inputs(shape, shd))
+    return specs
+
+
+def embeds_input(cfg, name: str, length: int):
+    """``extra_inputs`` of a family with one (batch, length, d_model)
+    input in ``cfg.dtype`` at train and prefill (vlm's ``patch_embeds``,
+    audio's ``frames``)."""
+    def extra(shape, shd):
+        if shape.kind not in ("train", "prefill"):
+            return {}
+        return {name: abstract(
+            shd, (shape.global_batch, length, cfg.d_model),
+            torch_dtype(cfg.dtype), ("batch", None, None))}
+
+    return extra
 
 
 def build_model(cfg) -> Model:
@@ -63,6 +121,11 @@ def _decoder_lm(cfg) -> Model:
             transformer.decode_step(cfg, params, cache, tokens, shd),
         init_cache=lambda b, s, device: transformer.init_cache(
             cfg, b, s, device),
+        init_cache_abstract=lambda shd, b, s: abstract_cache(
+            transformer.init_cache(cfg, b, s, "meta"),
+            transformer.cache_roles(cfg, shd, s), shd, s),
+        extra_inputs=(embeds_input(cfg, "patch_embeds", cfg.num_patches)
+                      if cfg.num_patches else lambda shape, shd: {}),
     )
 
 

@@ -318,6 +318,19 @@ def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
             "t": 0}
 
 
+def cache_roles(cfg, shd, seq_len: int) -> dict:
+    """The reference's sharding roles of each cache tensor
+    (``init_cache_abstract``): k/v cut along the sequence over the model
+    axis where the grid-brick layout holds (``brick_active``), along the
+    kv heads otherwise."""
+    from repro_torch.core import brick_attention
+    seq = "tensor" if brick_attention.brick_active(
+        cfg, shd, cache_len(cfg, seq_len)) else "null"
+    kv = ("null", "batch", seq, "tensor" if seq == "null" else "null",
+          "null")
+    return {"k": kv, "v": kv, "kpos": ("null",)}
+
+
 def decode_attention(cfg, p, h, positions, k_i, v_i, slot, n, brick=None):
     """The attention sub-block of one decode step (no residual): write the
     new k/v into ``slot`` of the layer's ring cache ``k_i``/``v_i``

@@ -37,7 +37,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.kernels.mlstm_scan.ops import mlstm as mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import NEG, mlstm_ref
 from repro_torch.models import layers as L
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, abstract_cache
 from repro_torch.models.params import ParamTable, torch_dtype
 from repro_torch.models.rglru import causal_conv1d
 from repro_torch.models.transformer import _remat, embed_tokens, \
@@ -374,6 +374,17 @@ def decode_step(cfg, params, cache, tokens):
     return logits, {**cache, "t": cache["t"] + 1}
 
 
+#: the reference's sharding roles of each cache tensor
+#: (``init_cache_abstract``)
+CACHE_ROLES = {
+    "C": ("null", "null", "batch", "null", "null", "null"),
+    "n": ("null", "null", "batch", "null", "null"),
+    "m": ("null", "null", "batch", "null"),
+    "conv": ("null", "null", "batch", "null", "tensor"),
+    **{key: ("null", "null", "batch", "null")
+       for key in ("s_c", "s_n", "s_h", "s_m")}}
+
+
 # --------------------------------------------------------------------------- #
 def build(cfg) -> Model:
     return Model(
@@ -384,4 +395,7 @@ def build(cfg) -> Model:
         decode_step=lambda params, cache, tokens, shd=None: decode_step(
             cfg, params, cache, tokens),
         init_cache=lambda b, s, device: init_cache(cfg, b, s, device),
+        init_cache_abstract=lambda shd, b, s: abstract_cache(
+            init_cache(cfg, b, s, "meta"), CACHE_ROLES, shd, s),
+        extra_inputs=lambda shape, shd: {},
     )

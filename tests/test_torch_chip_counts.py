@@ -1,8 +1,9 @@
 """chip_smoke.py's predictions for each LM path, on the CPU: the exact
 flash_attention launch counts it asserts (by device kernel, counted from
 each model's layer pattern and the plan each call takes), the attention
-bound it reports for non-causal calls, and the rule that decides whether
-a path's end-to-end logits are gated."""
+bound it reports for non-causal calls (``analysis/roofline.py``'s work
+counts), and the rule that decides whether a path's end-to-end logits
+are gated."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -14,6 +15,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    bound_ms as bound, flash_attention_bwd_work, flash_attention_work,
+    mlstm_bwd_work, rglru_scan_bwd_work)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 
@@ -79,13 +83,14 @@ def test_whisper_plans_match_the_phase_3_rows():
 
 def test_attention_bound_counts_every_key_when_not_causal():
     b, sq, sk, h, kh, d = 2, 1500, 1500, 16, 16, 64
-    ms, by = chip_smoke.fa_bound_ms(b, sq, sk, h, kh, d, 2, causal=False)
+    ms, by = bound(flash_attention_work(b, sq, sk, h, kh, d, causal=False))
     assert by == "operations"
     assert ms == pytest.approx(4 * b * h * sq * sk * d /
                                chip_smoke.BF16_FLOPS_PER_S * 1e3)
-    causal, _ = chip_smoke.fa_bound_ms(b, sq, sk, h, kh, d, 2)
+    causal, _ = bound(flash_attention_work(b, sq, sk, h, kh, d))
     assert causal == pytest.approx(ms * (sk + 1) / (2 * sk))
-    ms, by = chip_smoke.fa_bound_ms(2, 1, 1500, 16, 16, 64, 2, causal=False)
+    ms, by = bound(flash_attention_work(2, 1, 1500, 16, 16, 64,
+                                        causal=False))
     assert by == "bytes"
     assert ms == pytest.approx(2 * (2 * 2 * 16 * 64 + 2 * 2 * 1500 * 16 * 64)
                                / chip_smoke.HBM_BYTES_PER_S * 1e3)
@@ -129,28 +134,30 @@ def test_train_launch_counts():
 def test_backward_bound_counts_ten_flops_a_valid_pair():
     """10 * B * H * pairs * D at 989 TFLOP/s: about 0.174 ms at starcoder2's
     (2, 2048^2, 32, 128) causal; its 4096 window masks nothing there."""
-    ms, by = chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2, 4096)
+    ms, by = bound(flash_attention_bwd_work(2, 2048, 2048, 32, 2, 128,
+                                            window=4096))
     pairs = 2048 * 2049 // 2
     assert by == "operations"
     assert ms == pytest.approx(10 * 2 * 32 * pairs * 128 /
                                chip_smoke.BF16_FLOPS_PER_S * 1e3)
     assert ms == pytest.approx(0.174, abs=5e-4)
-    assert chip_smoke.fa_bwd_bound_ms(2, 2048, 2048, 32, 2, 128, 2)[0] == ms
+    assert bound(flash_attention_bwd_work(2, 2048, 2048, 32, 2, 128))[0] \
+        == ms
 
 
 def test_backward_bound_at_recurrentgemma_training_shape():
     """recurrentgemma-9b's microbatch (1, 2048^2, 16 heads of 256), its
     2048 window masking nothing: about 0.0869 ms at 989 TFLOP/s in bf16;
     the CUDA-core variant's f32 row is bound at 67 TFLOP/s."""
-    ms, by = chip_smoke.fa_bwd_bound_ms(1, 2048, 2048, 16, 1, 256, 2, 2048)
+    ms, by = bound(flash_attention_bwd_work(1, 2048, 2048, 16, 1, 256,
+                                            window=2048))
     pairs = 2048 * 2049 // 2
     assert by == "operations"
     assert ms == pytest.approx(10 * 16 * pairs * 256 /
                                chip_smoke.BF16_FLOPS_PER_S * 1e3)
     assert ms == pytest.approx(0.0869, abs=5e-5)
-    f32, by32 = chip_smoke.fa_bwd_bound_ms(
-        1, 2048, 2048, 16, 1, 256, 4, 2048,
-        flops_per_s=chip_smoke.FP32_FLOPS_PER_S)
+    f32, by32 = bound(flash_attention_bwd_work(
+        1, 2048, 2048, 16, 1, 256, "float32", window=2048))
     assert by32 == "operations"
     assert f32 == pytest.approx(ms * chip_smoke.BF16_FLOPS_PER_S /
                                 chip_smoke.FP32_FLOPS_PER_S)
@@ -213,11 +220,11 @@ def test_scan_backward_bounds():
     out): 0.050 ms at (1, 2048, 4096) at 3.35 TB/s; the B5 backward does
     10 flops a valid pair and head dim: ~0.087 ms at (2, 2048, 4, 512) at
     989 TFLOP/s."""
-    ms, by = chip_smoke.scan_bwd_bound_ms(1, 2048, 4096)
+    ms, by = bound(rglru_scan_bwd_work(1, 2048, 4096))
     assert by == "bytes"
     assert ms == pytest.approx(20 * 2048 * 4096 /
                                chip_smoke.HBM_BYTES_PER_S * 1e3)
-    ms, by = chip_smoke.mlstm_bwd_bound_ms(2, 2048, 4, 512, 2)
+    ms, by = bound(mlstm_bwd_work(2, 2048, 4, 512))
     assert by == "operations"
     assert ms == pytest.approx(0.0869, abs=2e-4)
 

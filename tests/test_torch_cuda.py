@@ -1060,7 +1060,7 @@ def test_flash_backward_wrapper_checks_its_operands(cuda):
     q, k, v = _fa_inputs(cuda, 1, 8, 8, 2, 1, 64, torch.bfloat16, seed=1)
     out = torch.zeros_like(q)
     lse = torch.zeros((1, 2, 8), device=cuda)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         fa_backward.flash_attention_bwd_cuda(q.cpu(), k.cpu(), v.cpu(),
                                              out.cpu(), out.cpu(), lse.cpu())
     with pytest.raises(ValueError, match="dout is"):
@@ -1600,3 +1600,67 @@ def test_brick_decode_matches_the_one_device_decode_on_the_card(cuda):
         for key in ("k", "v"):
             assert torch.equal(c4[key][0], c1[key][0])
         assert torch.equal(c4["kpos"], c1["kpos"])
+
+
+def _card_inputs(cfg, shape, step_args, dev):
+    """The card's inputs of a dry-run cell: the meta inputs'
+    (``dryrun.step_inputs``) structure, with seeded parameters, zero
+    optimizer state and decode cache (``t`` kept), and int32 tokens."""
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.adamw import AdamW, init_opt_state
+    model = model_zoo.build_model(cfg)
+    params = model.table.init(torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    meta_batch = step_args[-1]
+    batch = {key: torch.randint(0, cfg.vocab_size, tuple(x.shape),
+                                generator=g, device=dev, dtype=x.dtype)
+             if not x.is_floating_point() else
+             torch.randn(tuple(x.shape), generator=g, device=dev,
+                         dtype=torch.float32).to(x.dtype)
+             for key, x in meta_batch.items()}
+    if shape.kind == "train":
+        opt = AdamW(moment_dtype=cfg.opt_moment_dtype)
+        return params, init_opt_state(params, opt), batch
+    if shape.kind == "prefill":
+        return params, batch
+    cache = model.init_cache(shape.global_batch, shape.seq_len, dev)
+    cache["t"] = step_args[1]["t"]
+    return params, cache, batch
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("qwen3-14b", "train"), ("recurrentgemma-9b", "train"),
+    ("xlstm-350m", "train"), ("qwen3-14b", "decode"),
+    ("recurrentgemma-9b", "prefill"), ("whisper-medium", "decode")])
+def test_meta_trace_equals_the_card_trace(cuda, arch, kind):
+    """The dry run on ``meta`` and the same step on the card, recorded by
+    the same ``OpTrace``: outside the kernel wrappers the same ops (names,
+    shapes, dtypes, in order), and the same kernel entries, each of
+    which launched once on the card (reduced configs in bf16, two
+    microbatches, remat "full")."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch import dryrun
+    cfg = reduced_config(arch, dtype="bfloat16", param_dtype="bfloat16",
+                         microbatches=2)
+    shape = ShapeConfig(f"{kind}_96", 96, 4, kind)
+    record, meta = dryrun.lower(cfg, shape)
+    step, meta_args = dryrun.step_inputs(cfg, shape, dryrun.one_card_mesh())
+    args = _card_inputs(cfg, shape, meta_args, cuda)
+    counters = (fa_kernel.LAUNCHES, fa_backward.LAUNCHES, rg_kernel.LAUNCHES,
+                rg_backward.LAUNCHES, ml_kernel.LAUNCHES,
+                ml_backward.LAUNCHES)
+    before = [dict(c) for c in counters]
+    card = dryrun.trace_step(step, args)
+    torch.cuda.synchronize()
+    bad = dryrun.trace_mismatch(meta.as_dict(), card.as_dict())
+    assert bad is None, bad
+    launched = {key: c[key] - b[key] for c, b in zip(counters, before)
+                for key in c}
+    by_kernel = {}
+    for e in card.kernels.values():
+        by_kernel[e["kernel"]] = by_kernel.get(e["kernel"], 0) + e["count"]
+    assert {k: n for k, n in launched.items() if n} == by_kernel
+    assert by_kernel and sum(record["kernel_launches"].values()) == \
+        sum(by_kernel.values())

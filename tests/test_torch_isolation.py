@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package; every entry point runs
 on ``cuda`` unless told otherwise and raises when there is no card; and a
-kernel wrapper raises, never falls back, on a tensor it cannot serve."""
+kernel wrapper raises, never falls back, on a tensor it cannot serve (a
+``meta`` tensor, the dry run's, is planned and launches nothing)."""
 import ast
 import os
+import types
 import subprocess
 import sys
 from pathlib import Path
@@ -219,14 +221,25 @@ def test_kernel_wrappers_refuse_tensors_they_cannot_serve():
     assert ef_kernel.LAUNCHES == launches
 
 
+def _on_device(kind, *xs):
+    """Stand-ins of ``xs`` that claim a device with no kernel (this build
+    of torch cannot make tensors there): the dispatch reads only
+    ``device`` before it raises."""
+    return [types.SimpleNamespace(device=torch.device(kind),
+                                  requires_grad=False) for _ in xs]
+
+
 def test_flash_wrapper_refuses_tensors_it_cannot_serve():
     q = torch.zeros((1, 2, 4, 16))
     k = v = torch.zeros((1, 2, 2, 16))
     launches = dict(fa_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         fa_kernel.flash_attention_cuda(q, k, v)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        fa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device mps"):
+        fa_ops.flash_attention(*_on_device("mps", q, k, v))
+    # meta is the dry run's device: planned, nothing launched
+    out = fa_ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert (out.device.type, out.shape) == ("meta", q.shape)
     with pytest.raises(ValueError, match="different devices"):
         fa_ops.flash_attention(q, k.to("meta"), v)
     with pytest.raises(ValueError, match="do not group"):
@@ -274,12 +287,15 @@ def test_rglru_scan_wrapper_refuses_tensors_it_cannot_serve():
     b = torch.rand((2, 6, 8))
     h0 = torch.rand((2, 8))
     launches = dict(rg_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         rg_kernel.rglru_scan_cuda(a, b, h0)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         rg_kernel.rglru_scan_cuda(a, b)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        rg_ops.rglru_scan(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device mps"):
+        rg_ops.rglru_scan(*_on_device("mps", a, b))
+    h, h_last = rg_ops.rglru_scan(a.to("meta"), b.to("meta"))
+    assert (h.device.type, h.shape, h_last.shape) == ("meta", a.shape,
+                                                      h0.shape)
     with pytest.raises(ValueError, match="different devices"):
         rg_ops.rglru_scan(a, b.to("meta"), h0)
     with pytest.raises(ValueError, match="zero-sized"):
@@ -295,10 +311,12 @@ def test_mlstm_wrapper_refuses_tensors_it_cannot_serve():
     q = k = v = torch.zeros((1, 8, 2, 16))
     li = lf = torch.zeros((1, 8, 2))
     launches = dict(ml_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         ml_kernel.mlstm_cuda(q, k, v, li, lf)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ml_ops.mlstm(*(x.to("meta") for x in (q, k, v, li, lf)))
+    with pytest.raises(ValueError, match="no kernel for device mps"):
+        ml_ops.mlstm(*_on_device("mps", q, k, v, li, lf))
+    out = ml_ops.mlstm(*(x.to("meta") for x in (q, k, v, li, lf)))
+    assert (out.device.type, out.shape) == ("meta", q.shape)
     with pytest.raises(ValueError, match="different devices"):
         ml_ops.mlstm(q, k, v, li.to("meta"), lf)
     with pytest.raises(ValueError, match="zero-sized"):
