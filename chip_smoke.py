@@ -119,7 +119,7 @@ Phases, each printing one JSON line:
    run on fixed packets must give finals identical to a run with no node
    leaving (adaptive packets follow the nodes' virtual times, so their
    float sums differ in the last bits there, in the JAX package too);
-5. lm      — the query store freed, six LMs at full width, one on the
+5. lm      — the query store freed, nine LMs at full width, one on the
    card at a time, each held by ``LanguageModel`` with parameters drawn
    from a seeded generator: qwen3-14b (40 layers, d_model 5120, 48 (40
    real) q heads x 128 over 8 kv heads, d_ff 17408, 30.4 GB bf16),
@@ -130,27 +130,37 @@ Phases, each printing one JSON line:
    32 q heads x 128 over 8, the stub patch projection, 24.5 GB),
    phi3.5-moe (16 of its 32 layers, LM_LAYERS: d_model 4096, 32 q heads
    over 8, 16 experts top-2 of d_ff 6400, ~42 GB; 32 layers are 83.7 GB)
-   and whisper-medium (24 encoder + 24 decoder layers, d_model 1024, 16
-   heads of 64, full MHA, 1500 stub frames, 1.6 GB).  Each serves
+   whisper-medium (24 encoder + 24 decoder layers, d_model 1024, 16
+   heads of 64, full MHA, 1500 stub frames, 1.6 GB), then (LM_MORE)
+   chatglm3-6b (28 layers, d_model 4096, 32 q heads over 2 kv heads of
+   128: G = 16 fills the decode kernel's 16 rows; rotary on half the head
+   dim; 12.5 GB), qwen3-32b whole (64 layers, d_model 5120, 64 q heads
+   over 8, d_ff 25600, qk-norm, 65.5 GB: the largest model that fits,
+   built with nothing else resident) and grok-1 at 4 of its 64 layers
+   (LM_LAYERS: d_model 6144, 48 q heads over 8, attention softcap 30,
+   sandwich norms, 8 experts top-2 of d_ff 32768, 42.6 GB).  Each serves
    generate() for a batch of 2 prompts of 8 tokens and 16 new tokens: 24
    decode steps, each attention call the flash kernel, so flash_attention
    must launch 40 x 24 = 960 times for qwen3-14b and pixtral-12b, 12 x 24
    = 288 for recurrentgemma-9b, 16 x 24 = 384 for phi3.5-moe, 24 x (24 +
    24) = 1,152 for whisper-medium (self- and cross-attention) after its
-   24-layer encoder fills the cross cache (24 on ``flash_attention.wgmma``)
-   and 0 for xlstm-350m, whose decode runs no kernel (counts of every LM
-   kernel zeroed just before, read just after), every decode-step flash
-   call on the GQA-packed decode kernel (``flash_attention.decode``).  The
-   same tokens are
+   24-layer encoder fills the cross cache (24 on ``flash_attention.wgmma``),
+   28 x 24 = 672 for chatglm3-6b, 64 x 24 = 1,536 for qwen3-32b, 4 x 24 =
+   96 for grok-1, and 0 for xlstm-350m, whose decode runs no kernel
+   (counts of every LM kernel zeroed just before, read just after), every
+   decode-step flash call on the GQA-packed decode kernel
+   (``flash_attention.decode``).  The same tokens are
    replayed teacher-forced through the kernels (their argmax must give
    generate()'s tokens) and through the plain versions
-   (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b,
-   and for pixtral-12b, phi3.5-moe and whisper-medium where the path's own
-   two plain runs agree within LM_REL_TOL and LM_TOP1_MIN
-   (E2E_IF_STABLE), each step's max |logit difference| over the plain
-   logits' spread must stay within LM_REL_TOL, and the top-1 agreement at
-   or above LM_TOP1_MIN.  One more generate() under torch.profiler gives the
-   device time by kernel and the busy share;
+   (``plain_kernels()``, in the working dtype and in f32); for qwen3-14b
+   and qwen3-32b (E2E_GATED), and for pixtral-12b, phi3.5-moe,
+   whisper-medium, chatglm3-6b and grok-1 where the path's own two plain
+   runs agree within LM_REL_TOL and LM_TOP1_MIN (E2E_IF_STABLE), each
+   step's max |logit difference| over the plain logits' spread must stay
+   within LM_REL_TOL, and the top-1 agreement at or above LM_TOP1_MIN.
+   The peak memory of the served path and of the phase is printed.  One
+   more generate() under torch.profiler gives the device time by kernel
+   and the busy share;
    brick   — qwen3-14b on the same weights decoding through the
    grid-brick KV cache (core/brick_attention.py): a cache of 8192 slots
    on a (1, 4) ("data", "model") mesh emulated on the card, so its 4
@@ -173,8 +183,9 @@ Phases, each printing one JSON line:
    ``mlstm.wgmma``), pixtral-12b over 1 x 2048 with 256 stub patch
    embeddings (40 flash launches), phi3.5-moe over 1 x 2048 (16),
    whisper-medium over 1500 stub frames and 448 tokens (72: 24 encoder,
-   24 decoder self- and 24 cross-attention), every flash call of these
-   on ``flash_attention.wgmma``, each compared with the same forward on
+   24 decoder self- and 24 cross-attention), chatglm3-6b (28), qwen3-32b
+   (64) and grok-1 (4, softcapped) over 1 x 2048, every flash call of
+   these on ``flash_attention.wgmma``, each compared with the same forward on
    the plain versions in the same way; then xlstm-350m's forward logits
    over 1024 tokens against a teacher-forced decode of the same tokens (the
    recurrent form), which ties the mLSTM kernel to the recurrence.  Every
@@ -189,10 +200,12 @@ Phases, each printing one JSON line:
    to end, the recurrent models' logits are reported beside the distance
    between two plain runs that differ only in rounding, not gated
    (E2E_GATED);
-7. train   — the LM stores freed, three models trained at full width
+7. train   — the LM stores freed, six models trained at full width
    through make_train_step, one after the other (TRAIN_ARCHS), bf16
    params, f32 moments, f32 accumulation over their microbatches, global
-   batches of 2048-token rows from the brick pipeline: starcoder2-3b
+   batches of 2048-token rows (whisper's 448) from the brick pipeline,
+   with stub patch embeddings and frames where the family takes them:
+   starcoder2-3b
    whole (30 layers, d_model 3072, 32 (24 real) q heads x 128 over 2 kv
    heads, d_ff 12288, vocab 49152; 6.74 GB of bf16 params; 4
    microbatches, remat "full", 8 x 2048, 3 steps), recurrentgemma-9b at 5
@@ -200,21 +213,35 @@ Phases, each printing one JSON line:
    remat "full" of each super-block; 8 microbatches of 1 x 2048, 3 steps)
    and xlstm-350m whole (remat "full" of each super-block and the sLSTM
    loop in chunks of 256 steps; global batch cut to 2 x 2048, one
-   microbatch, 2 steps).  Launch counts by kernel and variant
+   microbatch, 1 step: ms a step is its wall less its backward checks),
+   then 2 steps each of whisper-medium whole (8 x 448 tokens over 1500
+   stub frames, 2 microbatches, no remat: B3's backward at head dim 64,
+   non-causal over 1500 keys), pixtral-12b at 8 of 40 layers (8
+   microbatches of 1 x 2048, the first 256 positions stub patch
+   embeddings through the patch projection) and phi3.5-moe at 2 of 32
+   layers (8 microbatches of 1 x 2048: the one-hot dispatch's backward
+   and the load-balancing loss).
+   Every cell but xlstm-350m's is dry-run on meta before its steps.
+   Launch counts by kernel and variant
    (train_launches; zeroed just before, read just after): starcoder2-3b's
    flash forward 30 x 4 x 3 x 2 = 720 (the remat recompute doubles it) on
    ``flash_attention.wgmma`` and its backward 360 on
    ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 5 x 8 x 3 x 2 = 240
    flash forwards (wgmma) and 120 backwards (``flash_attention_bwd.wgmma``
    at head dim 256, none on ``.simt``), 10 x 8 x 3 x 2 = 480 RG-LRU scans
-   and 240 backwards; xlstm-350m's 21 x 2 x 2 = 84 mLSTM forwards
-   (``mlstm.wgmma``) and 42 backwards.  Every backward call of step 1
+   and 240 backwards; xlstm-350m's 21 x 1 x 2 = 42 mLSTM forwards
+   (``mlstm.wgmma``) and 21 backwards; whisper-medium's (24 + 2 x 24) x 2
+   x 2 = 288 flash forwards and 288 backwards, pixtral-12b's 8 x 8 x 2 x 2
+   = 256 and 128, phi3.5-moe's 2 x 8 x 2 x 2 = 64 and 32, all on the
+   tensor cores.  Every backward call of step 1
    (B3, B4, B5) is held against its plain backward in f32 (against its f64 value where that
    plain backward is off; the RG-LRU backward also bit-equal to its
    chunked order; the mLSTM's on its forward's row stats, held against
    the plain ones: shadow_backward); loss and grad norm finite at every
    step; step 1's loss and grad norm against the same step on the plain
-   versions (bf16, and f32 on the same values), each metric gated within
+   versions (bf16, and f32 on the same values; whisper's one row a
+   microbatch, whose plain attention under autograd would take 97 GB at
+   its 4), each metric gated within
    TRAIN_REL_TOL on its own where the two plain runs agree on it
    (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
    (reckoned in phase_train) and, for one more step, the busy share
@@ -246,7 +273,11 @@ Phases, each printing one JSON line:
    and power limit, not gated: MODEL_FLOPS over (ms a step x 989
    TFLOP/s), the roofline time over the measured and its dominant term
    (analysis/roofline.py), and the predicted peak memory (arguments and
-   temps) against max_memory_allocated over the traced step;
+   temps) against max_memory_allocated over the traced step.  The train
+   cells of whisper-medium, pixtral-12b and phi3.5-moe are dry-run on
+   meta alone, before their steps (``dryrun_predict``): their predicted
+   peak against the measured peak of the steps, their calls against the
+   profiler's launches, and the same readings;
    trainer — Trainer with starcoder2-3b at full width and 1 of its 30
    layers (TRAINER_LAYERS), bf16, checkpoints into a temporary directory
    (removed afterwards): a calm run of 4 steps; a run of 2 steps resumed
@@ -284,8 +315,10 @@ Phases, each printing one JSON line:
    and the train phase; the
    backwards' from the train phase, flash's variants listed under
    ``variants``: the tensor-core one at head dim 128 and at 256, each
-   with its train launches and its instances' registers and spills, and
-   the CUDA-core one), nvidia-smi's line, and the result line.
+   with its train launches at that head dim and its instances' registers
+   and spills, and the CUDA-core one; its launches also by trained model
+   and, on the tensor cores, by head dim, whisper-medium's at 64
+   included), nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -339,18 +372,30 @@ XL_ARCH = "xlstm-350m"
 PX_ARCH = "pixtral-12b"
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 WH_ARCH = "whisper-medium"
+GLM_ARCH = "chatglm3-6b"
+Q32_ARCH = "qwen3-32b"
+GROK_ARCH = "grok-1-314b"
 # layers on the card where the published depth does not fit: phi3.5-moe's
-# 32 layers are 83.7 GB in bf16, 16 at full width ~42 GB
-LM_LAYERS = {MOE_ARCH: 16}
+# 32 layers are 83.7 GB in bf16, 16 at full width ~42 GB; one grok-1 layer
+# holds 8 x 3 x 6144 x 32768 bf16 = 9.7 GB of expert weights, 4 of its 64
+# layers with the 1.6 B-parameter embedding and unembedding ~42 GB
+LM_LAYERS = {MOE_ARCH: 16, GROK_ARCH: 4}
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8, 16
 PREFILL_LEN = 2048
 # forward lengths: recurrentgemma's 4096 passes its 2048 attention window;
 # whisper's decoder reads 448 tokens beside its 1500 encoder frames
 FORWARD_LEN = {LM_ARCH: PREFILL_LEN, RG_ARCH: 4096, XL_ARCH: 2048,
-               PX_ARCH: PREFILL_LEN, MOE_ARCH: PREFILL_LEN, WH_ARCH: 448}
+               PX_ARCH: PREFILL_LEN, MOE_ARCH: PREFILL_LEN, WH_ARCH: 448,
+               GLM_ARCH: PREFILL_LEN, Q32_ARCH: PREFILL_LEN,
+               GROK_ARCH: PREFILL_LEN}
+# the served models after the first six, one on the card at a time:
+# chatglm3-6b whole (G = 16 at head dim 128, the "half" rope), qwen3-32b
+# whole (65.5 GB, the largest that fits), grok-1 at LM_LAYERS (softcap 30,
+# sandwich norms, 8 experts of d_ff 32768)
+LM_MORE = (GLM_ARCH, Q32_ARCH, GROK_ARCH)
 # xlstm-350m's forward against its own decode: the decode runs token by
-# token (~50 ms a step, host-bound), so 1024 tokens keep it near a minute
-TIE_LEN = 1024
+# token (40-65 ms a step, host-bound), so 512 tokens keep it near 30 s
+TIE_LEN = 512
 # models whose logits through the kernels are held end to end against the
 # plain versions (LM_REL_TOL, LM_TOP1_MIN).  Not the recurrent models: with
 # the reference's initialisation their full-width paths are chaotic, so
@@ -364,11 +409,12 @@ TIE_LEN = 1024
 # held against its plain version in f32 on the same inputs
 # (shadow_kernels), and the end-to-end numbers are reported beside that
 # baseline.
-E2E_GATED = (LM_ARCH,)
+E2E_GATED = (LM_ARCH, Q32_ARCH)
 # models gated end to end when their own two plain runs (bf16 and f32
 # plain versions) agree within LM_REL_TOL and LM_TOP1_MIN on the path;
 # otherwise reported beside that baseline, as the recurrent models are
-E2E_IF_STABLE = (PX_ARCH, MOE_ARCH, WH_ARCH)
+# (those without qk-norm, whose scores C-ref5 spreads)
+E2E_IF_STABLE = (PX_ARCH, MOE_ARCH, WH_ARCH, GLM_ARCH, GROK_ARCH)
 LM_REL_TOL = 5e-2     # max |logit difference| / spread of the plain logits
 LM_TOP1_MIN = 0.8     # share of positions whose argmax agrees
 # flash backward: max |kernel - plain| <= BWD_TOL * max |plain| for each of
@@ -400,11 +446,33 @@ TRAIN_LR = 3e-4
 # and one super-block's recompute come on top: ~70-74 GB) over its 8
 # microbatches of 1 x 2048; xlstm-350m whole, its global batch cut from
 # 8 to 2 rows (one microbatch of 2 x 2048, the shape its 4 microbatches
-# of 8 give) and 2 steps: the sLSTM's Python loop over 2048 steps under
-# autograd takes seconds a microbatch, and remat runs it three times
+# of 8 give) and 1 step: the sLSTM's Python loop over 2048 steps under
+# autograd takes seconds a microbatch, and remat runs it three times.
+# The moe, vlm and audio families, 2 steps each at a global batch of 8 in
+# their own microbatches: whisper-medium whole (0.76 B params; 8 rows of
+# 448 tokens over 1500 stub frames, 2 microbatches; no remat, as the
+# reference's encoder-decoder), pixtral-12b at 8 of its 40 layers (3.55 B
+# params, 56.8 GB of state; 2048 tokens a row, the first 256 the stub
+# patch embeddings, 8 microbatches) and phi3.5-moe at 2 of its 32 layers
+# (2.87 B params, 45.9 GB; 2048 tokens, 8 microbatches).  whisper's step
+# 1 on the plain versions runs one row a microbatch ("plain_microbatches":
+# the same mean over rows, summed in another order): the plain attention
+# under autograd keeps f32 scores of (rows, 1500, 16, 1024) a key chunk in
+# each of 24 encoder layers, 97 GB at the kernel path's 4 rows (the dry
+# run on meta with the plain versions swapped in)
 TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
                RG_ARCH: {"batch": 8, "steps": 3, "layers": 15},
-               XL_ARCH: {"batch": 2, "steps": 2, "microbatches": 1}}
+               XL_ARCH: {"batch": 2, "steps": 1, "microbatches": 1},
+               WH_ARCH: {"batch": 8, "steps": 2,
+                         "seq": FORWARD_LEN[WH_ARCH],
+                         "plain_microbatches": 8},
+               PX_ARCH: {"batch": 8, "steps": 2, "layers": 8},
+               MOE_ARCH: {"batch": 8, "steps": 2, "layers": 2}}
+# the train cells the dryrun phase also traces once more on the card (a
+# step under the recorder, ~10-15 s a cell); every cell but xlstm-350m's
+# is dry-run on meta before its steps, its predicted peak beside the
+# measured one
+DRYRUN_CARD = (TRAIN_ARCH, RG_ARCH)
 # the remat check: one super-block of each recurrent family at full width
 # (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1 sLSTM),
 # one microbatch of its training shape, step 1's gradients with remat
@@ -2213,15 +2281,40 @@ def flash_exact(q, k, v, *, causal=True, window=None, scale=None,
     return (out, sens) if sensitivity else out
 
 
+def well_conditioned_outside(out, want, exact, rtol, atol):
+    """The elements of a flash call's kernel output ``out`` counted
+    outside the tolerance on a well-conditioned call (the plain version in
+    f32, ``want``, within FA_TOL of the exact value ``exact`` everywhere):
+    those outside FA_TOL of ``want``, unless the kernel is nearer the exact
+    value than ``want`` there, and so within FA_TOL of it too.  Returns
+    (counted, the elements let through by that rule).  C-ref5's scores
+    reach ~1e3 on models without qk-norm, where the plain version in f32
+    moves by up to 8 times an element's score-rounding sensitivity: on an
+    H100 80GB HBM3 at 700 W, chatglm3-6b's forward put it 0.019 from the exact
+    value at 0.19, inside FA_TOL, with the kernel 0.008 from it on the
+    other side, outside FA_TOL of the plain version."""
+    o, w, e = out.double(), want.double(), exact
+    off_plain = ~((o - w).abs() <= atol + rtol * w.abs())
+    if not bool(off_plain.any()):
+        return 0, 0
+    nearer = (o - e).abs() < (w - e).abs()
+    return int((off_plain & ~nearer).sum()), int((off_plain & nearer).sum())
+
+
 @contextlib.contextmanager
 def shadow_kernels():
     """Inside the block every LM-path kernel call still launches its
     kernel, whose output the path goes on with, and is then held against
     its plain version evaluated in f32 on the same inputs (FA_TOL,
     SCAN_TOL, MLSTM_TOL, elementwise): the per-call check of each kernel
-    at the shapes and on the activations the path gives it.  Yields the
-    per-kernel tally (calls, elements outside the tolerance, max
-    |difference|).
+    at the shapes and on the activations the path gives it; for
+    flash_attention, where the kernel is outside FA_TOL of that plain
+    version, it must be nearer the exact value than the plain version
+    (``well_conditioned_outside``).  Yields the per-kernel tally (calls,
+    elements outside the tolerance, max |difference|; for flash_attention
+    on the well-conditioned calls also the elements let through and the
+    kernel's largest error against the exact value, absolute and as a
+    share of FA_TOL there).
 
     flash_attention is also evaluated exactly (``flash_exact``, f64).  A
     call whose plain version in f32 is itself outside FA_TOL of the exact
@@ -2249,7 +2342,9 @@ def shadow_kernels():
         ill_conditioned_calls=0, ill_kernel_outside_exact=0,
         ill_plain_f32_outside_exact=0, ill_kernel_off_where_plain_on=0,
         ill_kernel_outside_plain_f32=0, ill_exact_outside_plain_f32=0,
-        ill_max_err_ratio=0.0, ill_mean_err_ratio=0.0)
+        ill_max_err_ratio=0.0, ill_mean_err_ratio=0.0,
+        kernel_off_plain_nearer_exact=0, well_max_err_exact=0.0,
+        well_max_err_exact_over_tol=0.0)
 
     def off(out, want, rtol, atol):
         o, w = out.to(want.dtype), want
@@ -2277,8 +2372,19 @@ def shadow_kernels():
         want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         exact = flash_exact(q, k, v, **kw)
         plain_off = off(want, exact, rtol, atol)
-        counted = None
-        if bool(plain_off.any()):
+        if not bool(plain_off.any()):
+            counted, nearer = well_conditioned_outside(out, want, exact,
+                                                       rtol, atol)
+            err = (out.double() - exact).abs()
+            t = tally["flash_attention"]
+            t["kernel_off_plain_nearer_exact"] += nearer
+            t["well_max_err_exact"] = max(t["well_max_err_exact"],
+                                          float(err.max()))
+            t["well_max_err_exact_over_tol"] = max(
+                t["well_max_err_exact_over_tol"],
+                float((err / (atol + rtol * exact.abs())).max()))
+            del err
+        else:
             exact, sens = flash_exact(q, k, v, sensitivity=True, **kw)
             o = out.double()
             err = (o - exact).abs()
@@ -2507,6 +2613,7 @@ def build_lm(arch):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = model_zoo.LanguageModel(model, model.table.init(gen, DEVICE))
     torch.cuda.synchronize()
@@ -2527,6 +2634,7 @@ def build_lm(arch):
           "dtype": cfg.param_dtype, "params": model.table.num_params(),
           "param_gb": model.table.bytes() / 1e9,
           "resident_gb": torch.cuda.memory_allocated() / 1e9,
+          "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "init_s": time.perf_counter() - t0})
     return cfg, model, lm.tree()
 
@@ -2548,20 +2656,26 @@ def lm_start(cfg, model, params):
     return start
 
 
-def forward_inputs(cfg, length):
-    """One forward's batch over ``length`` tokens: pixtral's 256 stub patch
-    embeddings, whisper's 1500 stub frames, from a seeded generator."""
+def stub_inputs(cfg, batch, gen) -> dict:
+    """The family's stub inputs for ``batch`` rows, standard normal from
+    ``gen`` in ``cfg.dtype``: pixtral's 256 patch embeddings, whisper's
+    1500 encoder frames (none for the other families)."""
     from repro_torch.models.params import torch_dtype
+    rows = {"patch_embeds": cfg.num_patches,
+            "frames": cfg.encoder_seq_len if cfg.is_encoder_decoder else 0}
+    return {key: torch.randn((batch, n, cfg.d_model), generator=gen,
+                             device=DEVICE).to(torch_dtype(cfg.dtype))
+            for key, n in rows.items() if n}
+
+
+def forward_inputs(cfg, length):
+    """One forward's batch over ``length`` tokens and the family's stub
+    inputs (``stub_inputs``), from a seeded generator."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, length),
                                      generator=gen, device=DEVICE)}
-    extra = {"patch_embeds": cfg.num_patches,
-             "frames": cfg.encoder_seq_len if cfg.is_encoder_decoder else 0}
-    for key, rows in extra.items():
-        if rows:
-            batch[key] = torch.randn((1, rows, cfg.d_model), generator=gen,
-                                     device=DEVICE).to(torch_dtype(cfg.dtype))
+    batch.update(stub_inputs(cfg, 1, gen))
     return batch
 
 
@@ -2590,10 +2704,12 @@ def phase_lm(cfg, model, params):
     generate(cfg, model, params, prompt, max_new_tokens=2,
              cache=start())   # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens, launches = lm_counted(lambda: generate(
         cfg, model, params, prompt, max_new_tokens=LM_NEW, cache=start()))
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     check_launches(f"{cfg.name} generate", launches, path_launches(cfg)[0])
     if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
             not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
@@ -2620,6 +2736,8 @@ def phase_lm(cfg, model, params):
           "launches": launches, "wall_s": wall,
           "tok_per_s": LM_BATCH * LM_NEW / wall,
           "ms_per_decode_step": wall / (LM_PROMPT + LM_NEW) * 1e3,
+          "peak_memory_gb": peak / 1e9,
+          "phase_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "rel_logit_diff_per_step": cmp["plain"]["rel_logit_diff"],
           "top1_agreement": cmp["plain"]["top1_agreement"],
           "end_to_end_gated": e2e_gated(cfg, cmp), **summary(cmp),
@@ -2635,10 +2753,12 @@ def phase_prefill(cfg, model, params):
     length = FORWARD_LEN[cfg.name]
     batch = forward_inputs(cfg, length)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (logits, aux), launches = lm_counted(
         lambda: model.forward(params, batch))
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     check_launches(f"{cfg.name} forward", launches, path_launches(cfg)[1])
     if not bool(torch.isfinite(aux)):
         raise AssertionError(f"{cfg.name} forward: aux loss {aux}")
@@ -2653,6 +2773,8 @@ def phase_prefill(cfg, model, params):
           "aux_loss": float(aux),
           "flash_attention_launches": launches["flash_attention"],
           "launches": launches, "wall_s": wall, "tok_per_s": length / wall,
+          "peak_memory_gb": peak / 1e9,
+          "phase_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "max_rel_logit_diff": cmp["plain"]["max_rel_logit_diff"],
           "top1_agreement": cmp["plain"]["top1_agreement"],
           "end_to_end_gated": e2e_gated(cfg, cmp), **summary(cmp),
@@ -2724,11 +2846,22 @@ def shadow_backward():
     from repro_torch.kernels.rglru_scan.ref import (
         rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref)
     tally = {name: {"calls": 0, "outside": 0, "ill_conditioned_calls": 0,
-                    "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0}
+                    "max_rel_err": 0.0, "max_rel_err_plain_f32_vs_f64": 0.0,
+                    "check_s": 0.0}
              for name in ("flash_attention_bwd", "rglru_scan_bwd",
                           "mlstm_bwd")}
     tally["rglru_scan_bwd"]["not_bit_equal_chunked_ref"] = 0
     tally["mlstm_bwd"].update(stats_err_over_band=0.0, stats_tie_rows=0)
+
+    @contextlib.contextmanager
+    def checking(name):
+        """The seconds of a call's checks, after its kernel has finished,
+        into the tally's ``check_s``."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        tally[name]["check_s"] += time.perf_counter() - t0
 
     def record(name, got, plain, dtype):
         """plain(cast) evaluates the plain backward on the call's inputs
@@ -2757,32 +2890,36 @@ def shadow_backward():
 
     def fa_bwd(q, k, v, out, dout, lse, **kw):
         got = kern_fa(q, k, v, out, dout, lse, **kw)
-        record("flash_attention_bwd", got, lambda c: flash_attention_bwd_ref(
-            *(c(x) for x in (q, k, v, out, dout)), rows=BWD_ROWS, **kw),
-            q.dtype)
+        with checking("flash_attention_bwd"):
+            record("flash_attention_bwd", got,
+                   lambda c: flash_attention_bwd_ref(
+                       *(c(x) for x in (q, k, v, out, dout)), rows=BWD_ROWS,
+                       **kw), q.dtype)
         return got
 
     def rg_bwd(a, h, dy, dh_last=None, h0=None):
         got = kern_rg(a, h, dy, dh_last, h0)
-        record("rglru_scan_bwd", got, lambda c: rglru_scan_bwd_ref(
-            *(c(x) for x in (a, h, dy, dh_last, h0))), torch.float32)
-        emul = rglru_scan_bwd_chunked_ref(
-            a, h, dy, dh_last, h0, chunk=rg_kernel.plan(*a.shape).chunk)
-        tally["rglru_scan_bwd"]["not_bit_equal_chunked_ref"] += sum(
-            not torch.equal(g, e) for g, e in zip(got, emul)
-            if g is not None)
+        with checking("rglru_scan_bwd"):
+            record("rglru_scan_bwd", got, lambda c: rglru_scan_bwd_ref(
+                *(c(x) for x in (a, h, dy, dh_last, h0))), torch.float32)
+            emul = rglru_scan_bwd_chunked_ref(
+                a, h, dy, dh_last, h0, chunk=rg_kernel.plan(*a.shape).chunk)
+            tally["rglru_scan_bwd"]["not_bit_equal_chunked_ref"] += sum(
+                not torch.equal(g, e) for g, e in zip(got, emul)
+                if g is not None)
         return got
 
     def ml_bwd(q, k, v, log_i, log_f, out, dout, lse, sg):
         got = kern_ml(q, k, v, log_i, log_f, out, dout, lse, sg)
-        ratio, ties = mlstm_stats_check(q, k, v, log_i, log_f, lse, sg,
-                                        "mlstm train call")
-        t = tally["mlstm_bwd"]
-        t["stats_err_over_band"] = max(t["stats_err_over_band"], ratio)
-        t["stats_tie_rows"] += ties
-        record("mlstm_bwd", got, lambda c: mlstm_bwd_ref(
-            *(c(x) for x in (q, k, v, log_i, log_f, out, dout)),
-            (c(lse), c(sg)), rows=BWD_ROWS), q.dtype)
+        with checking("mlstm_bwd"):
+            ratio, ties = mlstm_stats_check(q, k, v, log_i, log_f, lse, sg,
+                                            "mlstm train call")
+            t = tally["mlstm_bwd"]
+            t["stats_err_over_band"] = max(t["stats_err_over_band"], ratio)
+            t["stats_tie_rows"] += ties
+            record("mlstm_bwd", got, lambda c: mlstm_bwd_ref(
+                *(c(x) for x in (q, k, v, log_i, log_f, out, dout)),
+                (c(lse), c(sg)), rows=BWD_ROWS), q.dtype)
         return got
 
     swaps = ((fa_backward, "flash_attention_bwd_cuda", fa_bwd),
@@ -2820,8 +2957,11 @@ def train_launches(cfg, steps):
     tensor-core variant at head dim 512), the backwards once.  Under remat
     (``cfg.remat_policy`` not "none") every checkpointed layer's forward
     runs twice: the step's forward and the recompute in the backward.
-    The dense family checkpoints each layer, the hybrid and ssm families
-    each super-block; the hybrid family's tail is not checkpointed."""
+    The dense, moe and vlm families checkpoint each layer, the hybrid and
+    ssm families each super-block; the hybrid family's tail is not
+    checkpointed, and the audio family (the encoder-decoder) checkpoints
+    nothing, as the reference: its encoder's self-attention and each
+    decoder layer's self- and cross-attention run once."""
     from repro_torch.models import hybrid, xlstm
     calls = max(1, cfg.microbatches) * steps
     again = 1 if cfg.remat_policy == "none" else 2
@@ -2843,7 +2983,11 @@ def train_launches(cfg, steps):
         return {**lm_launches(mlstm=again * ml), **bwd,
                 "flash_attention_bwd": 0, "mlstm_bwd": ml,
                 "mlstm_bwd.wgmma": ml}
-    calls *= cfg.num_layers
+    if cfg.family == "audio":
+        calls *= cfg.num_encoder_layers + 2 * cfg.num_layers
+        again = 1
+    else:
+        calls *= cfg.num_layers
     return {**lm_launches(wgmma=again * calls), **bwd,
             "flash_attention_bwd": calls,
             "flash_attention_bwd.wgmma": calls}
@@ -2874,21 +3018,32 @@ def train_counted(run):
     return out, launches
 
 
-def train_pipeline(cfg, batch):
+def train_pipeline(cfg, batch, seq=TRAIN_SEQ):
     """The trainer's brick pipeline: 4 data nodes, 8 bricks of a whole
-    global batch each, ``batch`` x TRAIN_SEQ tokens a batch."""
+    global batch each, ``batch`` x ``seq`` tokens a batch."""
     from repro_torch.core.catalog import MetadataCatalog
     from repro_torch.data.pipeline import BrickDataPipeline, TokenBrickStore
-    store = TokenBrickStore(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+    store = TokenBrickStore(vocab_size=cfg.vocab_size, seq_len=seq,
                             n_bricks=8, seqs_per_brick=batch, n_nodes=4)
     return BrickDataPipeline(store, MetadataCatalog(4),
                              global_batch=batch, device=DEVICE)
 
 
+def train_batches(cfg, batch, seq, n):
+    """``n`` global batches from the brick pipeline, each with the
+    family's stub inputs (``stub_inputs``) from one seeded generator."""
+    pipe = train_pipeline(cfg, batch, seq)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+    return [{**pipe.next_device_batch(), **stub_inputs(cfg, batch, gen)}
+            for _ in range(n)]
+
+
 #: kernels listed on their own in each family's profiled step
-TRAIN_BREAKDOWN = {"dense": ("fa_bwd_", "flash_wgmma_kernel"),
-                   "hybrid": ("fa_bwd_", "flash_wgmma_kernel",
-                              "rglru_chunked_kernel"),
+_ATTN_BREAKDOWN = ("fa_bwd_", "flash_wgmma_kernel")
+TRAIN_BREAKDOWN = {"dense": _ATTN_BREAKDOWN, "moe": _ATTN_BREAKDOWN,
+                   "vlm": _ATTN_BREAKDOWN, "audio": _ATTN_BREAKDOWN,
+                   "hybrid": _ATTN_BREAKDOWN + ("rglru_chunked_kernel",),
                    "ssm": ("mlstm_bwd_", "mlstm_wgmma_kernel",
                            "mlstm_gates_kernel")}
 
@@ -2909,13 +3064,27 @@ def phase_train(arch):
     a few) and one layer's recompute: ~59 GB; for recurrentgemma-9b at 15
     layers (remat "full") 64.3 GB of state, the logits (~2.1 GB an f32
     copy at 2048 x 256,000) and one super-block's recompute: ~70-74 GB;
-    measured and reported beside the card's memory."""
+    measured and reported beside the card's memory.  The cells but
+    xlstm-350m's are dry-run on meta before their steps: the predicted
+    peak (arguments and temps) beside the measured one.  With one step
+    (xlstm-350m), ms a step is step 1's wall less the seconds of its
+    backward checks."""
+    from repro_torch.launch import dryrun
     from repro_torch.models import model_zoo
     from repro_torch.optim.adamw import AdamW, global_norm, init_opt_state
     from repro_torch.train import steps as steps_lib
     spec = TRAIN_ARCHS[arch]
     batch, steps = spec["batch"], spec["steps"]
+    seq = spec.get("seq", TRAIN_SEQ)
     cfg = train_config(arch)
+    lowered = None
+    if cfg.family != "ssm":
+        # the dry run's prediction, before the steps
+        lowered = dryrun.predict(cfg, dryrun.cell("train", seq, batch))
+        emit({"phase": "dryrun_predict", "arch": cfg.name,
+              "cell": lowered[0]["shape"], "meta_s": lowered[0]["lower_s"],
+              "predicted_peak_gb": lowered[0]["predicted_peak_bytes"] / 1e9,
+              "memory": lowered[0]["memory"]})
     model = model_zoo.build_model(cfg)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -2929,15 +3098,19 @@ def phase_train(arch):
           "q_heads": [cfg.num_heads, cfg.num_heads_padded],
           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
           "d_ff": cfg.d_ff, "vocab_padded": cfg.vocab_padded,
+          "encoder_layers": cfg.num_encoder_layers,
+          "experts": [cfg.num_experts, cfg.num_experts_per_tok],
+          "patches": cfg.num_patches, "seq_len": seq,
           "microbatches": cfg.microbatches, "remat": cfg.remat_policy,
           "params": n, "param_gb": model.table.bytes() / 1e9,
           "train_state_gb": n * (2 + 2 + 4 + 4 + 4) / 1e9})
-    pipe = train_pipeline(cfg, batch)
-    batches = [pipe.next_device_batch() for _ in range(steps + 1)]
+    batches = train_batches(cfg, batch, seq, steps + 1)
 
     # step 1's loss and grad norm on the plain path, from the same params
     # and batch: bf16 and f32 plain versions (the path's own sensitivity)
-    grads_fn = steps_lib.make_grads_fn(cfg, model)
+    grads_fn = steps_lib.make_grads_fn(dataclasses.replace(
+        cfg, microbatches=spec.get("plain_microbatches", cfg.microbatches)),
+        model)
     plain = {}
     for key, f32 in (("plain", False), ("plain_f32", True)):
         with plain_kernels(f32=f32):
@@ -2952,13 +3125,17 @@ def phase_train(arch):
     step_fn = steps_lib.make_train_step(cfg, model, opt, lr=TRAIN_LR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    metrics, walls, shadow = [], [], {}
+    metrics, walls, shadow, peaks = [], [], {}, []
 
     def run():
         nonlocal params, opt_state
         for i in range(steps):
             ctx = shadow_backward() if i == 0 else contextlib.nullcontext()
             torch.cuda.synchronize()
+            if i == 1:
+                # step 1's peak holds its backward checks' plain versions
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             with ctx as tally:
                 params, opt_state, m = step_fn(params, opt_state, batches[i])
@@ -2969,7 +3146,9 @@ def phase_train(arch):
             metrics.append({k: float(v) for k, v in m.items()})
 
     _, launches = train_counted(run)
-    peak = torch.cuda.max_memory_allocated()
+    # the steps' peak, and that of the steps after step 1 (None with one)
+    peak_after = torch.cuda.max_memory_allocated() if peaks else None
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
     check_launches(f"{cfg.name} train", launches, train_launches(cfg, steps))
     for i, m in enumerate(metrics):
         if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
@@ -2997,7 +3176,6 @@ def phase_train(arch):
         raise AssertionError(f"{cfg.name} train step 1: kernel path off "
                              f"the plain path in f32 by more than "
                              f"{TRAIN_REL_TOL}: {off}")
-    step_s = sum(walls[1:]) / len(walls[1:])
     # the kernels by name: the flash forward and the backward's kernels,
     # the RG-LRU scan's two instances, the mLSTM's forward and backward
     # xlstm-350m's step launches ~630,000 kernels (the sLSTM's loop): its
@@ -3008,39 +3186,50 @@ def phase_train(arch):
                        breakdown=TRAIN_BREAKDOWN[cfg.family],
                        host_ops=host_ops, arch=cfg.name,
                        host_ops_recorded=host_ops)
+    # step 1 runs under shadow_backward: with one step, its wall less the
+    # seconds of its checks (each after its kernel has finished)
+    step_s = sum(walls[1:]) / len(walls[1:]) if steps > 1 else \
+        walls[0] - sum(t["check_s"] for t in shadow.values())
     total = torch.cuda.get_device_properties(0).total_memory
     emit({"phase": "train", "arch": cfg.name, "steps": steps,
-          "global_batch": batch, "seq_len": TRAIN_SEQ,
+          "global_batch": batch, "seq_len": seq,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
           "remat": cfg.remat_policy,
           "launches": launches, "metrics": metrics, "step_wall_s": walls,
           "ms_per_step": step_s * 1e3,
-          "tokens_per_s": batch * TRAIN_SEQ / step_s,
-          "peak_memory_gb": peak / 1e9, "card_memory_gb": total / 1e9,
+          "ms_per_step_from": "steps 2 on" if steps > 1 else
+          "step 1 less its backward checks",
+          "tokens_per_s": batch * seq / step_s,
+          "profiled_step_wall_ms": prof["wall_s"] * 1e3,
+          "peak_memory_gb": peak / 1e9,
+          "peak_after_step1_gb": None if peak_after is None
+          else peak_after / 1e9,
+          "card_memory_gb": total / 1e9,
           "free_at_peak_gb": (total - peak) / 1e9, "step1_vs_plain": e2e,
+          "plain_microbatches": spec.get("plain_microbatches",
+                                         cfg.microbatches),
           "end_to_end_gated": gated, "backward_per_call": shadow})
-    # the dryrun phase: this step on meta, held against the card (its
-    # batch in the dry run's int32 tokens); xlstm-350m's on meta alone
+    # the dryrun phase: the meta run from before the steps, held against
+    # one more step traced on the card (its batch in the dry run's int32
+    # tokens) for DRYRUN_CARD, else its peak against the measured peak of
+    # the steps after step 1, which run no backward checks; xlstm-350m's
+    # on meta alone at a cut depth
     if cfg.family == "ssm":
         dry = dataclasses.replace(cfg, num_layers=DRYRUN_XL["layers"])
-        dryrun_cell(dry, dry_cell("train", DRYRUN_XL["seq_len"], batch),
+        dryrun_cell(dry, dryrun.cell("train", DRYRUN_XL["seq_len"], batch),
                     prof, share=cfg.num_layers // dry.num_layers)
     else:
-        int_batch = {key: x.to(torch.int32) for key, x in
-                     batches[-1].items()}
-        dryrun_cell(cfg, dry_cell("train", TRAIN_SEQ, batch), prof,
-                    card=(step_fn, (params, opt_state, int_batch)),
-                    ms_per_step=step_s * 1e3)
+        card = None
+        if arch in DRYRUN_CARD:
+            int_batch = {key: x.to(torch.int32)
+                         if key in ("tokens", "labels") else x
+                         for key, x in batches[-1].items()}
+            card = (step_fn, (params, opt_state, int_batch))
+        dryrun_cell(cfg, dryrun.cell("train", seq, batch), prof, card=card,
+                    ms_per_step=step_s * 1e3, lowered=lowered,
+                    measured_peak=None if card else peak_after)
     del params, opt_state, batches
     return launches
-
-
-def dry_cell(kind, seq_len, batch):
-    """A dry-run cell of this script: ``kind`` over ``batch`` rows of
-    ``seq_len`` tokens."""
-    from repro_torch.configs import ShapeConfig
-    return ShapeConfig(f"{kind}_{batch}x{seq_len}", seq_len=seq_len,
-                       global_batch=batch, kind=kind)
 
 
 def profiled_calls(line) -> dict:
@@ -3052,7 +3241,7 @@ def profiled_calls(line) -> dict:
 
 
 def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
-                share=1):
+                share=1, lowered=None, measured_peak=None):
     """The dryrun phase for one cell: ``dryrun.lower`` traces the step on
     ``meta`` at the cell's width.  ``card = (step, args)``: the same step
     traced once on the card by the same recorder, untimed; outside the
@@ -3066,14 +3255,16 @@ def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
     name and power limit: MODEL_FLOPS over (ms a step x 989 TFLOP/s),
     ``mfu``; the roofline time over the measured; the dominant term; the
     predicted peak (arguments and temps) against the card's
-    ``max_memory_allocated`` over the traced step."""
+    ``max_memory_allocated`` over the traced step, or, with no ``card``,
+    against ``measured_peak`` (the peak of the train steps after step 1,
+    which runs the backward checks).  ``lowered``: ``dryrun.lower``'s (record,
+    trace) of this cell, made before."""
     from repro_torch.launch import dryrun
-    t0 = time.perf_counter()
-    record, meta = dryrun.lower(cfg, shape)
+    record, meta = lowered or dryrun.lower(cfg, shape)
     line = {"phase": "dryrun", "arch": cfg.name, "cell": shape.name,
             "kind": shape.kind, "layers": cfg.num_layers,
             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
-            "meta_s": time.perf_counter() - t0, "ops": record["ops"],
+            "meta_s": record["lower_s"], "ops": record["ops"],
             "kernel_launches": record["kernel_launches"],
             "memory": record["memory"], "smi": nvidia_smi_line()}
     if card is not None:
@@ -3089,12 +3280,16 @@ def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
             raise AssertionError(f"{cfg.name} {shape.name}: the meta trace "
                                  f"is not the card's: {bad}")
         line["card_ops"] = len(traced.ops)
+        measured_peak = torch.cuda.max_memory_allocated()
+    if measured_peak is not None:
         mem = record["memory"]
         predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-        peak = torch.cuda.max_memory_allocated()
-        line["peak_memory"] = {"predicted_gb": predicted / 1e9,
-                               "measured_gb": peak / 1e9,
-                               "predicted_over_measured": predicted / peak}
+        line["peak_memory"] = {
+            "predicted_gb": predicted / 1e9,
+            "measured_gb": measured_peak / 1e9,
+            "predicted_over_measured": predicted / measured_peak,
+            "measured_over": "the traced step" if card is not None else
+            "the train steps after step 1"}
     got = profiled_calls(profile)
     want = {}
     for key, n in record["kernel_launches"].items():
@@ -3135,7 +3330,7 @@ def phase_dryrun_decode(cfg, model, params):
     after one, and one more step under the profiler."""
     from repro_torch.launch import dryrun
     from repro_torch.models.params import _flatten
-    shape = dry_cell("decode", LM_PROMPT + LM_NEW, LM_BATCH)
+    shape = dryrun.cell("decode", LM_PROMPT + LM_NEW, LM_BATCH)
     step, meta_args = dryrun.step_inputs(cfg, shape, dryrun.one_card_mesh())
     # the weights in the table's order, as the dry run's: the layer loop
     # selects each leaf in the tree's order (``LanguageModel.tree`` gives
@@ -3625,7 +3820,10 @@ def main(argv=None) -> int:
     took(f"lm {XL_ARCH}")
     # the vlm, moe and audio families: pixtral-12b, phi3.5-moe at 16 of
     # its 32 layers, whisper-medium
-    for arch in (PX_ARCH, MOE_ARCH, WH_ARCH):
+    # then chatglm3-6b, qwen3-32b and grok-1 at 4 of its 64 layers
+    # (LM_MORE), each built after the one before is freed: nothing else
+    # is resident beside qwen3-32b's 65.5 GB
+    for arch in (PX_ARCH, MOE_ARCH, WH_ARCH) + LM_MORE:
         lm = build_lm(arch)
         flash[arch] = (phase_lm(*lm)["flash_attention"],
                        phase_prefill(*lm)["flash_attention"])
@@ -3633,7 +3831,8 @@ def main(argv=None) -> int:
         release()
         took(f"lm {arch}")
     # the training stack: starcoder2-3b whole, recurrentgemma-9b at 15
-    # layers, xlstm-350m whole, the recurrent families' remat check, then
+    # layers, xlstm-350m whole, whisper-medium whole, pixtral-12b at 8
+    # layers, phi3.5-moe at 2, the recurrent families' remat check, then
     # the trainer's restart and failure scenarios
     train = {}
     for arch in TRAIN_ARCHS:
@@ -3826,29 +4025,37 @@ def main(argv=None) -> int:
     kernels = [entry(name, src, replaces, timed[name], launches[name])
                for name, (src, replaces) in sources.items()]
     # the backward's variants, each with its own source, launches on the
-    # train path (all on the tensor cores: starcoder2-3b's at head dim
-    # 128, recurrentgemma-9b's at 256) and timing at its training shape
-    # (the CUDA-core one on f32 operands), the tensor-core instances with
-    # ptxas's registers and spills
+    # train path (all on the tensor cores, counted by head dim: 64 for
+    # whisper-medium, 128 for starcoder2-3b, pixtral-12b and phi3.5-moe,
+    # 256 for recurrentgemma-9b) and timing at a training shape
+    # (starcoder2-3b's, recurrentgemma-9b's; the CUDA-core one on f32
+    # operands), the tensor-core instances with ptxas's registers and
+    # spills; the launches of each trained model beside them
     bwd_src, bwd_replaces = sources["flash_attention_bwd"]
     tc_src = bwd_src.replace("flash_attention_bwd.cu", "flash_bwd_wgmma.cuh")
+    tc_by_dim = {}
+    for arch, t in train.items():
+        d = train_config(arch).head_dim
+        tc_by_dim[d] = tc_by_dim.get(d, 0) + t["flash_attention_bwd.wgmma"]
 
     def instances(*names, lib=fa_bwd_lib):
         return [row for row in ptxas[lib] if row["kernel"] in names]
 
     for kern in kernels:
         if kern["name"] == "flash_attention_bwd":
+            kern["launches_by_model"] = {
+                arch: t["flash_attention_bwd"] for arch, t in train.items()
+                if t["flash_attention_bwd"]}
+            kern["wgmma_launches_by_head_dim"] = tc_by_dim
             kern["variants"] = [
                 {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 128,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
-                         timed["flash_attention_bwd"],
-                         train[TRAIN_ARCH]["flash_attention_bwd.wgmma"]),
+                         timed["flash_attention_bwd"], tc_by_dim.get(128, 0)),
                  "ptxas": instances("fa_bwd_dkdv_wgmma_kernel<128>",
                                     "fa_bwd_dq_wgmma_kernel<128>")},
                 {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 256,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
-                         bwd_256,
-                         train[RG_ARCH]["flash_attention_bwd.wgmma"]),
+                         bwd_256, tc_by_dim.get(256, 0)),
                  "ptxas": instances("fa_bwd_dkdv_roles_kernel",
                                     "fa_bwd_dq_roles_kernel",
                                     "fa_bwd_delta_kernel<bf16,256>")},

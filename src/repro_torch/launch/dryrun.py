@@ -46,15 +46,23 @@ before any tracing.
         --shape decode_32k
 
 writes ``{arch}__{shape}__1x1.json`` and its op trace ``.trace.json``
-under ``experiments/dryrun_torch/``.  xlstm's sLSTM is a Python loop over
-time, so its cells trace S steps per sLSTM layer (``train_4k``: 4,096;
-``prefill_32k``: 32,768) and take minutes.
+under ``experiments/dryrun_torch/``.  A cell outside ``SHAPES``, at a cut
+depth, prints its predicted peak memory (arguments and temps) as one JSON
+line and writes nothing:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch grok-1-314b \
+        --layers 4 --kind prefill --seq-len 2048 --batch 1
+
+xlstm's sLSTM is a Python loop over time, so its cells trace S steps per
+sLSTM layer (``train_4k``: 4,096; ``prefill_32k``: 32,768) and take
+minutes.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -69,7 +77,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch import kernels as kernel_pkg
 from repro_torch.analysis import hlo_parse
 from repro_torch.analysis.roofline import kernel_work
-from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, list_archs
 from repro_torch.kernels import dtype_name
 from repro_torch.launch.mesh import make_mesh_of, make_production_mesh
 from repro_torch.models import model_zoo
@@ -414,6 +422,28 @@ def lower(cfg, shape, mesh=None, *, arch: Optional[str] = None):
     return record, trace
 
 
+def cell(kind: str, seq_len: int, batch: int) -> ShapeConfig:
+    """A cell outside ``SHAPES``: ``kind`` over ``batch`` rows of
+    ``seq_len`` tokens (``chip_smoke.py``'s cells)."""
+    return ShapeConfig(f"{kind}_{batch}x{seq_len}", seq_len=seq_len,
+                       global_batch=batch, kind=kind)
+
+
+def predict(cfg, shape):
+    """:func:`lower` with the predicted peak memory of the step, its
+    arguments and temps, in the record's ``predicted_peak_bytes``.  A
+    prefill or decode cell is lowered under ``torch.no_grad``, as the port
+    serves it (a layer count that is no multiple of ``remat_segments`` is
+    served, not trained)."""
+    with torch.no_grad() if shape.kind != "train" else \
+            contextlib.nullcontext():
+        record, trace = lower(cfg, shape)
+    mem = record["memory"]
+    record["predicted_peak_bytes"] = (mem["argument_size_in_bytes"] +
+                                      mem["temp_size_in_bytes"])
+    return record, trace
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                cfg_override=None):
     """Dry-run one (arch x shape x mesh) cell.  Returns (record, trace),
@@ -466,10 +496,39 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--no-hlo", action="store_true",
                     help="write the record only, not the op trace")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="a cell outside SHAPES of this many tokens a row: "
+                         "print its predicted peak (needs --arch, --kind "
+                         "and --batch)")
+    ap.add_argument("--kind", choices=("train", "prefill", "decode"))
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the arch cut to this many layers")
+    ap.add_argument("--microbatches", type=int, default=None)
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
         # the (2, 16, 16) mesh needs 512 cards: this raises with the count
         make_production_mesh(multi_pod=True)
+    if args.seq_len is not None:
+        if not (args.arch and args.kind and args.batch):
+            ap.error("--seq-len needs --arch, --kind and --batch")
+        cfg = get_config(args.arch)
+        for field, value in (("num_layers", args.layers),
+                             ("microbatches", args.microbatches)):
+            if value is not None:
+                cfg = dataclasses.replace(cfg, **{field: value})
+        record, _ = predict(cfg, cell(args.kind, args.seq_len, args.batch))
+        mem = record["memory"]
+        print(json.dumps({
+            "arch": cfg.name, "cell": record["shape"],
+            "layers": cfg.num_layers, "microbatches": cfg.microbatches,
+            "params": record["num_params"],
+            "arguments_gb": mem["argument_size_in_bytes"] / 1e9,
+            "temps_gb": mem["temp_size_in_bytes"] / 1e9,
+            "predicted_peak_gb": record["predicted_peak_bytes"] / 1e9,
+            "kernel_launches": record["kernel_launches"],
+            "ops": record["ops"], "lower_s": record["lower_s"]}))
+        return
 
     archs = [args.arch] if args.arch else list_archs()
     shapes = [args.shape] if args.shape else list(SHAPES)

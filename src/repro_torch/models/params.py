@@ -26,6 +26,14 @@ import numpy as np
 import torch
 
 NOT_PORTED = "is not ported to repro_torch yet"
+#: ``init`` draws a normal or fan_in leaf in slices of its first axis, each
+#: as many indices of it as DRAW_SLICE elements (4 GiB of f32) hold, and at
+#: least one, so its f32 transient is at most one slice: a leaf of up to
+#: DRAW_SLICE elements is one draw.  qwen3-32b's stacked MLP weights (64 x
+#: 5120 x 25600, 8.4e9 elements) drawn whole would need a 33.6 GB f32
+#: transient beside the model's other 48.7 GB of bf16 weights and the
+#: leaf's own 16.8 GB: 99 GB, more than one 80 GB card
+DRAW_SLICE = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,13 +130,18 @@ class ParamTable:
                                         else d.shape[0]))
         elif d.init != "normal":
             raise ValueError(f"init {d.init!r} {NOT_PORTED}")
-        # in place: one f32 transient of the weight, not two
-        val = torch.randn(d.shape, generator=gen, device=device,
-                          dtype=torch.float32).mul_(scale)
+        # slice by slice of the first axis (DRAW_SLICE): the same
+        # distribution from the same generator, in place in each slice
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        rows = max(1, DRAW_SLICE // (math.prod(d.shape) // d.shape[0]))
+        for lo in range(0, d.shape[0], rows):
+            part = out[lo:lo + rows]
+            part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                                   dtype=torch.float32).mul_(scale))
         if d.zero_pad is not None:
             axis, real = d.zero_pad
-            val.narrow(axis, real, d.shape[axis] - real).zero_()
-        return val.to(dt)
+            out.narrow(axis, real, d.shape[axis] - real).zero_()
+        return out
 
     def specs(self, sharder) -> dict:
         return self._nested(lambda path, d: sharder.spec(d.roles, d.shape))

@@ -38,6 +38,10 @@ def _cfg(arch):
     # the encoder fills the cross cache, then each decoder layer's self-
     # and cross-attention at every step; the forward: encoder + 2 x 24
     ("whisper-medium", {"wgmma": 24, "decode": 1152}, {"wgmma": 72}),
+    # chatglm3-6b's and qwen3-32b's every layer, grok-1's 4 of 64
+    ("chatglm3-6b", {"decode": 28 * 24}, {"wgmma": 28}),
+    ("qwen3-32b", {"decode": 64 * 24}, {"wgmma": 64}),
+    ("grok-1-314b", {"decode": 4 * 24}, {"wgmma": 4}),
 ])
 def test_path_launches(arch, serve, forward):
     gen, fwd = chip_smoke.path_launches(_cfg(arch))
@@ -48,7 +52,8 @@ def test_path_launches(arch, serve, forward):
 
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "phi3.5-moe-42b-a6.6b",
-                                  "whisper-medium"])
+                                  "whisper-medium", "chatglm3-6b",
+                                  "qwen3-32b", "grok-1-314b"])
 def test_each_call_of_the_new_paths_takes_the_counted_kernel(arch):
     """The plan of every attention call shape on the path gives the
     kernel path_launches counts: the decode steps' calls (up to the
@@ -69,6 +74,87 @@ def test_each_call_of_the_new_paths_takes_the_counted_kernel(arch):
         assert (cross.variant, len(cross.splits)) == ("decode", 4)
         assert fa_kernel.plan(1, length, se, h, kh, d, dt, False).variant \
             == "wgmma"
+
+
+def _count_attention(monkeypatch):
+    """Calls of ``transformer.flash_attention`` (every attention call of
+    the dense, moe, vlm and audio models goes through it), counted."""
+    from repro_torch.models import transformer
+    calls = []
+    kernel = transformer.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw.get("causal", True)))
+        return kernel(q, k, v, **kw)
+
+    monkeypatch.setattr(transformer, "flash_attention", counted)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen3-32b", "grok-1-314b",
+                                  "qwen3-14b", "pixtral-12b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_path_launches_equal_the_reduced_models_calls(monkeypatch, arch):
+    """``path_launches`` counted from a model's pattern against the
+    attention calls its reduced model makes on the CPU on chip_smoke's
+    paths: ``generate`` (LM_BATCH prompts of LM_PROMPT, LM_NEW new tokens)
+    and one forward of FORWARD_LEN tokens (pixtral's first positions its
+    stub patch embeddings).  Reduced grok-1 keeps 4 layers, its depth on
+    the card."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    cfg = reduced_config(arch)
+    if arch in chip_smoke.LM_LAYERS:
+        assert cfg.num_layers == min(4, chip_smoke.LM_LAYERS[arch])
+    model = model_zoo.build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.table.init(gen, "cpu")
+    want_gen, want_fwd = chip_smoke.path_launches(cfg)
+    calls = _count_attention(monkeypatch)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (chip_smoke.LM_BATCH, chip_smoke.LM_PROMPT),
+                           generator=gen)
+    with torch.inference_mode():
+        toks = generate(cfg, model, params, prompt,
+                        max_new_tokens=chip_smoke.LM_NEW)
+        assert toks.shape == (chip_smoke.LM_BATCH, chip_smoke.LM_NEW)
+        assert len(calls) == want_gen["flash_attention"] == \
+            want_gen["flash_attention.decode"]
+        assert all(q[1] == 1 for q, _, _ in calls)
+        del calls[:]
+        length = chip_smoke.FORWARD_LEN[arch]
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, length),
+                                         generator=gen)}
+        if cfg.num_patches:
+            batch["patch_embeds"] = torch.randn(
+                (1, cfg.num_patches, cfg.d_model), generator=gen)
+        logits, aux = model.forward(params, batch)
+    assert logits.shape[:2] == (1, length) and bool(torch.isfinite(aux))
+    assert len(calls) == want_fwd["flash_attention"] == \
+        want_fwd["flash_attention.wgmma"]
+    assert all(q[1] == length for q, _, _ in calls)
+
+
+def test_chatglm_decode_fills_the_decode_rows():
+    """chatglm3-6b's 32 q heads over 2 kv heads: G = 16 rows a kv head at
+    Sq 1, DECODE_ROWS exactly.  Every call of chip_smoke's generate (up to
+    LM_PROMPT + LM_NEW = 24 keys, one tile) is one split of the decode
+    kernel; over the card test's 2048-key ring (32 tiles) B * K = 4 blocks
+    split 32 ways, within one wave of 132 SMs."""
+    cfg = get_config("chatglm3-6b")
+    h, kh, d = cfg.num_heads_padded, cfg.num_kv_heads, cfg.head_dim
+    assert (h // kh, d) == (fa_kernel.DECODE_ROWS, 128)
+    for n in range(1, STEPS + 1):
+        pl = fa_kernel.plan(chip_smoke.LM_BATCH, 1, n, h, kh, d,
+                            torch.bfloat16)
+        assert (pl.variant, pl.splits) == ("decode", ((0, n),))
+    pl = fa_kernel.plan(2, 1, 2048, h, kh, d, torch.bfloat16)
+    assert pl.variant == "decode" and len(pl.splits) == 32
+    assert 2 * kh * len(pl.splits) <= fa_kernel.H100_SMS
+    # two rows a query head more, and the call takes the prefill kernel
+    assert fa_kernel.plan(2, 2, 24, h, kh, d, torch.bfloat16).variant == \
+        "wgmma"
 
 
 def test_whisper_plans_match_the_phase_3_rows():
@@ -131,6 +217,87 @@ def test_train_launch_counts():
     assert (mb, pl.variant) == (2, "wgmma")
 
 
+@pytest.mark.parametrize("arch,want", [
+    # no remat (the encoder-decoder checkpoints nothing): (24 encoder + 2 x
+    # 24 decoder) attention calls x 2 microbatches x 2 steps, forward and
+    # backward once each
+    ("whisper-medium", {"flash_attention": 288, "flash_attention_bwd": 288}),
+    # 8 layers x 8 microbatches x 2 steps, the forward twice (remat)
+    ("pixtral-12b", {"flash_attention": 256, "flash_attention_bwd": 128}),
+    # 2 layers x 8 microbatches x 2 steps
+    ("phi3.5-moe-42b-a6.6b", {"flash_attention": 64,
+                              "flash_attention_bwd": 32}),
+])
+def test_new_family_train_launch_counts(arch, want):
+    """The moe, vlm and audio families' train phase: depth, batch, tokens
+    and steps as cut in TRAIN_ARCHS, every forward on the tensor-core
+    kernel (with lse) and every backward on the tensor-core backward at
+    each microbatch's shapes."""
+    from repro_torch.kernels.flash_attention import backward as fa_bwd
+    cfg = chip_smoke.train_config(arch)
+    spec = chip_smoke.TRAIN_ARCHS[arch]
+    got = chip_smoke.train_launches(cfg, spec["steps"])
+    assert (spec["batch"], spec["steps"]) == (8, 2)
+    for key, n in want.items():
+        assert got[key] == n, key
+    assert got["flash_attention.wgmma"] == want["flash_attention"]
+    assert got["flash_attention_bwd.wgmma"] == want["flash_attention_bwd"]
+    assert got["flash_attention_bwd.simt"] == got["rglru_scan"] == \
+        got["mlstm"] == 0
+    mb = spec["batch"] // cfg.microbatches
+    seq = spec.get("seq", chip_smoke.TRAIN_SEQ)
+    h, kh, d = cfg.num_heads_padded, cfg.num_kv_heads, cfg.head_dim
+    shapes = [(seq, seq, True)]
+    if cfg.is_encoder_decoder:
+        se = cfg.encoder_seq_len
+        shapes += [(se, se, False), (seq, se, False)]
+    for sq, sk, causal in shapes:
+        args = (mb, sq, sk, h, kh, d, torch.bfloat16)
+        assert fa_kernel.plan(*args, causal, with_lse=True).variant == \
+            "wgmma"
+        assert fa_bwd.plan(*args).variant == "wgmma"
+    assert {"whisper-medium": (mb, seq, cfg.num_layers),
+            "pixtral-12b": (mb, seq, cfg.num_layers),
+            "phi3.5-moe-42b-a6.6b": (mb, seq, cfg.num_layers)}[arch] == \
+        {"whisper-medium": (4, 448, 24), "pixtral-12b": (1, 2048, 8),
+         "phi3.5-moe-42b-a6.6b": (1, 2048, 2)}[arch]
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "pixtral-12b",
+                                  "phi3.5-moe-42b-a6.6b", "starcoder2-3b"])
+def test_train_launches_equal_the_reduced_models_calls(monkeypatch, arch):
+    """``train_launches`` against the attention calls one step of the
+    reduced model makes on the CPU (two microbatches of 2 x 128 tokens,
+    with the family's stub inputs): with remat "full" every checkpointed
+    forward runs again in the backward, so the forward's calls are the
+    flash launches; with remat "none" they are the backward's (one a
+    forward call)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.train import steps as steps_lib
+    gen = torch.Generator().manual_seed(0)
+    for policy, key in (("full", "flash_attention"),
+                        ("none", "flash_attention_bwd")):
+        cfg = reduced_config(arch, microbatches=2, remat_policy=policy)
+        model = model_zoo.build_model(cfg)
+        params = model.table.init(gen, "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen)
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.num_patches:
+            batch["patch_embeds"] = torch.randn(
+                (4, cfg.num_patches, cfg.d_model), generator=gen)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn(
+                (4, cfg.encoder_seq_len, cfg.d_model), generator=gen)
+        calls = _count_attention(monkeypatch)
+        _, total, _ = steps_lib.make_grads_fn(cfg, model)(params, batch)
+        assert bool(torch.isfinite(total))
+        want = chip_smoke.train_launches(
+            dataclasses.replace(cfg, remat_policy="full"), 1)
+        assert len(calls) == want[key], (policy, len(calls), want)
+        monkeypatch.undo()
+
+
 def test_backward_bound_counts_ten_flops_a_valid_pair():
     """10 * B * H * pairs * D at 989 TFLOP/s: about 0.174 ms at starcoder2's
     (2, 2048^2, 32, 128) causal; its 4096 window masks nothing there."""
@@ -176,13 +343,13 @@ def test_backward_bound_at_recurrentgemma_training_shape():
                            "rglru_scan": 480, "rglru_scan_bwd": 240,
                            "mlstm": 0, "mlstm_bwd": 0,
                            "mlstm_bwd.wgmma": 0, "mlstm_bwd.simt": 0}),
-    # 3 x 7 mLSTM layers x 1 microbatch x 2 steps, remat "full" of each
-    # super-block: 84 forwards, 42 backwards, all on the tensor cores
+    # 3 x 7 mLSTM layers x 1 microbatch x 1 step, remat "full" of each
+    # super-block: 42 forwards, 21 backwards, all on the tensor cores
     # (bf16 at head dim 512)
     ("xlstm-350m", {"flash_attention": 0, "flash_attention_bwd": 0,
-                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 84,
-                    "mlstm.wgmma": 84, "mlstm_bwd": 42,
-                    "mlstm_bwd.wgmma": 42, "mlstm_bwd.simt": 0}),
+                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 42,
+                    "mlstm.wgmma": 42, "mlstm_bwd": 21,
+                    "mlstm_bwd.wgmma": 21, "mlstm_bwd.simt": 0}),
 ])
 def test_recurrent_train_launch_counts(arch, want):
     """The recurrent models' train phase: depth, batch and steps as cut in

@@ -105,3 +105,45 @@ def test_well_conditioned_calls_keep_the_plain_f32_check(monkeypatch):
     t = tally["flash_attention"]
     assert t["ill_conditioned_calls"] == 0
     assert t["outside"] > 0
+
+
+@pytest.mark.parametrize("shift,counted,nearer", [
+    (-0.3, 0, 1),    # outside FA_TOL of the plain version, nearer exact
+    (-0.9, 1, 0),    # outside it, farther from exact than the plain one
+    (2.5, 1, 0),     # farther still, outside FA_TOL of the exact value
+    (0.8, 0, 0),     # the plain version's own value
+])
+def test_well_conditioned_rule_follows_the_exact_value(shift, counted,
+                                                      nearer):
+    """On a well-conditioned call an element of the kernel outside FA_TOL
+    of the plain version in f32 is let through only where the kernel is
+    nearer the exact value than the plain version, which is within FA_TOL
+    of it (the plain version 0.8 of FA_TOL from the exact value here; the
+    kernel ``shift`` FA_TOL from it, 1.1 FA_TOL from the plain version
+    at -0.3)."""
+    rtol, atol = chip_smoke.FA_TOL[torch.bfloat16]
+    exact = torch.tensor([[0.19, -0.5, 2.0]], dtype=torch.float64)
+    tol = atol + rtol * exact.abs()
+    want = (exact + 0.8 * tol * torch.tensor([[1.0, 0.0, 0.0]])).float()
+    out = exact.clone()
+    out[0, 0] += shift * tol[0, 0]
+    got = chip_smoke.well_conditioned_outside(out.float(), want, exact,
+                                              rtol, atol)
+    assert got == (counted, nearer)
+
+
+def test_well_conditioned_calls_count_the_rule_apart(monkeypatch):
+    """The tally counts the elements the rule lets through apart, and a
+    kernel equal to the plain version gives none; it keeps the kernel's
+    largest error against the exact value, within FA_TOL there."""
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 64, 4, 64), generator=gen).bfloat16()
+    k = torch.randn((1, 64, 2, 64), generator=gen).bfloat16()
+    v = torch.randn((1, 64, 2, 64), generator=gen).bfloat16()
+    tally = shadow(monkeypatch, lambda q, k, v, **kw: flash_attention_ref(
+        q.float(), k.float(), v.float(), **kw).to(q.dtype), (q, k, v))
+    t = tally["flash_attention"]
+    assert (t["ill_conditioned_calls"], t["outside"],
+            t["kernel_off_plain_nearer_exact"]) == (0, 0, 0)
+    assert 0 < t["well_max_err_exact"]
+    assert 0 < t["well_max_err_exact_over_tol"] <= 1

@@ -400,6 +400,15 @@ TC_CASES = [
     # pixtral-12b and phi3.5-moe: 32 q heads over 8 kv heads of 128
     (1, 300, 300, 32, 8, 128, {}, "wgmma"),
     (2, 1, 24, 32, 8, 128, {}, "decode"),
+    # chatglm3-6b: 32 q heads over 2 kv heads, G = 16 fills the decode
+    # kernel's 16 rows; over a 2048-key ring B * K = 4 blocks split 32 ways
+    (2, 1, 2048, 32, 2, 128, {}, "decode"),
+    # grok-1: the softcap 30 at its decode and its 2048 prefill
+    (2, 1, 24, 48, 8, 128, {"logit_cap": 30.0}, "decode"),
+    (1, 2048, 2048, 48, 8, 128, {"logit_cap": 30.0}, "wgmma"),
+    # qwen3-32b: 64 q heads over 8 kv heads (G = 8)
+    (2, 1, 24, 64, 8, 128, {}, "decode"),
+    (1, 2048, 2048, 64, 8, 128, {}, "wgmma"),
 ]
 
 
@@ -455,12 +464,15 @@ def test_tensor_core_wrapper_refuses_misaligned_operands(cuda):
         fa_kernel.flash_attention_cuda(shifted[:, :1], k, v)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "recurrentgemma-9b",
+                                  "chatglm3-6b", "qwen3-32b", "grok-1-314b"])
 def test_bf16_models_take_the_tensor_core_kernels(cuda, monkeypatch, arch):
-    """Reduced dense and recurrent models in bf16 at head dim 128: every
-    attention call of forward takes the wgmma kernel and every call of a
-    decode step the decode kernel, and each agrees with the plain version
-    in f32 on its own inputs (FA_TOL bf16)."""
+    """Reduced dense, moe and recurrent models in bf16 at head dim 128:
+    every attention call of forward takes the wgmma kernel and every call
+    of a decode step the decode kernel, and each agrees with the plain
+    version in f32 on its own inputs (FA_TOL bf16).  chatglm3-6b with its
+    rotary on half the head dim, grok-1 with its softcap 30, sandwich norms
+    and experts over 128 tokens (two of its reduced routing groups)."""
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models import model_zoo, transformer
     cfg = reduced_config(arch, head_dim=128, dtype="bfloat16",
@@ -468,7 +480,8 @@ def test_bf16_models_take_the_tensor_core_kernels(cuda, monkeypatch, arch):
     model = model_zoo.build_model(cfg)
     params = model.table.init(torch.Generator(device=cuda).manual_seed(0),
                               cuda)
-    toks = torch.randint(0, cfg.vocab_size, (2, 80), device=cuda,
+    length = 128 if cfg.num_experts else 80
+    toks = torch.randint(0, cfg.vocab_size, (2, length), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(1))
     kernel = transformer.flash_attention
     calls = []
@@ -696,7 +709,7 @@ def test_rglru_scan_wrapper_checks_its_operands(cuda):
         rg_kernel.rglru_scan_cuda(a.double(), a.double())
     with pytest.raises(ValueError, match="contiguous"):
         rg_kernel.rglru_scan_cuda(a.transpose(0, 1), a.transpose(0, 1))
-    with pytest.raises(ValueError, match="CUDA tensors"):
+    with pytest.raises(ValueError, match=r"takes CUDA \(or meta\) tensors"):
         rg_kernel.rglru_scan_cuda(a, a, torch.zeros((2, 16)))
 
 
@@ -974,6 +987,11 @@ TC_BWD_CASES = [
     (2, 70, 200, 8, 1, 256, {}),
     (1, 150, 190, 8, 2, 256, {"causal": False, "window": 50}),
     (1, 7, 3, 16, 1, 256, {"causal": False, "window": 1}),
+    # whisper-medium's training: full MHA at head dim 64, not causal, the
+    # cross-attention's 448 queries and the encoder's 1500 over 1500 keys
+    # (1500 = 11 x 128 + 92: a ragged last key block)
+    (2, 448, 1500, 16, 16, 64, {"causal": False}),
+    (1, 1500, 1500, 16, 16, 64, {"causal": False}),
 ]
 
 
@@ -1081,24 +1099,31 @@ def test_flash_backward_wrapper_checks_its_operands(cuda):
 
 # reduced models whose end-to-end train check holds a metric only where
 # two plain runs (attention in bf16 and in f32) agree on it
-TRAIN_IF_STABLE = ("starcoder2-3b",)
+TRAIN_IF_STABLE = ("starcoder2-3b", "whisper-medium", "pixtral-12b",
+                   "phi3.5-moe-42b-a6.6b")
 TRAIN_REL_TOL = 2e-2
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-3b",
+                                  "whisper-medium", "pixtral-12b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
     """One train step of a reduced model at head dim 64 in bf16 (the
     tensor-core forward and the backward kernel; two microbatches, remat
     "full"): every attention layer launches the forward twice (the remat
     recompute) and the backward once per microbatch, and the loss and grad
-    norm are finite.  They are held within TRAIN_REL_TOL of the same step
-    with the plain attention evaluated in f32 on the same values.  For
-    qwen3-14b always: qk-norm keeps the scores small.  Reduced
-    starcoder2-3b has no qk-norm and the reference's initialisation makes
-    it chaotic (C-ref5), so a metric is held only where the plain
-    attention in bf16 agrees with it in f32 within TRAIN_REL_TOL
-    (chip_smoke's E2E_IF_STABLE rule).  The readings are printed as one
-    JSON line (``-s`` shows them)."""
+    norm are finite.  whisper-medium checkpoints nothing (as the
+    reference's encoder-decoder): its encoder's self-attention and each
+    decoder layer's self- and cross-attention launch the forward and the
+    backward once a microbatch.  pixtral-12b takes stub patch embeddings,
+    whisper stub frames, phi3.5-moe routes 128 tokens a row.  The metrics
+    are held within TRAIN_REL_TOL of the same step with the plain
+    attention evaluated in f32 on the same values.  For qwen3-14b always:
+    qk-norm keeps the scores small.  The others have no qk-norm and the
+    reference's initialisation makes them chaotic (C-ref5), so a metric is
+    held only where the plain attention in bf16 agrees with it in f32
+    within TRAIN_REL_TOL (chip_smoke's E2E_IF_STABLE rule).  The readings
+    are printed as one JSON line (``-s`` shows them)."""
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models import model_zoo, transformer
     from repro_torch.optim.adamw import init_opt_state, AdamW
@@ -1110,6 +1135,17 @@ def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
     toks = torch.randint(0, cfg.vocab_size, (4, 128), device=cuda,
                          generator=g)
     batch = {"tokens": toks, "labels": toks}
+    extra = {"patch_embeds": cfg.num_patches,
+             "frames": cfg.encoder_seq_len if cfg.is_encoder_decoder else 0}
+    for key, rows in extra.items():
+        if rows:
+            batch[key] = torch.randn((4, rows, cfg.d_model), generator=g,
+                                     device=cuda).to(torch.bfloat16)
+    # attention calls a microbatch, and the forward's launches per call
+    if cfg.is_encoder_decoder:
+        per_mb, again = cfg.num_encoder_layers + 2 * cfg.num_layers, 1
+    else:
+        per_mb, again = cfg.num_layers, 2
 
     def step():
         params = model.table.init(
@@ -1123,12 +1159,10 @@ def test_reduced_train_step_on_the_card(cuda, monkeypatch, arch):
     tc = fa_backward.VARIANT_CALLS["wgmma"]
     got = step()
     torch.cuda.synchronize()
-    assert fa_kernel.LAUNCHES["flash_attention"] - fwd == \
-        cfg.num_layers * 2 * 2
-    assert fa_backward.LAUNCHES["flash_attention_bwd"] - bwd == \
-        cfg.num_layers * 2
+    assert fa_kernel.LAUNCHES["flash_attention"] - fwd == per_mb * 2 * again
+    assert fa_backward.LAUNCHES["flash_attention_bwd"] - bwd == per_mb * 2
     # every backward call on the tensor cores (bf16, head dim 64)
-    assert fa_backward.VARIANT_CALLS["wgmma"] - tc == cfg.num_layers * 2
+    assert fa_backward.VARIANT_CALLS["wgmma"] - tc == per_mb * 2
 
     def plain_f32(q, k, v, **kw):
         return flash_attention_ref(q.float(), k.float(), v.float(),

@@ -29,6 +29,7 @@ against the JAX package, on the CPU.
   holds."""
 import ast
 import dataclasses
+import json
 import math
 import types
 from pathlib import Path
@@ -444,3 +445,39 @@ def test_trace_mismatch_names_the_first_difference():
          "flops": 1, "bytes": 1, "dtype": "bfloat16"}
     d = {**a, "kernels": [k]}
     assert "kernel entries differ" in dryrun.trace_mismatch(a, d)
+
+
+@pytest.mark.parametrize("arch,layers,kind,seq,batch,micro", [
+    ("qwen3-14b", 1, "train", 64, 4, 2),
+    ("qwen3-14b", 1, "prefill", 64, 1, None),
+    ("qwen3-14b", 1, "decode", 24, 2, None),
+    # 4 layers do not split into its 8 remat segments: served, not trained
+    ("grok-1-314b", 4, "prefill", 64, 1, None),
+])
+def test_cli_predicts_a_cell_outside_the_shapes(arch, layers, kind, seq,
+                                               batch, micro, capsys):
+    """``--seq-len`` lowers a cell outside SHAPES at a cut depth and
+    microbatch count (the cells chip_smoke.py predicts) and prints one
+    JSON line: the predicted peak is the arguments and temps of
+    :func:`dryrun.predict`'s record for the same cell."""
+    argv = ["--arch", arch, "--layers", str(layers), "--kind", kind,
+            "--seq-len", str(seq), "--batch", str(batch)]
+    dryrun.main(argv + (["--microbatches", str(micro)] if micro else []))
+    got = json.loads(capsys.readouterr().out)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if micro:
+        cfg = dataclasses.replace(cfg, microbatches=micro)
+    record, _ = dryrun.predict(cfg, dryrun.cell(kind, seq, batch))
+    mem = record["memory"]
+    assert got["cell"] == f"{kind}_{batch}x{seq}" and \
+        got["layers"] == layers
+    assert got["microbatches"] == cfg.microbatches
+    assert record["predicted_peak_bytes"] == \
+        mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert got["predicted_peak_gb"] == record["predicted_peak_bytes"] / 1e9
+    assert got["kernel_launches"] == record["kernel_launches"]
+
+
+def test_cli_cell_needs_its_kind_and_batch():
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "qwen3-14b", "--seq-len", "64"])
