@@ -40,8 +40,12 @@ Phases, each printing one JSON line:
    GQA 16:1, 5:1 and 6:1, head dims 64 / 128 / 256 in bf16 and f32 (f32
    also at 16 and 32), rows whose window masks every key (their dq must
    be 0), starcoder2-3b's training shape (2, 2048, 2048, 32 q heads over
-   2 kv heads of 128, causal, bf16) and recurrentgemma-9b's (1, 2048,
-   2048, 16 q heads over 1 kv head of 256, window 2048, bf16); bf16 at
+   2 kv heads of 128, causal, bf16), recurrentgemma-9b's (1, 2048,
+   2048, 16 q heads over 1 kv head of 256, window 2048, bf16) and
+   grok-1's (1, 2048, 2048, 48 q heads over 8 kv heads of 128, causal,
+   softcap 30, bf16, q scaled by 8 so the scores reach the cap; every
+   capped row must move the plain dq and dk by more than BWD_TOL when
+   the cap is left out); bf16 at
    head dim 64, 128 and 256 must take the tensor-core variant
    (flash_bwd_wgmma.cuh), the rest the CUDA-core one; dq, dk and dv each
    within BWD_TOL (2e-2 bf16, 2e-4 f32)
@@ -200,9 +204,10 @@ Phases, each printing one JSON line:
    to end, the recurrent models' logits are reported beside the distance
    between two plain runs that differ only in rounding, not gated
    (E2E_GATED);
-7. train   — the LM stores freed, six models trained at full width
+7. train   — the LM stores freed, eight models trained at full width
    through make_train_step, one after the other (TRAIN_ARCHS), bf16
-   params, f32 moments, f32 accumulation over their microbatches, global
+   params, the moments and the sum over the microbatches in the
+   config's dtypes (f32, grok-1's bf16), global
    batches of 2048-token rows (whisper's 448) from the brick pipeline,
    with stub patch embeddings and frames where the family takes them:
    starcoder2-3b
@@ -220,7 +225,13 @@ Phases, each printing one JSON line:
    microbatches of 1 x 2048, the first 256 positions stub patch
    embeddings through the patch projection) and phi3.5-moe at 2 of 32
    layers (8 microbatches of 1 x 2048: the one-hot dispatch's backward
-   and the load-balancing loss).
+   and the load-balancing loss), then the two configurations with
+   two-level remat, 2 steps each of microbatches of 1 x 2048: grok-1
+   at 1 of 64 layers (16 x 2048 in its 16 microbatches, bf16 moments and
+   a bf16 gradient sum, softcap 30 in B3's backward, sandwich norms,
+   embed_scale, top-2 of 8 experts; its 8 remat segments cut to 0) and
+   qwen3-32b at 4 of 64 layers in 2 remat segments (8 x 2048 in 8
+   microbatches; qk-norm, GQA 64/8).
    Every cell but xlstm-350m's is dry-run on meta before its steps.
    Launch counts by kernel and variant
    (train_launches; zeroed just before, read just after): starcoder2-3b's
@@ -232,8 +243,10 @@ Phases, each printing one JSON line:
    and 240 backwards; xlstm-350m's 21 x 1 x 2 = 42 mLSTM forwards
    (``mlstm.wgmma``) and 21 backwards; whisper-medium's (24 + 2 x 24) x 2
    x 2 = 288 flash forwards and 288 backwards, pixtral-12b's 8 x 8 x 2 x 2
-   = 256 and 128, phi3.5-moe's 2 x 8 x 2 x 2 = 64 and 32, all on the
-   tensor cores.  Every backward call of step 1
+   = 256 and 128, phi3.5-moe's 2 x 8 x 2 x 2 = 64 and 32, grok-1's 1 x
+   16 x 2 x 2 = 64 and 32, qwen3-32b's (3 x 4 - 2) x 8 x 2 = 160 (two-level
+   remat: train_launches) and 64, all on the tensor cores.  Every
+   backward call of step 1
    (B3, B4, B5) is held against its plain backward in f32 (against its f64 value where that
    plain backward is off; the RG-LRU backward also bit-equal to its
    chunked order; the mLSTM's on its forward's row stats, held against
@@ -249,11 +262,12 @@ Phases, each printing one JSON line:
    (TRAIN_BREAKDOWN);
    remat_check — one super-block of each recurrent family at full width
    (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1
-   sLSTM; REMAT_CHECK), one microbatch of its training shape: step 1's
-   gradients with remat "full" and "none" on the same weights and batch
-   must be equal bit for bit (every kernel on the path is deterministic),
-   or, where a leaf differs, within TRAIN_REL_TOL of its largest
-   gradient; "full" launches every forward kernel twice;
+   sLSTM; REMAT_CHECK) and qwen3-32b at 4 layers, "full" in 2 segments,
+   one microbatch of its training shape: step 1's gradients with remat
+   "full" and "none" on the same weights and batch must be equal bit for
+   bit (every kernel on the path is deterministic), or, where a leaf
+   differs, within TRAIN_REL_TOL of its largest gradient; "full"
+   launches every forward kernel twice (qwen3-32b's 10 times for 4);
    dryrun  — the dry run (launch/dryrun.py) of a cell's step on the meta
    device at full width, held against the card: starcoder2-3b's and
    recurrentgemma-9b's train steps (each at the end of its train phase,
@@ -304,7 +318,12 @@ Phases, each printing one JSON line:
    backward at recurrentgemma-9b's training microbatch (1, 2048^2, 16/1
    heads of 256, bf16, its 2048 window; bound ~0.0869 ms) on the tensor
    cores beside the same yardsticks, and the CUDA-core variant on f32
-   operands of that shape (bound at 67 TFLOP/s); the B4 backward at
+   operands of that shape (bound at 67 TFLOP/s); the backward at
+   grok-1's training microbatch (1, 2048^2, 48/8 heads of 128, softcap
+   30, q scaled by 8) on the tensor cores beside its plain backward and
+   the library call, the backward of torch.compile(flex_attention) with
+   a tanh score_mod, a causal block mask and enable_gqa (timed and held
+   against the plain backward, only); the B4 backward at
    (1, 2048, 4096) f32 (bound: 20 bytes an element at 3.35 TB/s) and the
    B5 backward at (2, 2048, 4, 512) bf16 (bound: 10 flops a valid (query,
    key, head, head-dim) at 989 TFLOP/s, ~0.087 ms), each beside its plain
@@ -316,9 +335,10 @@ Phases, each printing one JSON line:
    backwards' from the train phase, flash's variants listed under
    ``variants``: the tensor-core one at head dim 128 and at 256, each
    with its train launches at that head dim and its instances' registers
-   and spills, and the CUDA-core one; its launches also by trained model
-   and, on the tensor cores, by head dim, whisper-medium's at 64
-   included), nvidia-smi's line, and the result line.
+   and spills, the one at head dim 128 with grok-1's softcap and its
+   launches, and the CUDA-core one; its launches also by trained model
+   and, on the tensor cores, by head dim without a cap, whisper-medium's
+   at 64 included), nvidia-smi's line, and the result line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one CUDA card and the repository's ``src/``.
@@ -438,6 +458,13 @@ LSE_TOL = (1e-5, 1e-4)
 # training: starcoder2-3b whole at full width, its 4 microbatches
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
+GROK_CAP = 30.0       # grok-1's attn_logit_softcap
+# the capped backward at grok-1's shape takes q scaled by 8 (exact in
+# bf16): q . k / sqrt(128) then has a spread of 8 and reaches ~45 over a
+# call, where tanh(s / 30) bends (1 - tanh^2 down to ~0.2); at a spread
+# of 1 the cap moves no gradient by BWD_TOL, and a backward without it
+# would pass
+GROK_Q_GAIN = 8.0
 TRAIN_LR = 3e-4
 # the models trained at full width, each with its cuts: recurrentgemma-9b
 # at 5 of its 12 (rec, rec, attn) units (15 of 38 layers: 4.02 B params,
@@ -460,6 +487,19 @@ TRAIN_LR = 3e-4
 # under autograd keeps f32 scores of (rows, 1500, 16, 1024) a key chunk in
 # each of 24 encoder layers, 97 GB at the kernel path's 4 rows (the dry
 # run on meta with the plain versions swapped in)
+# The two configurations that train with two-level remat
+# (``remat_segments``), 2 steps each in microbatches of 1 x 2048: grok-1
+# at 1 of its 64 layers (6.53 B params: 4.83 B of experts, 1.61 B of
+# embedding and untied head; bf16 moments and a bf16 gradient sum as its
+# config gives them, 10 bytes a param, 65.3 GB of state; softcap 30 in
+# B3's forward and backward), a global batch of 16 x 2048 in its own 16
+# microbatches (the state and a microbatch's activations do not depend
+# on their number), its 8 remat segments cut to 0 (one layer does not
+# split into 8); 8 x 2048 in 8 microbatches for qwen3-32b at 4 of its 64
+# layers (3.51 B params, f32 moments, 56.1 GB of state) in 2 segments of
+# 2 layers, its 8 cut as the registry's reduced config cuts them
+# (min(8, 2)): each layer's forward runs three times but the last of a
+# segment's, twice (train_launches)
 TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
                RG_ARCH: {"batch": 8, "steps": 3, "layers": 15},
                XL_ARCH: {"batch": 2, "steps": 1, "microbatches": 1},
@@ -467,7 +507,11 @@ TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
                          "seq": FORWARD_LEN[WH_ARCH],
                          "plain_microbatches": 8},
                PX_ARCH: {"batch": 8, "steps": 2, "layers": 8},
-               MOE_ARCH: {"batch": 8, "steps": 2, "layers": 2}}
+               MOE_ARCH: {"batch": 8, "steps": 2, "layers": 2},
+               GROK_ARCH: {"batch": 16, "steps": 2, "layers": 1,
+                           "remat_segments": 0},
+               Q32_ARCH: {"batch": 8, "steps": 2, "layers": 4,
+                          "remat_segments": 2}}
 # the train cells the dryrun phase also traces once more on the card (a
 # step under the recorder, ~10-15 s a cell); every cell but xlstm-350m's
 # is dry-run on meta before its steps, its predicted peak beside the
@@ -476,9 +520,12 @@ DRYRUN_CARD = (TRAIN_ARCH, RG_ARCH)
 # the remat check: one super-block of each recurrent family at full width
 # (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1 sLSTM),
 # one microbatch of its training shape, step 1's gradients with remat
-# "full" against "none" on the same weights and batch
+# "full" against "none" on the same weights and batch; qwen3-32b at its
+# train cell's 4 layers with two-level remat ("full" in 2 segments)
+# against "none" in no segment
 REMAT_CHECK = {RG_ARCH: {"layers": 3, "batch": 1},
-               XL_ARCH: {"layers": 8, "batch": 2}}
+               XL_ARCH: {"layers": 8, "batch": 2},
+               Q32_ARCH: {"layers": 4, "batch": 1, "remat_segments": 2}}
 # the brick phase: qwen3-14b decoding through the grid-brick KV cache on a
 # mesh of (1, 4) emulated on the card (tensor_size 4 cuts a cache of 8192
 # slots, unwindowed, into 4 bricks: brick_active holds), against the same
@@ -981,15 +1028,20 @@ BWD_CASES = [
     # head of 256, causal, its 2048 window
     ("recurrentgemma train", 1, TRAIN_SEQ, TRAIN_SEQ, 16, 1, 256,
      torch.bfloat16, {"window": 2048}),
+    # grok-1's: a microbatch of 1 x 2048, 48 q heads over 8 kv heads of
+    # 128, causal, its softcap 30, q scaled so the scores reach the cap
+    ("grok-1 train", 1, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128, torch.bfloat16,
+     {"logit_cap": GROK_CAP, "q_gain": GROK_Q_GAIN}),
 ]
 
 
-def bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw):
-    """q, k, v, the forward kernel's output on them, a seeded incoming
-    gradient and the lse of the same forward launch: the inputs of one
-    backward call, in its argument order."""
+def bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw, q_gain=1.0):
+    """q (scaled by ``q_gain``), k, v, the forward kernel's output on
+    them, a seeded incoming gradient and the lse of the same forward
+    launch: the inputs of one backward call, in its argument order."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     q, k, v = fa_operands(gen, b, sq, sk, h, kh, d, dtype)
+    q = q * q_gain
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, with_lse=True, **kw)
     dout = torch.randn(out.shape, generator=gen, device=DEVICE).to(dtype)
     return q, k, v, out, dout, lse
@@ -1045,14 +1097,36 @@ def plain_grads(q, k, v, dout, **kw):
         return torch.autograd.grad(out, xs, dout)
 
 
+def cap_check(q, k, v, dout, want, dtype, name, **kw) -> list:
+    """How far the plain backward in f32 moves when the cap is left out
+    (max |no cap - cap| / max |cap| for dq, dk, dv); raises unless dq and
+    dk, which pass through the cap's 1 - tanh^2, move by more than
+    BWD_TOL: else a backward that left the cap out would pass the row.
+    dv sees the cap only through P, and is reported."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    kw = {key: x for key, x in kw.items() if key != "logit_cap"}
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    out = flash_attention_ref(qf, kf, vf, **kw)
+    moved = [rel_err(g, w) for g, w in zip(flash_attention_bwd_ref(
+        qf, kf, vf, out, df, rows=BWD_ROWS, **kw), want)]
+    if min(moved[:2]) <= BWD_TOL[dtype]:
+        raise AssertionError(f"flash_attention backward {name}: the cap "
+                             f"moves the plain dq, dk, dv by {moved}, not "
+                             f"beyond BWD_TOL {BWD_TOL[dtype]}")
+    return moved
+
+
 def phase_flash_backward(gen):
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_ref
     rows = []
     for name, b, sq, sk, h, kh, d, dtype, kw in BWD_CASES:
+        kw = dict(kw)
+        q_gain = kw.pop("q_gain", 1.0)
         q, k, v, out, dout, lse = bwd_operands(gen, b, sq, sk, h, kh, d,
-                                               dtype, kw)
+                                               dtype, kw, q_gain)
         pl = fa_backward.plan(b, sq, sk, h, kh, d, dtype)
         want_variant = "wgmma" if dtype == torch.bfloat16 and \
             d in fa_backward.TC_HEAD_DIMS else "simt"
@@ -1078,9 +1152,12 @@ def phase_flash_backward(gen):
                                        rows=BWD_ROWS, **kw)
         row = {"case": name, "shape": [b, sq, sk, h, kh, d],
                "dtype": str(dtype).split(".")[-1], "flags": kw,
-               "variant": pl.variant, "splits": pl.splits,
+               "q_gain": q_gain, "variant": pl.variant, "splits": pl.splits,
                "lse_max_abs_err": lse_check(lse, q, k, name, **kw),
                "rel_err_dq_dk_dv": bwd_check(got, want, dtype, name)}
+        if "logit_cap" in kw:
+            row["no_cap_plain_rel_dq_dk_dv"] = cap_check(
+                q, k, v, dout, want, dtype, name, **kw)
         if name == "masked rows" and \
                 float(got[0][:, 3:].float().abs().max()) != 0.0:
             raise AssertionError("flash_attention backward: a query that "
@@ -1094,53 +1171,98 @@ def phase_flash_backward(gen):
     return rows
 
 
+def softcap_library(cap, sq, sk, device=DEVICE):
+    """The one PyTorch call that computes B3's capped causal GQA
+    attention: ``flex_attention`` under ``torch.compile`` (its Triton
+    kernels, cached under ``build/`` unless the environment names the
+    caches), a ``score_mod`` of cap * tanh(s / cap) on the scaled scores,
+    a causal block mask aligned to the last key and ``enable_gqa=True``;
+    autograd gives its backward.  Takes and returns (B, H, S, D), as
+    SDPA.  Timed beside the kernel only: the port never calls it."""
+    import os
+    from torch.nn.attention import flex_attention as fx
+    cache = Path(__file__).resolve().parent / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(cache / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def causal(b, h, q_idx, kv_idx):
+        return q_idx + (sk - sq) >= kv_idx
+
+    mask = fx.create_block_mask(causal, None, None, sq, sk, device=device)
+    flex = torch.compile(fx.flex_attention, dynamic=False)
+    return functools.partial(flex, score_mod=score_mod, block_mask=mask,
+                             enable_gqa=True)
+
+
 def time_flash_bwd(gen, b, sq, sk, h, kh, d, window=None,
-                   dtype=torch.bfloat16, iters=TIMING_ITERS):
+                   dtype=torch.bfloat16, iters=TIMING_ITERS, logit_cap=None,
+                   q_gain=1.0):
     """The backward at one main-path shape (causal; bf16 takes the
     tensor-core variant, f32 the CUDA-core one) over TIMING_ROTATION / 2
-    input sets: the kernels and their plain version
-    (flash_attention_bwd_ref, given the forward's lse) as in
+    input sets (q scaled by ``q_gain``): the kernels and their plain
+    version (flash_attention_bwd_ref, given the forward's lse) as in
     ``time_pair``, and the library call, the backward of
-    ``scaled_dot_product_attention(enable_gqa=True, is_causal=True)``
+    ``scaled_dot_product_attention(enable_gqa=True, is_causal=True)``,
+    or with a ``logit_cap`` of ``softcap_library``'s flex_attention
     (autograd.grad over a kept forward graph; CUDA events around the
-    calls, as ``call_time_ms``), timed only."""
+    calls, as ``call_time_ms``), timed and held against the plain
+    backward (reported, not gated).  The cap's tanh adds no matmul flop
+    to the bound."""
     from repro_torch.kernels.flash_attention import backward as fa_backward
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                            is_causal=True, enable_gqa=True)
     kw = {"window": window}
-    sets = [bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw)
+    lib_s = 0.0
+    if logit_cap is not None:
+        kw["logit_cap"] = logit_cap
+        lib = softcap_library(logit_cap, sq, sk)
+    sets = [bwd_operands(gen, b, sq, sk, h, kh, d, dtype, kw, q_gain)
             for _ in range(TIMING_ROTATION // 2)]
     kern = [functools.partial(fa_backward.flash_attention_bwd_cuda, *x, **kw)
             for x in sets]
     plain = [functools.partial(flash_attention_bwd_ref, *x, **kw)
              for x in sets]
-    err = 0.0
-    for x, kc in zip(sets[:2], kern[:2]):
+    def lib_bwd(q, k, v, out, dout, lse):
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        with torch.enable_grad():
+            o = lib(*leaves)
+        g = dout.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    err, lib_err = 0.0, [0.0] * 3
+    for i, (x, kc) in enumerate(zip(sets[:2], kern[:2])):
         got = kc()
         want = flash_attention_bwd_ref(*(t.float() for t in x[:5]),
                                        rows=BWD_ROWS, **kw)
         bwd_check(got, want, dtype, "timing")
         err = max([err] + [float((g.float() - w).abs().max())
                            for g, w in zip(got, want)])
+        t0 = time.perf_counter()
+        lib_got = lib_bwd(*x)()      # the first call compiles flex's
+        torch.cuda.synchronize()
+        if i == 0:
+            lib_s = time.perf_counter() - t0
+        lib_err = [max(e, rel_err(g.transpose(1, 2), w))
+                   for e, g, w in zip(lib_err, lib_got, want)]
+        del got, want, lib_got
 
-    def sdpa_bwd(q, k, v, out, dout, lse):
-        leaves = [x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v)]
-        with torch.enable_grad():
-            o = sdpa(*leaves, is_causal=True, enable_gqa=True)
-        g = dout.transpose(1, 2)
-        return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
-
-    lib = [sdpa_bwd(*x) for x in sets]
     pl = fa_backward.plan(b, sq, sk, h, kh, d, dtype)
     f32 = dtype == torch.float32
     bound, by = roofline.bound_ms(roofline.flash_attention_bwd_work(
         b, sq, sk, h, kh, d, "float32" if f32 else "bfloat16", window))
+    timed = time_pair(kern, plain, iters)
+    library_ms = call_time_ms([lib_bwd(*x) for x in sets], iters)
     return {"variant": pl.variant, "splits": pl.splits,
-            "dtype": str(dtype).split(".")[-1],
-            **time_pair(kern, plain, iters),
-            "library_ms": call_time_ms(lib, iters), "bound_ms": bound,
+            "dtype": str(dtype).split(".")[-1], "logit_cap": logit_cap,
+            "q_gain": q_gain, **timed, "library_ms": library_ms,
+            "library_rel_err_dq_dk_dv": lib_err,
+            "library_first_call_s": lib_s, "bound_ms": bound,
             "bound_by": by, "max_abs_err": err}
 
 
@@ -2943,9 +3065,22 @@ def train_config(arch):
     cfg = get_config(arch)
     if "layers" in spec:
         cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
-    if "microbatches" in spec:
-        cfg = dataclasses.replace(cfg, microbatches=spec["microbatches"])
+    for field in ("microbatches", "remat_segments"):
+        if field in spec:
+            cfg = dataclasses.replace(cfg, **{field: spec[field]})
     return cfg
+
+
+def train_state_bytes(cfg) -> int:
+    """Bytes a parameter of ``cfg``'s training state holds: the param and
+    one microbatch's gradient in ``param_dtype``, the two moments in
+    ``opt_moment_dtype`` and the gradient sum in ``grad_accum_dtype``,
+    f32 with one microbatch (``steps.accum_dtype``)."""
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.train.steps import accum_dtype
+    return 2 * torch_dtype(cfg.param_dtype).itemsize + \
+        2 * torch_dtype(cfg.opt_moment_dtype).itemsize + \
+        accum_dtype(cfg).itemsize
 
 
 def train_launches(cfg, steps):
@@ -2961,7 +3096,17 @@ def train_launches(cfg, steps):
     ssm families each super-block; the hybrid family's tail is not
     checkpointed, and the audio family (the encoder-decoder) checkpoints
     nothing, as the reference: its encoder's self-attention and each
-    decoder layer's self- and cross-attention run once."""
+    decoder layer's self- and cross-attention run once.
+
+    Two-level remat (``cfg.remat_segments`` = G > 1, the dense, moe and
+    vlm families' ``transformer.run_layers``) checkpoints G segments of
+    L / G layers around the layers' own checkpoints.  The backward of a
+    segment first recomputes it from its input, and PyTorch stops that
+    recompute once the last tensor the segment saved is back: the input
+    its last layer's checkpoint saved, before that layer runs.  So the
+    segment's recompute runs L / G - 1 layers, and each layer's own
+    checkpoint recomputes it once more: 3 L - G forwards a microbatch
+    (2 L with remat "none", whose segment recompute runs every layer)."""
     from repro_torch.models import hybrid, xlstm
     calls = max(1, cfg.microbatches) * steps
     again = 1 if cfg.remat_policy == "none" else 2
@@ -2985,10 +3130,18 @@ def train_launches(cfg, steps):
                 "mlstm_bwd.wgmma": ml}
     if cfg.family == "audio":
         calls *= cfg.num_encoder_layers + 2 * cfg.num_layers
-        again = 1
+        fwd = calls
     else:
-        calls *= cfg.num_layers
-    return {**lm_launches(wgmma=again * calls), **bwd,
+        n, g = cfg.num_layers, cfg.remat_segments
+        if g <= 1:          # one level: the forward, and again under remat
+            fwd = again * n
+        elif again == 1:    # segments alone: each recompute runs every layer
+            fwd = 2 * n
+        else:               # two levels: a segment's recompute stops early
+            fwd = 3 * n - g
+        fwd *= calls
+        calls *= n
+    return {**lm_launches(wgmma=fwd), **bwd,
             "flash_attention_bwd": calls,
             "flash_attention_bwd.wgmma": calls}
 
@@ -3049,22 +3202,26 @@ TRAIN_BREAKDOWN = {"dense": _ATTN_BREAKDOWN, "moe": _ATTN_BREAKDOWN,
 
 
 def phase_train(arch):
-    """``arch`` trained at full width (TRAIN_ARCHS: its depth, global batch
-    and steps as cut there) through make_train_step: bf16 params, f32
-    moments, f32 accumulation over its microbatches, global batches of
-    TRAIN_SEQ tokens a row from the brick pipeline.  Launch counts by
+    """``arch`` trained at full width (TRAIN_ARCHS: its depth, global batch,
+    steps and remat segments as cut there) through make_train_step: bf16
+    params, the moments in the config's ``opt_moment_dtype`` and the sum
+    over its microbatches in its ``grad_accum_dtype`` (f32 but grok-1's
+    bf16; f32 with one microbatch), global batches of TRAIN_SEQ tokens a
+    row from the brick pipeline.  Launch counts by
     kernel and variant (train_launches); every backward kernel call of
     step 1 held against its plain backward (shadow_backward); loss and
     grad norm finite every step; step 1's loss and grad norm against the
     same step on the plain versions (bf16, and f32 on the same values),
     each gated within TRAIN_REL_TOL where the two plain runs agree on it.
-    Peak memory reckoned for starcoder2-3b: 6.74 GB bf16 params + 26.96
-    GB f32 moments + 13.48 GB f32 gradient sum + 6.74 GB bf16 microbatch
-    grads = 53.9 GB of state, plus the logits' f32 copies (~0.8 GB each,
-    a few) and one layer's recompute: ~59 GB; for recurrentgemma-9b at 15
-    layers (remat "full") 64.3 GB of state, the logits (~2.1 GB an f32
-    copy at 2048 x 256,000) and one super-block's recompute: ~70-74 GB;
-    measured and reported beside the card's memory.  The cells but
+    The state is ``train_state_bytes`` a param (``train_state_gb``):
+    for starcoder2-3b 6.74 GB bf16 params + 26.96 GB f32 moments + 13.48
+    GB f32 gradient sum + 6.74 GB bf16 microbatch grads = 53.9 GB, plus
+    the logits' f32 copies (~0.8 GB each, a few) and one layer's
+    recompute: ~59 GB; for recurrentgemma-9b at 15 layers (remat "full")
+    64.3 GB of state, the logits (~2.1 GB an f32 copy at 2048 x 256,000)
+    and one super-block's recompute: ~70-74 GB; for grok-1 at 1 layer
+    10 bytes a param (bf16 moments and sum), 65.3 GB; measured and
+    reported beside the card's memory.  The cells but
     xlstm-350m's are dry-run on meta before their steps: the predicted
     peak (arguments and temps) beside the measured one.  With one step
     (xlstm-350m), ms a step is step 1's wall less the seconds of its
@@ -3102,8 +3259,14 @@ def phase_train(arch):
           "experts": [cfg.num_experts, cfg.num_experts_per_tok],
           "patches": cfg.num_patches, "seq_len": seq,
           "microbatches": cfg.microbatches, "remat": cfg.remat_policy,
+          "remat_segments": cfg.remat_segments,
+          "published_remat_segments": get_config(arch).remat_segments,
+          "published_microbatches": get_config(arch).microbatches,
+          "opt_moment_dtype": cfg.opt_moment_dtype,
+          "grad_accum_dtype": cfg.grad_accum_dtype,
+          "logit_cap": cfg.attn_logit_softcap,
           "params": n, "param_gb": model.table.bytes() / 1e9,
-          "train_state_gb": n * (2 + 2 + 4 + 4 + 4) / 1e9})
+          "train_state_gb": n * train_state_bytes(cfg) / 1e9})
     batches = train_batches(cfg, batch, seq, steps + 1)
 
     # step 1's loss and grad norm on the plain path, from the same params
@@ -3194,7 +3357,7 @@ def phase_train(arch):
     emit({"phase": "train", "arch": cfg.name, "steps": steps,
           "global_batch": batch, "seq_len": seq,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
-          "remat": cfg.remat_policy,
+          "remat": cfg.remat_policy, "remat_segments": cfg.remat_segments,
           "launches": launches, "metrics": metrics, "step_wall_s": walls,
           "ms_per_step": step_s * 1e3,
           "ms_per_step_from": "steps 2 on" if steps > 1 else
@@ -3356,32 +3519,47 @@ def phase_dryrun_decode(cfg, model, params):
     return dryrun_cell(cfg, shape, prof, card=(step, args), ms_per_step=ms)
 
 
+def remat_check_config(arch, policy):
+    """``arch`` as the remat check runs it with ``policy``: its
+    REMAT_CHECK depth, one microbatch, and "full" in the row's
+    ``remat_segments`` (0 if it names none), "none" in no segment."""
+    from repro_torch.configs.registry import get_config
+    spec = REMAT_CHECK[arch]
+    return dataclasses.replace(
+        get_config(arch), num_layers=spec["layers"], microbatches=1,
+        remat_policy=policy,
+        remat_segments=spec.get("remat_segments", 0) if policy == "full"
+        else 0)
+
+
 def phase_remat_check():
     """One super-block of each recurrent family at full width
     (REMAT_CHECK), bf16, one microbatch of its training shape from the
     brick pipeline: step 1's gradients (``make_grads_fn``) with remat
-    "full" and with "none" on the same weights and batch.  Every kernel
-    on these paths is deterministic, so the gradients must be equal bit
-    for bit; where they are not, the largest difference relative to the
-    largest gradient of its leaf is reported and must stay within
-    TRAIN_REL_TOL.  The launches of each run are counted
-    (train_launches): "full" runs every forward kernel twice."""
-    from repro_torch.configs.registry import get_config
+    "full" and with "none" on the same weights and batch; qwen3-32b's
+    4 layers with "full" in two-level remat (its ``remat_segments``)
+    against "none" in no segment.  Every kernel on these paths is
+    deterministic, so the gradients must be equal bit for bit; where they
+    are not, the largest difference relative to the largest gradient of
+    its leaf is reported and must stay within TRAIN_REL_TOL.  The
+    launches of each run are counted (train_launches): "full" runs every
+    forward kernel twice, three times under two-level remat but the last
+    layer's of each segment."""
     from repro_torch.models import model_zoo
     from repro_torch.models.params import _flatten
     from repro_torch.train import steps as steps_lib
     out = {}
     for arch, spec in REMAT_CHECK.items():
-        base = dataclasses.replace(get_config(arch),
-                                   num_layers=spec["layers"], microbatches=1)
+        base = remat_check_config(arch, "none")
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(0)
         params = model_zoo.build_model(base).table.init(gen, DEVICE)
         data = train_pipeline(base, spec["batch"]).next_device_batch()
         runs = {}
-        row = {"layers": base.num_layers, "batch": [spec["batch"], TRAIN_SEQ]}
+        row = {"layers": base.num_layers, "batch": [spec["batch"], TRAIN_SEQ],
+               "full_remat_segments": spec.get("remat_segments", 0)}
         for policy in ("full", "none"):
-            cfg = dataclasses.replace(base, remat_policy=policy)
+            cfg = remat_check_config(arch, policy)
             grads_fn = steps_lib.make_grads_fn(cfg,
                                                model_zoo.build_model(cfg))
             torch.cuda.synchronize()
@@ -3832,8 +4010,8 @@ def main(argv=None) -> int:
         took(f"lm {arch}")
     # the training stack: starcoder2-3b whole, recurrentgemma-9b at 15
     # layers, xlstm-350m whole, whisper-medium whole, pixtral-12b at 8
-    # layers, phi3.5-moe at 2, the recurrent families' remat check, then
-    # the trainer's restart and failure scenarios
+    # layers, phi3.5-moe at 2, grok-1 at 1, qwen3-32b at 4, the remat
+    # check, then the trainer's restart and failure scenarios
     train = {}
     for arch in TRAIN_ARCHS:
         train[arch] = phase_train(arch)
@@ -3901,6 +4079,16 @@ def main(argv=None) -> int:
                               window=rg_cfg.attention_window,
                               dtype=torch.float32, iters=8)
     release()
+    # grok-1's training microbatch (1, 2048^2, 48/8 heads of 128) with its
+    # softcap: the tensor-core variant at head dim 128 with the cap
+    grok_cfg = train_config(GROK_ARCH)
+    grok_shape = (TRAIN_ARCHS[GROK_ARCH]["batch"] // grok_cfg.microbatches,
+                  TRAIN_SEQ, TRAIN_SEQ, grok_cfg.num_heads_padded,
+                  grok_cfg.num_kv_heads, grok_cfg.head_dim)
+    bwd_cap = time_flash_bwd(gen, *grok_shape,
+                             logit_cap=grok_cfg.attn_logit_softcap,
+                             q_gain=GROK_Q_GAIN)
+    release()
     tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
     # the B4 and B5 backward kernels at their training microbatches
     xl_train_shape = (TRAIN_ARCHS[XL_ARCH]["batch"] //
@@ -3960,6 +4148,14 @@ def main(argv=None) -> int:
               "library": "scaled_dot_product_attention backward "
                          "(enable_gqa, is_causal), CUDA events",
               **with_share(bwd_simt)},
+          "flash_attention_bwd_softcap": {
+              "shape": list(grok_shape),
+              "logit_cap": grok_cfg.attn_logit_softcap,
+              "launches_train": train[GROK_ARCH]["flash_attention_bwd.wgmma"],
+              "library": "torch.compile(flex_attention) backward (tanh "
+                         "score_mod, causal block mask, enable_gqa), CUDA "
+                         "events",
+              **with_share(bwd_cap)},
           "flash_attention_train_forward": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
               "launches_train": train[TRAIN_ARCH]["flash_attention"],
@@ -4033,9 +4229,13 @@ def main(argv=None) -> int:
     # spills; the launches of each trained model beside them
     bwd_src, bwd_replaces = sources["flash_attention_bwd"]
     tc_src = bwd_src.replace("flash_attention_bwd.cu", "flash_bwd_wgmma.cuh")
-    tc_by_dim = {}
+    tc_by_dim, tc_capped = {}, 0
     for arch, t in train.items():
-        d = train_config(arch).head_dim
+        cfg = train_config(arch)
+        if cfg.attn_logit_softcap:
+            tc_capped += t["flash_attention_bwd.wgmma"]
+            continue
+        d = cfg.head_dim
         tc_by_dim[d] = tc_by_dim.get(d, 0) + t["flash_attention_bwd.wgmma"]
 
     def instances(*names, lib=fa_bwd_lib):
@@ -4047,12 +4247,17 @@ def main(argv=None) -> int:
                 arch: t["flash_attention_bwd"] for arch, t in train.items()
                 if t["flash_attention_bwd"]}
             kern["wgmma_launches_by_head_dim"] = tc_by_dim
+            kern["wgmma_launches_softcap"] = tc_capped
             kern["variants"] = [
                 {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 128,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          timed["flash_attention_bwd"], tc_by_dim.get(128, 0)),
                  "ptxas": instances("fa_bwd_dkdv_wgmma_kernel<128>",
                                     "fa_bwd_dq_wgmma_kernel<128>")},
+                {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 128,
+                 "logit_cap": grok_cfg.attn_logit_softcap,
+                 **entry("flash_attention_bwd", tc_src, bwd_replaces,
+                         bwd_cap, tc_capped)},
                 {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 256,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          bwd_256, tc_by_dim.get(256, 0)),

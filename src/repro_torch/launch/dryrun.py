@@ -505,6 +505,9 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="the arch cut to this many layers")
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--remat-segments", type=int, default=None,
+                    help="two-level remat segments (0: none; a layer "
+                         "count cut below the config's segments needs it)")
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
         # the (2, 16, 16) mesh needs 512 cards: this raises with the count
@@ -514,7 +517,8 @@ def main(argv=None):
             ap.error("--seq-len needs --arch, --kind and --batch")
         cfg = get_config(args.arch)
         for field, value in (("num_layers", args.layers),
-                             ("microbatches", args.microbatches)):
+                             ("microbatches", args.microbatches),
+                             ("remat_segments", args.remat_segments)):
             if value is not None:
                 cfg = dataclasses.replace(cfg, **{field: value})
         record, _ = predict(cfg, cell(args.kind, args.seq_len, args.batch))
@@ -522,6 +526,7 @@ def main(argv=None):
         print(json.dumps({
             "arch": cfg.name, "cell": record["shape"],
             "layers": cfg.num_layers, "microbatches": cfg.microbatches,
+            "remat_segments": cfg.remat_segments,
             "params": record["num_params"],
             "arguments_gb": mem["argument_size_in_bytes"] / 1e9,
             "temps_gb": mem["temp_size_in_bytes"] / 1e9,

@@ -1,17 +1,21 @@
 """AdamW on torch tensors (port of ``optim/adamw.py``).
 
-Moments are f32 (params stay in cfg.param_dtype, bf16 on target); the
-optimizer state mirrors the parameter tree leaf for leaf.  The update
-runs in place and over slices of each leaf's leading axis (the layer
-axis of the stacked layer parameters), at most ``SLICE_ELEMENTS`` at a
-time: the reference's formula makes about six f32 temporaries of a whole
-leaf, which for starcoder2-3b's ``layers/mlp/w_in`` (1.13 B elements) is
-4.5 GB each on top of 54 GB of training state.  Each element still takes
-the reference's operations in the reference's order, so a slice gives
-the same bits as the whole leaf.  The grad norm's squares are summed in
-f64 (``global_norm``, C-ref13).  ``abstract_opt_state`` and ``opt_specs``
-give the state's shapes and partition specs without storage, leaf for
-leaf those of the parameters (``ParamTable.abstract_sharded``).
+Moments are in ``moment_dtype`` (f32, grok-1's bf16; params stay in
+cfg.param_dtype, bf16 on target); the optimizer state mirrors the
+parameter tree leaf for leaf.  The update runs in place and over flat
+slices of each leaf, at most ``SLICE_ELEMENTS`` elements at a time: the
+reference's formula makes about six f32 temporaries of a whole leaf,
+which for starcoder2-3b's ``layers/mlp/w_in`` (1.13 B elements) is 4.5
+GB each on top of 54 GB of training state, and for one layer of grok-1's
+experts (``layers/moe/w_in``, 1.61 B elements a layer) 6.4 GB each.
+Slices cut across the layer axis and within a layer alike.  Each element
+still takes the reference's operations in the reference's order, so a
+slice gives the same bits as the whole leaf; bf16 moments are read into
+f32 and rounded back once, as the reference's ``m_new.astype(m.dtype)``.
+The grad norm's squares are summed in f64 (``global_norm``, C-ref13).
+``abstract_opt_state`` and ``opt_specs`` give the state's shapes and
+partition specs without storage, leaf for leaf those of the parameters
+(``ParamTable.abstract_sharded``).
 """
 from __future__ import annotations
 
@@ -51,20 +55,16 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _slices(n_rows: int, row_elements: int) -> Iterator[slice]:
-    """Ranges of the leading axis of about ``SLICE_ELEMENTS`` elements."""
-    step = max(1, SLICE_ELEMENTS // max(1, row_elements))
-    for i in range(0, n_rows, step):
-        yield slice(i, min(i + step, n_rows))
-
-
-def _row_slices(x: torch.Tensor) -> Iterator:
-    """Index of each slice of ``x``'s leading axis (``...`` for a 0-dim
-    tensor)."""
+def _flat_slices(x: torch.Tensor) -> Iterator[torch.Tensor]:
+    """Views of ``x`` flattened, ``SLICE_ELEMENTS`` elements each (the
+    last fewer; ``x`` itself when 0-dim).  ``x`` must be contiguous: the
+    views are written in place."""
     if x.dim() == 0:
-        yield ...
+        yield x
         return
-    yield from _slices(x.shape[0], x[0].numel() if x.shape[0] else 0)
+    flat = x.view(-1)
+    for i in range(0, flat.numel(), SLICE_ELEMENTS):
+        yield flat[i:i + SLICE_ELEMENTS]
 
 
 def init_opt_state(params, opt: AdamW):
@@ -141,7 +141,7 @@ def opt_state_from_reference(cfg, state: dict,
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, leaves in the
     reference's order, as a 0-dim f32 tensor.  The squares are summed in
-    f64, a slice of each leaf's leading axis at a time, then the root is
+    f64, a flat slice of each leaf at a time, then the root is
     rounded to f32: the reference sums them in f32, which overflows to inf
     once the norm passes ~1.8e19 although the norm itself is a finite f32
     (C-ref13: starcoder2-3b's first gradient at full width under the
@@ -150,8 +150,8 @@ def global_norm(tree) -> torch.Tensor:
     rounding (~1e-7 relative)."""
     total = None
     for leaf in _leaves(tree):
-        for sl in _row_slices(leaf):
-            part = torch.sum(torch.square(leaf[sl].double()))
+        for sl in _flat_slices(leaf):
+            part = torch.sum(torch.square(sl.double()))
             total = part if total is None else total + part
     return torch.sqrt(total).float()
 
@@ -188,10 +188,13 @@ def adamw_update(params, grads, state, lr, opt: AdamW):
                                       device=cf.device), cf)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
     flat = zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
-               _leaves(state["v"]))
-    for p, g, m, v in flat:
-        for sl in _row_slices(p):
-            _update_slice(p[sl], g[sl], m[sl], v[sl], clip=clip, c1=c1,
-                          c2=c2, lr=lr, opt=opt)
+               _leaves(state["v"]), strict=True)
+    for leaf in flat:
+        if len({x.numel() for x in leaf}) != 1:
+            raise ValueError("a parameter, its gradient and its moments "
+                             f"differ in size: {[x.shape for x in leaf]}")
+        for p, g, m, v in zip(*map(_flat_slices, leaf)):
+            _update_slice(p, g, m, v, clip=clip, c1=c1, c2=c2, lr=lr,
+                          opt=opt)
     state["count"].copy_(count)
     return params, state, {"grad_norm": gnorm}

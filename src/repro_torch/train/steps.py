@@ -2,7 +2,9 @@
 
 The reference's SPMD jobs on one card: a train step takes the global
 batch, runs it as ``cfg.microbatches`` microbatches, sums their gradients
-in f32 in microbatch order, divides by M and applies AdamW in place.
+in ``cfg.grad_accum_dtype`` (f32, grok-1's bf16) in microbatch order,
+a gradient wider than that dtype rounded to it before it is added,
+divides by M and applies AdamW in place.
 Each microbatch's gradients are taken with ``torch.autograd.grad`` and
 added into the f32 sum, never accumulated by ``.backward()`` into bf16
 ``.grad`` (which would round every partial sum).  The stacked layer
@@ -92,16 +94,24 @@ def _trainable(cfg, params):
     return _unflatten(tree), leaves
 
 
+def accum_dtype(cfg) -> torch.dtype:
+    """The dtype the gradients of ``cfg``'s microbatches are summed in:
+    ``cfg.grad_accum_dtype``, f32 with one microbatch (the param dtype's
+    gradient upcast, which is exact)."""
+    if max(1, cfg.microbatches) > 1:
+        return torch_dtype(cfg.grad_accum_dtype)
+    return torch.float32
+
+
 def make_grads_fn(cfg, model):
     """Returns grads_fn(params, batch) -> (grads, total, metrics): the
-    gradients of the loss as a tree of ``cfg.grad_accum_dtype`` tensors
-    (f32 with one microbatch: the param dtype's gradient upcast, which is
-    exact), the total loss and the metrics, each averaged over
+    gradients of the loss as a tree of ``accum_dtype(cfg)`` tensors, the
+    total loss and the metrics, each averaged over
     ``cfg.microbatches`` as the reference does.  Microbatch ``i`` holds
     rows ``[i B / M, (i + 1) B / M)`` of the batch."""
     loss_fn = make_loss_fn(cfg, model)
     m = max(1, cfg.microbatches)
-    acc_dt = torch_dtype(cfg.grad_accum_dtype) if m > 1 else torch.float32
+    acc_dt = accum_dtype(cfg)
 
     def grads_fn(params, batch):
         rows = next(iter(batch.values())).shape[0]
@@ -124,7 +134,15 @@ def make_grads_fn(cfg, model):
             with torch.no_grad():
                 for (path, j, _), g in zip(leaves, grads):
                     if g is not None:   # an unused leaf adds zeros
-                        (g_sum[path] if j is None else g_sum[path][j]).add_(g)
+                        acc = g_sum[path] if j is None else g_sum[path][j]
+                        if torch.promote_types(g.dtype, acc.dtype) != \
+                                acc.dtype:
+                            # the reference's ``a + b.astype(acc_dt)``: an
+                            # f32 gradient (the router's) is rounded to a
+                            # bf16 sum's dtype before it is added (a bf16
+                            # one into an f32 sum widens exactly in add_)
+                            g = g.to(acc.dtype)
+                        acc.add_(g)
             del leaves, grads
             tot = tot.detach()
             met = {key: val.detach() for key, val in met.items()}

@@ -5,6 +5,7 @@ bound it reports for non-causal calls (``analysis/roofline.py``'s work
 counts), and the rule that decides whether a path's end-to-end logits
 are gated."""
 import dataclasses
+import itertools
 import sys
 from pathlib import Path
 
@@ -227,6 +228,11 @@ def test_train_launch_counts():
     # 2 layers x 8 microbatches x 2 steps
     ("phi3.5-moe-42b-a6.6b", {"flash_attention": 64,
                               "flash_attention_bwd": 32}),
+    # 1 layer x 16 microbatches x 2 steps, no remat segment in one layer
+    ("grok-1-314b", {"flash_attention": 64, "flash_attention_bwd": 32}),
+    # 4 layers in 2 remat segments: 3 x 4 - 2 = 10 forwards a microbatch,
+    # x 8 microbatches x 2 steps
+    ("qwen3-32b", {"flash_attention": 160, "flash_attention_bwd": 64}),
 ])
 def test_new_family_train_launch_counts(arch, want):
     """The moe, vlm and audio families' train phase: depth, batch, tokens
@@ -237,7 +243,8 @@ def test_new_family_train_launch_counts(arch, want):
     cfg = chip_smoke.train_config(arch)
     spec = chip_smoke.TRAIN_ARCHS[arch]
     got = chip_smoke.train_launches(cfg, spec["steps"])
-    assert (spec["batch"], spec["steps"]) == (8, 2)
+    assert (spec["batch"], spec["steps"]) == \
+        ((16, 2) if arch == "grok-1-314b" else (8, 2))
     for key, n in want.items():
         assert got[key] == n, key
     assert got["flash_attention.wgmma"] == want["flash_attention"]
@@ -256,29 +263,39 @@ def test_new_family_train_launch_counts(arch, want):
         assert fa_kernel.plan(*args, causal, with_lse=True).variant == \
             "wgmma"
         assert fa_bwd.plan(*args).variant == "wgmma"
-    assert {"whisper-medium": (mb, seq, cfg.num_layers),
-            "pixtral-12b": (mb, seq, cfg.num_layers),
-            "phi3.5-moe-42b-a6.6b": (mb, seq, cfg.num_layers)}[arch] == \
-        {"whisper-medium": (4, 448, 24), "pixtral-12b": (1, 2048, 8),
-         "phi3.5-moe-42b-a6.6b": (1, 2048, 2)}[arch]
+    assert (mb, seq, cfg.num_layers, cfg.remat_segments) == \
+        {"whisper-medium": (4, 448, 24, 0), "pixtral-12b": (1, 2048, 8, 0),
+         "phi3.5-moe-42b-a6.6b": (1, 2048, 2, 0),
+         "grok-1-314b": (1, 2048, 1, 0), "qwen3-32b": (1, 2048, 4, 2)}[arch]
+    if arch == "grok-1-314b":
+        assert fa_bwd.plan(mb, seq, seq, h, kh, d, torch.bfloat16) == \
+            fa_bwd.plan(*next(c[1:8] for c in chip_smoke.BWD_CASES
+                              if c[0] == "grok-1 train"))
+        assert cfg.attn_logit_softcap == chip_smoke.GROK_CAP
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "pixtral-12b",
-                                  "phi3.5-moe-42b-a6.6b", "starcoder2-3b"])
+                                  "phi3.5-moe-42b-a6.6b", "starcoder2-3b",
+                                  "grok-1-314b", "qwen3-32b"])
 def test_train_launches_equal_the_reduced_models_calls(monkeypatch, arch):
     """``train_launches`` against the attention calls one step of the
     reduced model makes on the CPU (two microbatches of 2 x 128 tokens,
     with the family's stub inputs): with remat "full" every checkpointed
     forward runs again in the backward, so the forward's calls are the
     flash launches; with remat "none" they are the backward's (one a
-    forward call)."""
+    forward call).  grok-1 and qwen3-32b keep the reduced config's 2
+    remat segments of 2 layers: each segment's recompute stops before
+    its last layer, so "full" makes 3 x 4 - 2 = 10 calls a microbatch,
+    and "none" 2 x 4 (the segments' recompute runs every layer); with
+    no segment, 8 and 4."""
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models import model_zoo
     from repro_torch.train import steps as steps_lib
     gen = torch.Generator().manual_seed(0)
-    for policy, key in (("full", "flash_attention"),
-                        ("none", "flash_attention_bwd")):
-        cfg = reduced_config(arch, microbatches=2, remat_policy=policy)
+    segments = (0, 2) if arch in ("grok-1-314b", "qwen3-32b") else (0,)
+    for policy, g in itertools.product(("full", "none"), segments):
+        cfg = reduced_config(arch, microbatches=2, remat_policy=policy,
+                             remat_segments=g)
         model = model_zoo.build_model(cfg)
         params = model.table.init(gen, "cpu")
         toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen)
@@ -292,9 +309,18 @@ def test_train_launches_equal_the_reduced_models_calls(monkeypatch, arch):
         calls = _count_attention(monkeypatch)
         _, total, _ = steps_lib.make_grads_fn(cfg, model)(params, batch)
         assert bool(torch.isfinite(total))
-        want = chip_smoke.train_launches(
-            dataclasses.replace(cfg, remat_policy="full"), 1)
-        assert len(calls) == want[key], (policy, len(calls), want)
+        want = chip_smoke.train_launches(cfg, 1)
+        assert len(calls) == want["flash_attention"], (policy, g, len(calls),
+                                                       want)
+        n = 1 if cfg.is_encoder_decoder else cfg.num_layers
+        per_mb = {("none", 0): 1, ("full", 0): 2}.get((policy, g), 0) * n
+        if g:
+            per_mb = 3 * n - g if policy == "full" else 2 * n
+        if cfg.is_encoder_decoder:
+            per_mb = want["flash_attention_bwd"] // 2
+        assert len(calls) == 2 * per_mb
+        if (policy, g) == ("none", 0):
+            assert len(calls) == want["flash_attention_bwd"]
         monkeypatch.undo()
 
 
@@ -402,17 +428,22 @@ def test_scan_backward_bounds():
      {"flash_attention": 1, "rglru_scan": 2}),
     # one 8-layer super-block: 7 mLSTMs
     ("xlstm-350m", {"mlstm": 14}, {"mlstm": 7}),
+    # the train cell's 4 layers, "full" in 2 segments: 3 x 4 - 2
+    ("qwen3-32b", {"flash_attention": 10}, {"flash_attention": 4}),
 ])
 def test_remat_check_launch_counts(arch, full, none):
-    """The remat check's step 1 on one super-block and one microbatch:
-    "full" runs each forward kernel twice, "none" once; the backwards
-    once either way.  The hybrid unit has no tail."""
+    """The remat check's step 1 on one super-block (qwen3-32b: its train
+    cell's layers) and one microbatch: "full" runs each forward kernel
+    twice (three times in two-level remat but the last layer's of each
+    segment), "none" once; the backwards once either way.  The hybrid
+    unit has no tail."""
     spec = chip_smoke.REMAT_CHECK[arch]
-    base = dataclasses.replace(get_config(arch), num_layers=spec["layers"],
-                               microbatches=1)
     for policy, want in (("full", full), ("none", none)):
-        got = chip_smoke.train_launches(
-            dataclasses.replace(base, remat_policy=policy), 1)
+        cfg = chip_smoke.remat_check_config(arch, policy)
+        assert (cfg.num_layers, cfg.microbatches) == (spec["layers"], 1)
+        assert cfg.remat_segments == (spec.get("remat_segments", 0)
+                                      if policy == "full" else 0)
+        got = chip_smoke.train_launches(cfg, 1)
         for key, n in want.items():
             assert got[key] == n, (policy, key)
         assert got["rglru_scan_bwd"] == none.get("rglru_scan", 0)
@@ -491,3 +522,30 @@ def test_fill_ring_gives_the_token_by_token_cache(arch, fill, w):
     with pytest.raises(ValueError, match="empty cache"):
         chip_smoke.fill_ring(cfg, params, toks.repeat(1, 2),
                              model.init_cache(2, w, "cpu"))
+
+
+@pytest.mark.parametrize("arch,microbatches,want", [
+    # bf16 param and microbatch grad, f32 moments and sum: 2 + 2 + 8 + 4
+    ("starcoder2-3b", None, 16),
+    # grok-1's bf16 moments and bf16 sum over its microbatches: 5 x 2
+    ("grok-1-314b", None, 10),
+    # one microbatch sums into f32 whatever grad_accum_dtype says
+    ("grok-1-314b", 1, 12),
+    ("xlstm-350m", None, 16),
+])
+def test_train_state_bytes_follow_the_config(arch, microbatches, want):
+    """The train phase's reckoning of its state (``train_state_gb``):
+    bytes a param from the config's ``param_dtype``, ``opt_moment_dtype``
+    and ``grad_accum_dtype`` (f32 with one microbatch, as
+    ``steps.accum_dtype`` gives it).  grok-1's cell: 6.53 B params, 65.3
+    GB."""
+    cfg = chip_smoke.train_config(arch)
+    if microbatches is not None:
+        cfg = dataclasses.replace(cfg, microbatches=microbatches)
+    assert chip_smoke.train_state_bytes(cfg) == want
+    if (arch, microbatches) == ("grok-1-314b", None):
+        assert (cfg.opt_moment_dtype, cfg.grad_accum_dtype,
+                cfg.microbatches) == ("bfloat16", "bfloat16", 16)
+        from repro_torch.models import model_zoo
+        n = model_zoo.build_model(cfg).table.num_params()
+        assert n * want / 1e9 == pytest.approx(65.3, abs=0.05)

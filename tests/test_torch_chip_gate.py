@@ -10,7 +10,13 @@ ERR_RATIO times the plain version's.  Here the "kernel" is the plain
 version in f32 with the head dim summed in the other order (as correct as
 f32 arithmetic allows, and rounded differently): it must pass the check
 and still disagree with the plain version in f32, as an evaluation with
-no error does; faults a kernel can have must fail it."""
+no error does; faults a kernel can have must fail it.
+
+The backward's capped rows must see the cap: left out, it moves the
+plain dq and dk by more than BWD_TOL (``cap_check``); and the library
+call timed beside the capped backward, ``softcap_library``'s
+flex_attention, computes the capped attention (its forward here, eager:
+flex_attention has no backward on the CPU)."""
 import sys
 from pathlib import Path
 
@@ -147,3 +153,62 @@ def test_well_conditioned_calls_count_the_rule_apart(monkeypatch):
             t["kernel_off_plain_nearer_exact"]) == (0, 0, 0)
     assert 0 < t["well_max_err_exact"]
     assert 0 < t["well_max_err_exact_over_tol"] <= 1
+
+
+def _bwd_operands(b, sq, sk, h, kh, d, q_gain, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=gen).bfloat16()
+                     for shape in ((b, sq, h, d), (b, sk, kh, d),
+                                   (b, sk, kh, d), (b, sq, h, d)))
+    return q * q_gain, k, v, dout
+
+
+@pytest.mark.parametrize("cap,q_gain,sees", [
+    # grok-1's cap at its training row's gain: the scores reach ~45
+    (chip_smoke.GROK_CAP, chip_smoke.GROK_Q_GAIN, True),
+    # the same cap at a spread of 1 (|s| up to ~5) bends no gradient far
+    (chip_smoke.GROK_CAP, 1.0, False),
+])
+def test_cap_check_needs_the_cap_to_move_the_gradients(cap, q_gain, sees):
+    """At D 128 over 48 q heads on 8, the cap moves the plain dq and dk
+    beyond BWD_TOL only where the scores reach it (readings at these
+    operands, dq and dk: 0.61 and 0.43 at gain 8, 0.025 and 0.011 at
+    gain 1)."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    q, k, v, dout = _bwd_operands(1, 256, 256, 48, 8, 128, q_gain)
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    want = flash_attention_bwd_ref(
+        qf, kf, vf, flash_attention_ref(qf, kf, vf, logit_cap=cap), df,
+        logit_cap=cap)
+    if sees:
+        moved = chip_smoke.cap_check(q, k, v, dout, want, torch.bfloat16,
+                                     "test", logit_cap=cap)
+        assert min(moved[:2]) > 10 * chip_smoke.BWD_TOL[torch.bfloat16]
+    else:
+        with pytest.raises(AssertionError, match="the cap moves"):
+            chip_smoke.cap_check(q, k, v, dout, want, torch.bfloat16,
+                                 "test", logit_cap=cap)
+
+
+@pytest.mark.parametrize("sq,sk", [(96, 96), (40, 96)])
+def test_softcap_library_computes_the_capped_attention(monkeypatch,
+                                                       tmp_path, sq, sk):
+    """flex_attention with the tanh score_mod, the causal block mask
+    aligned to the last key and GQA 6:2, eager (``torch.compile`` left
+    out on the CPU), against the plain capped attention in f32: the same
+    function up to f32 rounding."""
+    monkeypatch.setattr(torch, "compile", lambda fn, **kw: fn)
+    for name in ("TORCHINDUCTOR_CACHE_DIR", "TRITON_CACHE_DIR"):
+        monkeypatch.setenv(name, str(tmp_path))
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((1, sq, 6, 64), generator=gen) * 6.0
+    k, v = (torch.randn((1, sk, 2, 64), generator=gen) for _ in range(2))
+    lib = chip_smoke.softcap_library(5.0, sq, sk, device="cpu")
+    got = lib(*(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2)
+    want = flash_attention_ref(q, k, v, logit_cap=5.0)
+    assert float((got - want).abs().max()) <= 1e-5
+    # the cap and the mask both bite: without either the result moves
+    assert float((flash_attention_ref(q, k, v) - want).abs().max()) > 0.1
+    assert float((flash_attention_ref(q, k, v, causal=False,
+                                      logit_cap=5.0) - want).abs().max()) > 0.1

@@ -12,13 +12,16 @@ from pathlib import Path
 
 import pytest
 
+from repro.core import jse as ref_jse
 from repro.launch import serve as ref_serve
 from repro.obs import flight as ref_flight
 from repro.obs import replay as ref_replay
 from repro_torch.core import brick as port_brick
+from repro_torch.core import jse as port_jse
 from repro_torch.launch import serve as port_serve
 from repro_torch.obs import flight as port_flight
 from repro_torch.obs import replay as port_replay
+from test_torch_fabric import packet_clock
 from test_torch_parity import ref_store
 
 REPO = Path(__file__).resolve().parents[1]
@@ -33,13 +36,21 @@ VARIANTS = {"plain": [], "policy-single-flight-stream": [
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def logs(request, tmp_path_factory):
     """(reference log, port log, their paths), recorded by each package's
-    serve launcher with the same flags."""
+    serve launcher with the same flags.  Both packages' packet timing
+    reads a clock that advances 1 ms a read (``packet_clock``): the
+    policy's node states follow the health rates made of those seconds,
+    and on the wall clock a slow packet (a busy host, the reference's
+    first compile) could turn a node degraded in one run and not the
+    other, and the logs would differ by its decisions."""
     tmp = tmp_path_factory.mktemp(request.param)
     flags = FLAGS + VARIANTS[request.param]
     ref_path, port_path = tmp / "ref.jsonl", tmp / "port.jsonl"
-    ref_serve.main(flags + ["--flight-out", str(ref_path)])
-    port_serve.main(flags + ["--flight-out", str(port_path),
-                             "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        packet_clock(mp, ref_jse)
+        packet_clock(mp, port_jse)
+        ref_serve.main(flags + ["--flight-out", str(ref_path)])
+        port_serve.main(flags + ["--flight-out", str(port_path),
+                                 "--device", "cpu"])
     return (ref_flight.load_flight(ref_path),
             port_flight.load_flight(port_path), ref_path, port_path)
 

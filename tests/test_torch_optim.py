@@ -120,9 +120,10 @@ def test_c_ref13_the_reference_norm_overflows_where_the_port_does_not():
 
 
 def test_sliced_update_equals_the_whole_leaf(monkeypatch):
-    """Slices of 5 elements (rows of w, of c) against one slice a leaf.
-    The gradients stay under the clip: the norm's sum order follows the
-    slices, so above it the clip factor may move by an ulp."""
+    """Flat slices of 5 elements (across and within the rows of w and of
+    c) against one slice a leaf.  The gradients stay under the clip: the
+    norm's sum order follows the slices, so above it the clip factor may
+    move by an ulp."""
     rng = np.random.default_rng(3)
     base = _tree(lambda s: rng.normal(size=s).astype(np.float32))
     grads = [_tree(lambda s: 0.01 * rng.normal(size=s).astype(np.float32))
@@ -136,13 +137,32 @@ def test_sliced_update_equals_the_whole_leaf(monkeypatch):
             p, st, met = adamw.adamw_update(
                 p, jax.tree.map(torch.from_numpy, g), st, 1e-3, adamw.AdamW())
         out.append((p, st, met))
-    assert len(list(adamw._slices(11, 4))) == 11      # 5 // 4 = 1 row
+        if elements == 5:
+            assert len(list(adamw._flat_slices(torch.empty(44)))) == 9   # c
     whole, sliced = ({"p": p, "s": st} for p, st, _ in out)
     for a, b in zip(adamw._leaves(whole), adamw._leaves(sliced)):
         assert torch.equal(a, b)
     assert float(out[1][2]["grad_norm"]) < 1.0
     assert float(out[0][2]["grad_norm"]) == pytest.approx(
         float(out[1][2]["grad_norm"]), rel=1e-6)
+
+
+@pytest.mark.parametrize("what", ["grad", "moment", "leaves"])
+def test_update_raises_on_a_mismatched_state(what):
+    """A gradient or a moment of another size than its parameter, or a
+    tree with another number of leaves, raises: the flat slices would
+    otherwise pair elements of different leaves or stop early."""
+    p = {"w": torch.zeros(4, 3)}
+    st = adamw.init_opt_state(p, adamw.AdamW())
+    g = {"w": torch.ones(4, 3)}
+    if what == "grad":
+        g = {"w": torch.ones(4, 2)}
+    elif what == "moment":
+        st["m"] = {"w": torch.zeros(3, 3)}
+    else:
+        g = {"w": torch.ones(4, 3), "x": torch.ones(1)}
+    with pytest.raises(ValueError):
+        adamw.adamw_update(p, g, st, 1e-3, adamw.AdamW())
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 50, 99, 100, 150])
