@@ -204,7 +204,7 @@ Phases, each printing one JSON line:
    to end, the recurrent models' logits are reported beside the distance
    between two plain runs that differ only in rounding, not gated
    (E2E_GATED);
-7. train   — the LM stores freed, eight models trained at full width
+7. train   — the LM stores freed, ten models trained at full width
    through make_train_step, one after the other (TRAIN_ARCHS), bf16
    params, the moments and the sum over the microbatches in the
    config's dtypes (f32, grok-1's bf16), global
@@ -216,9 +216,10 @@ Phases, each printing one JSON line:
    microbatches, remat "full", 8 x 2048, 3 steps), recurrentgemma-9b at 5
    of its 12 (rec, rec, attn) units (15 of 38 layers, 4.02 B params;
    remat "full" of each super-block; 8 microbatches of 1 x 2048, 3 steps)
-   and xlstm-350m whole (remat "full" of each super-block and the sLSTM
-   loop in chunks of 256 steps; global batch cut to 2 x 2048, one
-   microbatch, 1 step: ms a step is its wall less its backward checks),
+   and xlstm-350m at one of its three super-blocks (8 of 24 layers: 7
+   mLSTM + 1 sLSTM; remat "full" of the super-block and the sLSTM loop
+   in chunks of 256 steps; global batch cut to 2 x 2048, one microbatch,
+   1 step: ms a step is its wall less its backward checks),
    then 2 steps each of whisper-medium whole (8 x 448 tokens over 1500
    stub frames, 2 microbatches, no remat: B3's backward at head dim 64,
    non-causal over 1500 keys), pixtral-12b at 8 of 40 layers (8
@@ -231,8 +232,17 @@ Phases, each printing one JSON line:
    a bf16 gradient sum, softcap 30 in B3's backward, sandwich norms,
    embed_scale, top-2 of 8 experts; its 8 remat segments cut to 0) and
    qwen3-32b at 4 of 64 layers in 2 remat segments (8 x 2048 in 8
-   microbatches; qk-norm, GQA 64/8).
-   Every cell but xlstm-350m's is dry-run on meta before its steps.
+   microbatches; qk-norm, GQA 64/8), then the last two dense
+   configurations, 2 steps each with remat "full" in no segment:
+   qwen3-14b at 8 of 40 layers (8 microbatches of 1 x 2048; its 40 q
+   heads padded to 48, GQA 48/8, qk-norm) and chatglm3-6b at 18 of 28
+   (4 microbatches of 2 x 2048; GQA 32/2, rotary on half the head dim).
+   Every cell but xlstm-350m's is dry-run on meta before its steps;
+   qwen3-14b's and chatglm3-6b's measured peak after step 1 must lie
+   within PEAK_RATIO (0.93-1.05) of that prediction and their peak over
+   all steps at most PEAK_MAX_GB (72 GB); the padded q heads' elements
+   of wq, wo and both moments (starcoder2-3b's 8 of 32, qwen3-14b's 8 of
+   48) must be exactly zero after every step (padded_nonzero).
    Launch counts by kernel and variant
    (train_launches; zeroed just before, read just after): starcoder2-3b's
    flash forward 30 x 4 x 3 x 2 = 720 (the remat recompute doubles it) on
@@ -240,12 +250,14 @@ Phases, each printing one JSON line:
    ``flash_attention_bwd.wgmma``; recurrentgemma-9b's 5 x 8 x 3 x 2 = 240
    flash forwards (wgmma) and 120 backwards (``flash_attention_bwd.wgmma``
    at head dim 256, none on ``.simt``), 10 x 8 x 3 x 2 = 480 RG-LRU scans
-   and 240 backwards; xlstm-350m's 21 x 1 x 2 = 42 mLSTM forwards
-   (``mlstm.wgmma``) and 21 backwards; whisper-medium's (24 + 2 x 24) x 2
+   and 240 backwards; xlstm-350m's 7 x 1 x 2 = 14 mLSTM forwards
+   (``mlstm.wgmma``) and 7 backwards; whisper-medium's (24 + 2 x 24) x 2
    x 2 = 288 flash forwards and 288 backwards, pixtral-12b's 8 x 8 x 2 x 2
    = 256 and 128, phi3.5-moe's 2 x 8 x 2 x 2 = 64 and 32, grok-1's 1 x
    16 x 2 x 2 = 64 and 32, qwen3-32b's (3 x 4 - 2) x 8 x 2 = 160 (two-level
-   remat: train_launches) and 64, all on the tensor cores.  Every
+   remat: train_launches) and 64, qwen3-14b's 8 x 8 x 2 x 2 = 256 and
+   128, chatglm3-6b's 18 x 4 x 2 x 2 = 288 and 144, all on the tensor
+   cores.  Every
    backward call of step 1
    (B3, B4, B5) is held against its plain backward in f32 (against its f64 value where that
    plain backward is off; the RG-LRU backward also bit-equal to its
@@ -256,18 +268,22 @@ Phases, each printing one JSON line:
    microbatch, whose plain attention under autograd would take 97 GB at
    its 4), each metric gated within
    TRAIN_REL_TOL on its own where the two plain runs agree on it
-   (E2E_IF_STABLE's rule); ms a step, tokens/s, the peak memory
+   (E2E_IF_STABLE's rule), always for qwen3-14b and qwen3-32b
+   (E2E_GATED); ms a step, tokens/s, the peak memory
    (reckoned in phase_train) and, for one more step, the busy share
    under torch.profiler, with each family's kernels listed by name
    (TRAIN_BREAKDOWN);
    remat_check — one super-block of each recurrent family at full width
    (recurrentgemma-9b's (rec, rec, attn), xlstm-350m's 7 mLSTM + 1
-   sLSTM; REMAT_CHECK) and qwen3-32b at 4 layers, "full" in 2 segments,
-   one microbatch of its training shape: step 1's gradients with remat
-   "full" and "none" on the same weights and batch must be equal bit for
-   bit (every kernel on the path is deterministic), or, where a leaf
-   differs, within TRAIN_REL_TOL of its largest gradient; "full"
-   launches every forward kernel twice (qwen3-32b's 10 times for 4);
+   sLSTM; REMAT_CHECK), qwen3-32b at 4 layers, "full" in 2 segments,
+   and qwen3-14b at 2 layers with "full" and the reference's "dots" (the
+   products without batch dims kept, the rest recomputed), one
+   microbatch of its training shape: step 1's gradients with each
+   policy and with "none" on the same weights and batch must be equal
+   bit for bit (every kernel on the path is deterministic), or, where a
+   leaf differs, within TRAIN_REL_TOL of its largest gradient, the
+   leaves named; "full" and "dots" launch every forward kernel twice
+   (qwen3-32b's 10 times for 4);
    dryrun  — the dry run (launch/dryrun.py) of a cell's step on the meta
    device at full width, held against the card: starcoder2-3b's and
    recurrentgemma-9b's train steps (each at the end of its train phase,
@@ -281,15 +297,15 @@ Phases, each printing one JSON line:
    be equal, and each kernel's calls must equal the profiler's launches
    of one step (PROFILED_CALL: the train phase's profiled step; one more
    decode step under the profiler).  xlstm-350m's train step is dry-run
-   on meta alone, at one of its three super-blocks and 512 steps
-   (DRYRUN_XL): its B5 calls, three times over, equal the profiler's
-   launches of the train phase's step.  Printed, with nvidia-smi's name
+   on meta alone, at 512 of its 2048 steps (DRYRUN_XL_SEQ): its B5
+   calls equal the profiler's launches of the train phase's step.  Printed, with nvidia-smi's name
    and power limit, not gated: MODEL_FLOPS over (ms a step x 989
    TFLOP/s), the roofline time over the measured and its dominant term
    (analysis/roofline.py), and the predicted peak memory (arguments and
    temps) against max_memory_allocated over the traced step.  The train
-   cells of whisper-medium, pixtral-12b and phi3.5-moe are dry-run on
-   meta alone, before their steps (``dryrun_predict``): their predicted
+   cells of whisper-medium, pixtral-12b, phi3.5-moe, grok-1, qwen3-32b,
+   qwen3-14b and chatglm3-6b are dry-run on meta alone, before their
+   steps (``dryrun_predict``): their predicted
    peak against the measured peak of the steps, their calls against the
    profiler's launches, and the same readings;
    trainer — Trainer with starcoder2-3b at full width and 1 of its 30
@@ -323,7 +339,9 @@ Phases, each printing one JSON line:
    30, q scaled by 8) on the tensor cores beside its plain backward and
    the library call, the backward of torch.compile(flex_attention) with
    a tanh score_mod, a causal block mask and enable_gqa (timed and held
-   against the plain backward, only); the B4 backward at
+   against the plain backward, only), and the same call at qwen3-14b's
+   training microbatch (the same shape and q scaling) without the cap,
+   SDPA's backward its library call; the B4 backward at
    (1, 2048, 4096) f32 (bound: 20 bytes an element at 3.35 TB/s) and the
    B5 backward at (2, 2048, 4, 512) bf16 (bound: 10 flops a valid (query,
    key, head, head-dim) at 989 TFLOP/s, ~0.087 ms), each beside its plain
@@ -336,6 +354,7 @@ Phases, each printing one JSON line:
    ``variants``: the tensor-core one at head dim 128 and at 256, each
    with its train launches at that head dim and its instances' registers
    and spills, the one at head dim 128 with grok-1's softcap and its
+   launches, the same without the cap at qwen3-14b's shape and its
    launches, and the CUDA-core one; its launches also by trained model
    and, on the tensor cores, by head dim without a cap, whisper-medium's
    at 64 included), nvidia-smi's line, and the result line.
@@ -471,10 +490,12 @@ TRAIN_LR = 3e-4
 # 64.3 GB of training state at 16 bytes a param; with remat "full" each
 # super-block keeps its input, so the logits' f32 copies (~2.1 GB each)
 # and one super-block's recompute come on top: ~70-74 GB) over its 8
-# microbatches of 1 x 2048; xlstm-350m whole, its global batch cut from
-# 8 to 2 rows (one microbatch of 2 x 2048, the shape its 4 microbatches
-# of 8 give) and 1 step: the sLSTM's Python loop over 2048 steps under
-# autograd takes seconds a microbatch, and remat runs it three times.
+# microbatches of 1 x 2048; xlstm-350m at one of its three super-blocks
+# (8 of 24 layers; whole until chip_smoke's run passed 1,000 s with the
+# last two dense cells), its global batch cut from 8 to 2 rows (one
+# microbatch of 2 x 2048, the shape its 4 microbatches of 8 give) and 1
+# step: the sLSTM's Python loop over 2048 steps under autograd takes
+# seconds a microbatch, and remat runs it three times.
 # The moe, vlm and audio families, 2 steps each at a global batch of 8 in
 # their own microbatches: whisper-medium whole (0.76 B params; 8 rows of
 # 448 tokens over 1500 stub frames, 2 microbatches; no remat, as the
@@ -499,10 +520,21 @@ TRAIN_LR = 3e-4
 # layers (3.51 B params, f32 moments, 56.1 GB of state) in 2 segments of
 # 2 layers, its 8 cut as the registry's reduced config cuts them
 # (min(8, 2)): each layer's forward runs three times but the last of a
-# segment's, twice (train_launches)
+# segment's, twice (train_launches).  The last two dense configurations,
+# 2 steps each at a global batch of 8 x 2048 in their own microbatches,
+# remat "full" in no segment (their configs' 0), f32 moments and sum,
+# cut to the deepest that keeps grok-1's headroom by the dry run on meta
+# (a layer more predicts 72.8 and 74.0 GB): qwen3-14b at 8 of its 40
+# layers (4.28 B params, 68.5 GB of state at 16 bytes a param, the dry
+# run's peak 67.57 GB: a microbatch's bf16 gradients live a layer at a
+# time; 8 microbatches of 1 x 2048; its 40 q heads padded to 48, whose
+# zero weights and moments must stay zero, ``padded_nonzero``) and
+# chatglm3-6b at 18 of its 28 (4.20 B params, 67.3 GB, the dry run's
+# 67.36 GB; 4 microbatches of 2 x 2048; rotary on half the head dim)
 TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
                RG_ARCH: {"batch": 8, "steps": 3, "layers": 15},
-               XL_ARCH: {"batch": 2, "steps": 1, "microbatches": 1},
+               XL_ARCH: {"batch": 2, "steps": 1, "microbatches": 1,
+                         "layers": 8},
                WH_ARCH: {"batch": 8, "steps": 2,
                          "seq": FORWARD_LEN[WH_ARCH],
                          "plain_microbatches": 8},
@@ -511,7 +543,13 @@ TRAIN_ARCHS = {TRAIN_ARCH: {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS},
                GROK_ARCH: {"batch": 16, "steps": 2, "layers": 1,
                            "remat_segments": 0},
                Q32_ARCH: {"batch": 8, "steps": 2, "layers": 4,
-                          "remat_segments": 2}}
+                          "remat_segments": 2},
+               LM_ARCH: {"batch": 8, "steps": 2, "layers": 8},
+               GLM_ARCH: {"batch": 8, "steps": 2, "layers": 18}}
+# the train cells whose peak is held against the dry run's prediction:
+# after step 1 within PEAK_RATIO of it, over all steps at most PEAK_MAX_GB
+PEAK_GATED = (LM_ARCH, GLM_ARCH)
+PEAK_RATIO, PEAK_MAX_GB = (0.93, 1.05), 72.0
 # the train cells the dryrun phase also traces once more on the card (a
 # step under the recorder, ~10-15 s a cell); every cell but xlstm-350m's
 # is dry-run on meta before its steps, its predicted peak beside the
@@ -522,10 +560,14 @@ DRYRUN_CARD = (TRAIN_ARCH, RG_ARCH)
 # one microbatch of its training shape, step 1's gradients with remat
 # "full" against "none" on the same weights and batch; qwen3-32b at its
 # train cell's 4 layers with two-level remat ("full" in 2 segments)
-# against "none" in no segment
+# against "none" in no segment; qwen3-14b at 2 layers with "full" and the
+# reference's "dots" (the products without batch dims kept, the rest,
+# B3's forward among it, recomputed) against "none"
 REMAT_CHECK = {RG_ARCH: {"layers": 3, "batch": 1},
                XL_ARCH: {"layers": 8, "batch": 2},
-               Q32_ARCH: {"layers": 4, "batch": 1, "remat_segments": 2}}
+               Q32_ARCH: {"layers": 4, "batch": 1, "remat_segments": 2},
+               LM_ARCH: {"layers": 2, "batch": 1,
+                         "policies": ("full", "dots")}}
 # the brick phase: qwen3-14b decoding through the grid-brick KV cache on a
 # mesh of (1, 4) emulated on the card (tensor_size 4 cuts a cache of 8192
 # slots, unwindowed, into 4 bricks: brick_active holds), against the same
@@ -551,14 +593,13 @@ PROFILED_CALL = {"flash_attention.wgmma": "flash_wgmma_kernel",
                  "rglru_scan_bwd": "rglru_chunked_kernel<1>",
                  "mlstm.wgmma": "mlstm_gates_kernel",
                  "mlstm_bwd": "mlstm_bwd_cumsum_kernel"}
-# xlstm-350m's train step is dry-run on meta alone, cut to one of its
-# three super-blocks (8 of 24 layers) and 512 of its 2048 steps at the
-# train phase's rows: the sLSTM loops over every step in Python, and an
-# op on meta costs ~0.13 ms of host time on the H100's host (one
-# super-block: 228k ops, 30 s at 512 steps; ~1 M ops, ~130 s at 2048).
-# The B5 calls do not depend on the steps: 14 and 7, a third of the
-# step's
-DRYRUN_XL = {"layers": 8, "seq_len": 512}
+# xlstm-350m's train step is dry-run on meta alone, cut to 512 of its
+# 2048 steps at the train phase's rows and depth: the sLSTM loops over
+# every step in Python, and an op on meta costs ~0.13 ms of host time on
+# the H100's host (one super-block: 228k ops, 30 s at 512 steps; ~1 M
+# ops, ~130 s at 2048).  The B5 calls do not depend on the steps: 14
+# and 7, the step's
+DRYRUN_XL_SEQ = 512
 
 
 def emit(obj) -> None:
@@ -3083,6 +3124,25 @@ def train_state_bytes(cfg) -> int:
         accum_dtype(cfg).itemsize
 
 
+def padded_nonzero(table, trees) -> dict:
+    """Elements of the zero-padded slots of ``table``'s leaves
+    (``ParamDef.zero_pad``: the padded q heads' columns of wq and rows of
+    wo) that are not exactly zero (a NaN counts, -0 does not), by tree
+    name and path, in each of ``trees`` (name -> a tree of the table's
+    paths: the params, the moments)."""
+    from repro_torch.models.params import _flatten
+    out = {}
+    for name, tree in trees.items():
+        flat = _flatten(tree)
+        for path, d in table.defs.items():
+            if d.zero_pad is not None:
+                axis, real = d.zero_pad
+                x = flat[path]
+                out[f"{name}/{path}"] = int(torch.count_nonzero(
+                    x.narrow(axis, real, x.shape[axis] - real)))
+    return out
+
+
 def train_launches(cfg, steps):
     """What ``steps`` train steps of ``cfg`` must launch, each kernel and
     each variant.  Per microbatch each attention layer runs the flash
@@ -3212,7 +3272,11 @@ def phase_train(arch):
     step 1 held against its plain backward (shadow_backward); loss and
     grad norm finite every step; step 1's loss and grad norm against the
     same step on the plain versions (bf16, and f32 on the same values),
-    each gated within TRAIN_REL_TOL where the two plain runs agree on it.
+    each gated within TRAIN_REL_TOL where the two plain runs agree on it
+    (always for E2E_GATED's qk-norm models); a config with padded q
+    heads leaves their weights and moments exactly zero after every step
+    (``padded_nonzero``); for PEAK_GATED the peak after step 1 within
+    PEAK_RATIO of the dry run's prediction, and at most PEAK_MAX_GB.
     The state is ``train_state_bytes`` a param (``train_state_gb``):
     for starcoder2-3b 6.74 GB bf16 params + 26.96 GB f32 moments + 13.48
     GB f32 gradient sum + 6.74 GB bf16 microbatch grads = 53.9 GB, plus
@@ -3289,6 +3353,11 @@ def phase_train(arch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, walls, shadow, peaks = [], [], {}, []
+    # the zero-padded q heads' elements of wq, wo and both moments that
+    # are not exactly zero after each step (starcoder2-3b's 8 of 32,
+    # qwen3-14b's 8 of 48)
+    padded = any(d.zero_pad for d in model.table.defs.values())
+    pad_nz = []
 
     def run():
         nonlocal params, opt_state
@@ -3307,6 +3376,10 @@ def phase_train(arch):
             if tally is not None:
                 shadow.update(tally)
             metrics.append({k: float(v) for k, v in m.items()})
+            if padded:
+                pad_nz.append(padded_nonzero(model.table, {
+                    "params": params, "m": opt_state["m"],
+                    "v": opt_state["v"]}))
 
     _, launches = train_counted(run)
     # the steps' peak, and that of the steps after step 1 (None with one)
@@ -3316,6 +3389,22 @@ def phase_train(arch):
     for i, m in enumerate(metrics):
         if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
             raise AssertionError(f"{cfg.name} train step {i + 1}: {m}")
+    if any(sum(nz.values()) for nz in pad_nz):
+        raise AssertionError(f"{cfg.name} train: padded-head elements not "
+                             f"exactly zero after each step: {pad_nz}")
+    predicted = None
+    if lowered is not None:
+        mem = lowered[0]["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    if arch in PEAK_GATED:
+        lo, hi = PEAK_RATIO
+        if not (peak_after is not None and
+                lo <= peak_after / predicted <= hi and
+                peak <= PEAK_MAX_GB * 1e9):
+            raise AssertionError(
+                f"{cfg.name} train: peak after step 1 {peak_after} B, over "
+                f"all steps {peak} B, against the dry run's {predicted} B "
+                f"(within {PEAK_RATIO} of it, at most {PEAK_MAX_GB} GB)")
     if any(t["outside"] for t in shadow.values()) or \
             shadow["rglru_scan_bwd"]["not_bit_equal_chunked_ref"]:
         raise AssertionError(f"{cfg.name} train: backward calls outside "
@@ -3331,7 +3420,8 @@ def phase_train(arch):
                  "kernel_vs_plain_f32": rel(first[key], ref[key]),
                  "plain_vs_plain_f32": rel(plain["plain"][key], ref[key])}
            for key in ("loss", "grad_norm")}
-    gated = {k: v["plain_vs_plain_f32"] <= TRAIN_REL_TOL
+    gated = {k: arch in E2E_GATED or
+             v["plain_vs_plain_f32"] <= TRAIN_REL_TOL
              for k, v in e2e.items()}
     off = {k: v for k, v in e2e.items()
            if gated[k] and v["kernel_vs_plain_f32"] > TRAIN_REL_TOL}
@@ -3367,6 +3457,10 @@ def phase_train(arch):
           "peak_memory_gb": peak / 1e9,
           "peak_after_step1_gb": None if peak_after is None
           else peak_after / 1e9,
+          "predicted_peak_gb": None if predicted is None
+          else predicted / 1e9, "peak_gated": arch in PEAK_GATED,
+          "padded_nonzero_after_step": [sum(nz.values()) for nz in pad_nz]
+          if padded else None,
           "card_memory_gb": total / 1e9,
           "free_at_peak_gb": (total - peak) / 1e9, "step1_vs_plain": e2e,
           "plain_microbatches": spec.get("plain_microbatches",
@@ -3376,11 +3470,9 @@ def phase_train(arch):
     # one more step traced on the card (its batch in the dry run's int32
     # tokens) for DRYRUN_CARD, else its peak against the measured peak of
     # the steps after step 1, which run no backward checks; xlstm-350m's
-    # on meta alone at a cut depth
+    # on meta alone at a cut sequence
     if cfg.family == "ssm":
-        dry = dataclasses.replace(cfg, num_layers=DRYRUN_XL["layers"])
-        dryrun_cell(dry, dryrun.cell("train", DRYRUN_XL["seq_len"], batch),
-                    prof, share=cfg.num_layers // dry.num_layers)
+        dryrun_cell(cfg, dryrun.cell("train", DRYRUN_XL_SEQ, batch), prof)
     else:
         card = None
         if arch in DRYRUN_CARD:
@@ -3404,19 +3496,18 @@ def profiled_calls(line) -> dict:
 
 
 def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
-                share=1, lowered=None, measured_peak=None):
+                lowered=None, measured_peak=None):
     """The dryrun phase for one cell: ``dryrun.lower`` traces the step on
     ``meta`` at the cell's width.  ``card = (step, args)``: the same step
     traced once on the card by the same recorder, untimed; outside the
     kernel wrappers its op list (names, shapes, dtypes, in order) and its
     kernel entries (kernel, variant, shape, count, flops, bytes) must
     equal the meta trace's.  ``profile``: a ``profile_run`` line over one
-    step of the cell; each kernel's calls in the dry run times ``share``
-    (the trained layers over the dry run's) must equal the profiler's
-    launches of that kernel (PROFILED_CALL), and the profiler may launch
-    no LM kernel the dry run lacks.  Printed, not gated, with the card's
-    name and power limit: MODEL_FLOPS over (ms a step x 989 TFLOP/s),
-    ``mfu``; the roofline time over the measured; the dominant term; the
+    step of the cell; each kernel's calls in the dry run must equal the
+    profiler's launches of that kernel (PROFILED_CALL), and the profiler
+    may launch no LM kernel the dry run lacks.  Printed, not gated, with
+    the card's name and power limit: MODEL_FLOPS over (ms a step x 989
+    TFLOP/s), ``mfu``; the roofline time over the measured; the dominant term; the
     predicted peak (arguments and temps) against the card's
     ``max_memory_allocated`` over the traced step, or, with no ``card``,
     against ``measured_peak`` (the peak of the train steps after step 1,
@@ -3459,11 +3550,11 @@ def dryrun_cell(cfg, shape, profile, *, card=None, ms_per_step=None,
         name = key if key in PROFILED_CALL else key.split(".")[0]
         if name not in PROFILED_CALL:
             raise AssertionError(f"{key}: no device kernel counts its calls")
-        want[name] = want.get(name, 0) + n * share
+        want[name] = want.get(name, 0) + n
     line["profiled_calls"] = {key: n for key, n in got.items() if n}
     if line["profiled_calls"] != want:
         raise AssertionError(f"{cfg.name} {shape.name}: dry-run kernel calls "
-                             f"{want} (x{share}) against the profiler's "
+                             f"{want} against the profiler's "
                              f"{line['profiled_calls']}")
     if ms_per_step is not None:
         rl = roofline.analyze_cell(cfg.name, shape.name, record=record,
@@ -3522,7 +3613,8 @@ def phase_dryrun_decode(cfg, model, params):
 def remat_check_config(arch, policy):
     """``arch`` as the remat check runs it with ``policy``: its
     REMAT_CHECK depth, one microbatch, and "full" in the row's
-    ``remat_segments`` (0 if it names none), "none" in no segment."""
+    ``remat_segments`` (0 if it names none), "none" and "dots" in no
+    segment."""
     from repro_torch.configs.registry import get_config
     spec = REMAT_CHECK[arch]
     return dataclasses.replace(
@@ -3536,15 +3628,18 @@ def phase_remat_check():
     """One super-block of each recurrent family at full width
     (REMAT_CHECK), bf16, one microbatch of its training shape from the
     brick pipeline: step 1's gradients (``make_grads_fn``) with remat
-    "full" and with "none" on the same weights and batch; qwen3-32b's
-    4 layers with "full" in two-level remat (its ``remat_segments``)
-    against "none" in no segment.  Every kernel on these paths is
-    deterministic, so the gradients must be equal bit for bit; where they
-    are not, the largest difference relative to the largest gradient of
-    its leaf is reported and must stay within TRAIN_REL_TOL.  The
-    launches of each run are counted (train_launches): "full" runs every
-    forward kernel twice, three times under two-level remat but the last
-    layer's of each segment."""
+    "none", then with each of the row's policies ("full" unless it names
+    others) on the same weights and batch; qwen3-32b's 4 layers with
+    "full" in two-level remat (its ``remat_segments``) against "none" in
+    no segment; qwen3-14b's 2 layers with "full" and "dots".  Every
+    kernel on these paths is deterministic, so the gradients must be
+    equal bit for bit; where they are not, the leaves that differ are
+    named with the largest difference relative to the largest gradient
+    of the leaf, which must stay within TRAIN_REL_TOL.  The launches of
+    each run are counted (train_launches): "full" and "dots" run every
+    forward kernel twice (B3's forward is no product that "dots" keeps),
+    three times under two-level remat but the last layer's of each
+    segment."""
     from repro_torch.models import model_zoo
     from repro_torch.models.params import _flatten
     from repro_torch.train import steps as steps_lib
@@ -3555,10 +3650,10 @@ def phase_remat_check():
         gen.manual_seed(0)
         params = model_zoo.build_model(base).table.init(gen, DEVICE)
         data = train_pipeline(base, spec["batch"]).next_device_batch()
-        runs = {}
         row = {"layers": base.num_layers, "batch": [spec["batch"], TRAIN_SEQ],
                "full_remat_segments": spec.get("remat_segments", 0)}
-        for policy in ("full", "none"):
+        want = None
+        for policy in ("none",) + spec.get("policies", ("full",)):
             cfg = remat_check_config(arch, policy)
             grads_fn = steps_lib.make_grads_fn(cfg,
                                                model_zoo.build_model(cfg))
@@ -3573,22 +3668,26 @@ def phase_remat_check():
                            "loss": float(total), "launches": launches}
             check_launches(f"{arch} remat {policy}", launches,
                            train_launches(cfg, 1))
-            runs[policy] = _flatten(grads)
+            got = _flatten(grads)
             del grads
-        differ, worst = 0, 0.0
-        for path, g in runs["full"].items():
-            h = runs["none"][path]
-            if not torch.equal(g, h):
-                differ += 1
-                worst = max(worst, float((g.float() - h.float()).abs().max()
-                                         / h.float().abs().max()))
-        row.update(leaves=len(runs["full"]), leaves_not_bit_equal=differ,
-                   max_rel_diff=worst)
-        del runs, params
+            if want is None:
+                want = got
+                continue
+            differ, worst = {}, 0.0
+            for path, g in got.items():
+                h = want[path]
+                if not torch.equal(g, h):
+                    differ[path] = float((g.float() - h.float()).abs().max()
+                                         / h.float().abs().max())
+                    worst = max(worst, differ[path])
+            row[policy].update(leaves=len(got), leaves_not_bit_equal=differ,
+                               max_rel_diff=worst)
+            del got
+            if worst > TRAIN_REL_TOL or row[policy]["loss"] != \
+                    row["none"]["loss"]:
+                raise AssertionError(f"{arch} remat check {policy}: {row}")
+        del want, params
         release()
-        if worst > TRAIN_REL_TOL or row["full"]["loss"] != \
-                row["none"]["loss"]:
-            raise AssertionError(f"{arch} remat check: {row}")
         out[arch] = row
     emit({"phase": "remat_check", "rel_tol": TRAIN_REL_TOL, **out})
 
@@ -4009,9 +4108,10 @@ def main(argv=None) -> int:
         release()
         took(f"lm {arch}")
     # the training stack: starcoder2-3b whole, recurrentgemma-9b at 15
-    # layers, xlstm-350m whole, whisper-medium whole, pixtral-12b at 8
-    # layers, phi3.5-moe at 2, grok-1 at 1, qwen3-32b at 4, the remat
-    # check, then the trainer's restart and failure scenarios
+    # layers, xlstm-350m at 8, whisper-medium whole, pixtral-12b at 8
+    # layers, phi3.5-moe at 2, grok-1 at 1, qwen3-32b at 4, qwen3-14b at
+    # 8, chatglm3-6b at 18, the remat check, then the trainer's restart
+    # and failure scenarios
     train = {}
     for arch in TRAIN_ARCHS:
         train[arch] = phase_train(arch)
@@ -4089,6 +4189,17 @@ def main(argv=None) -> int:
                              logit_cap=grok_cfg.attn_logit_softcap,
                              q_gain=GROK_Q_GAIN)
     release()
+    # the same call at qwen3-14b's training microbatch (1, 2048^2, 48/8
+    # heads of 128: grok-1's shape) without the cap, q scaled as the
+    # capped row's: the two times differ only by the cap.  chatglm3-6b's
+    # backward shape (2, 2048^2, 32/2, 128) is starcoder2-3b's row (its
+    # 4096 window does not cut at 2048)
+    q14_cfg = train_config(LM_ARCH)
+    q14_shape = (TRAIN_ARCHS[LM_ARCH]["batch"] // q14_cfg.microbatches,
+                 TRAIN_SEQ, TRAIN_SEQ, q14_cfg.num_heads_padded,
+                 q14_cfg.num_kv_heads, q14_cfg.head_dim)
+    bwd_uncapped = time_flash_bwd(gen, *q14_shape, q_gain=GROK_Q_GAIN)
+    release()
     tr_forward = time_flash(gen, *tr_shape, window=tr_cfg.sliding_window)
     # the B4 and B5 backward kernels at their training microbatches
     xl_train_shape = (TRAIN_ARCHS[XL_ARCH]["batch"] //
@@ -4156,6 +4267,12 @@ def main(argv=None) -> int:
                          "score_mod, causal block mask, enable_gqa), CUDA "
                          "events",
               **with_share(bwd_cap)},
+          "flash_attention_bwd_uncapped": {
+              "shape": list(q14_shape), "logit_cap": None,
+              "launches_train": train[LM_ARCH]["flash_attention_bwd.wgmma"],
+              "library": "scaled_dot_product_attention backward "
+                         "(enable_gqa, is_causal), CUDA events",
+              **with_share(bwd_uncapped)},
           "flash_attention_train_forward": {
               "shape": list(tr_shape), "window": tr_cfg.sliding_window,
               "launches_train": train[TRAIN_ARCH]["flash_attention"],
@@ -4222,9 +4339,11 @@ def main(argv=None) -> int:
                for name, (src, replaces) in sources.items()]
     # the backward's variants, each with its own source, launches on the
     # train path (all on the tensor cores, counted by head dim: 64 for
-    # whisper-medium, 128 for starcoder2-3b, pixtral-12b and phi3.5-moe,
-    # 256 for recurrentgemma-9b) and timing at a training shape
-    # (starcoder2-3b's, recurrentgemma-9b's; the CUDA-core one on f32
+    # whisper-medium, 128 for starcoder2-3b, pixtral-12b, phi3.5-moe,
+    # qwen3-32b, qwen3-14b and chatglm3-6b, 256 for recurrentgemma-9b;
+    # grok-1's capped apart) and timing at a training shape
+    # (starcoder2-3b's, grok-1's with and without the cap,
+    # recurrentgemma-9b's; the CUDA-core one on f32
     # operands), the tensor-core instances with ptxas's registers and
     # spills; the launches of each trained model beside them
     bwd_src, bwd_replaces = sources["flash_attention_bwd"]
@@ -4258,6 +4377,11 @@ def main(argv=None) -> int:
                  "logit_cap": grok_cfg.attn_logit_softcap,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          bwd_cap, tc_capped)},
+                {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 128,
+                 "logit_cap": None, "shape": list(q14_shape),
+                 **entry("flash_attention_bwd", tc_src, bwd_replaces,
+                         bwd_uncapped,
+                         train[LM_ARCH]["flash_attention_bwd.wgmma"])},
                 {"variant": "wgmma", "dtype": "bfloat16", "head_dim": 256,
                  **entry("flash_attention_bwd", tc_src, bwd_replaces,
                          bwd_256, tc_by_dim.get(256, 0)),

@@ -233,6 +233,10 @@ def test_train_launch_counts():
     # 4 layers in 2 remat segments: 3 x 4 - 2 = 10 forwards a microbatch,
     # x 8 microbatches x 2 steps
     ("qwen3-32b", {"flash_attention": 160, "flash_attention_bwd": 64}),
+    # 8 layers x 8 microbatches x 2 steps, the forward twice (remat)
+    ("qwen3-14b", {"flash_attention": 256, "flash_attention_bwd": 128}),
+    # 18 layers x 4 microbatches x 2 steps
+    ("chatglm3-6b", {"flash_attention": 288, "flash_attention_bwd": 144}),
 ])
 def test_new_family_train_launch_counts(arch, want):
     """The moe, vlm and audio families' train phase: depth, batch, tokens
@@ -266,7 +270,23 @@ def test_new_family_train_launch_counts(arch, want):
     assert (mb, seq, cfg.num_layers, cfg.remat_segments) == \
         {"whisper-medium": (4, 448, 24, 0), "pixtral-12b": (1, 2048, 8, 0),
          "phi3.5-moe-42b-a6.6b": (1, 2048, 2, 0),
-         "grok-1-314b": (1, 2048, 1, 0), "qwen3-32b": (1, 2048, 4, 2)}[arch]
+         "grok-1-314b": (1, 2048, 1, 0), "qwen3-32b": (1, 2048, 4, 2),
+         "qwen3-14b": (1, 2048, 8, 0), "chatglm3-6b": (2, 2048, 18, 0)}[arch]
+    # the backward's plans: qwen3-14b's 48/8 heads as grok-1's capped
+    # shape (2 runs of 3 heads), chatglm3-6b's 32/2 as starcoder2-3b's
+    # (4 runs of 4 heads)
+    if arch == "qwen3-14b":
+        assert fa_bwd.plan(mb, seq, seq, h, kh, d, torch.bfloat16) == \
+            fa_bwd.Plan("wgmma", 2) == fa_bwd.plan(
+                *next(c[1:8] for c in chip_smoke.BWD_CASES
+                      if c[0] == "grok-1 train"))
+    if arch == "chatglm3-6b":
+        tr = get_config(chip_smoke.TRAIN_ARCH)
+        assert fa_bwd.plan(mb, seq, seq, h, kh, d, torch.bfloat16) == \
+            fa_bwd.Plan("wgmma", 4) == fa_bwd.plan(
+                2, seq, seq, tr.num_heads_padded, tr.num_kv_heads,
+                tr.head_dim, torch.bfloat16)
+        assert tr.sliding_window >= seq and cfg.rope_style == "half"
     if arch == "grok-1-314b":
         assert fa_bwd.plan(mb, seq, seq, h, kh, d, torch.bfloat16) == \
             fa_bwd.plan(*next(c[1:8] for c in chip_smoke.BWD_CASES
@@ -276,7 +296,8 @@ def test_new_family_train_launch_counts(arch, want):
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "pixtral-12b",
                                   "phi3.5-moe-42b-a6.6b", "starcoder2-3b",
-                                  "grok-1-314b", "qwen3-32b"])
+                                  "grok-1-314b", "qwen3-32b", "qwen3-14b",
+                                  "chatglm3-6b"])
 def test_train_launches_equal_the_reduced_models_calls(monkeypatch, arch):
     """``train_launches`` against the attention calls one step of the
     reduced model makes on the CPU (two microbatches of 2 x 128 tokens,
@@ -369,13 +390,13 @@ def test_backward_bound_at_recurrentgemma_training_shape():
                            "rglru_scan": 480, "rglru_scan_bwd": 240,
                            "mlstm": 0, "mlstm_bwd": 0,
                            "mlstm_bwd.wgmma": 0, "mlstm_bwd.simt": 0}),
-    # 3 x 7 mLSTM layers x 1 microbatch x 1 step, remat "full" of each
-    # super-block: 42 forwards, 21 backwards, all on the tensor cores
-    # (bf16 at head dim 512)
+    # one super-block's 7 mLSTM layers x 1 microbatch x 1 step, remat
+    # "full" of the super-block: 14 forwards, 7 backwards, all on the
+    # tensor cores (bf16 at head dim 512)
     ("xlstm-350m", {"flash_attention": 0, "flash_attention_bwd": 0,
-                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 42,
-                    "mlstm.wgmma": 42, "mlstm_bwd": 21,
-                    "mlstm_bwd.wgmma": 21, "mlstm_bwd.simt": 0}),
+                    "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm": 14,
+                    "mlstm.wgmma": 14, "mlstm_bwd": 7,
+                    "mlstm_bwd.wgmma": 7, "mlstm_bwd.simt": 0}),
 ])
 def test_recurrent_train_launch_counts(arch, want):
     """The recurrent models' train phase: depth, batch and steps as cut in
@@ -402,7 +423,7 @@ def test_recurrent_train_launch_counts(arch, want):
     else:
         from repro_torch.kernels.mlstm_scan import backward as ml_backward
         from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
-        assert (cfg.num_layers, mb) == (24, 2)
+        assert (cfg.num_layers, mb) == (8, 2)
         assert ml_kernel.plan(mb, seq, 4, 512,
                               torch.bfloat16).variant == "wgmma"
         assert ml_backward.plan(mb, seq, 4, 512, torch.bfloat16) == "wgmma"
@@ -430,15 +451,21 @@ def test_scan_backward_bounds():
     ("xlstm-350m", {"mlstm": 14}, {"mlstm": 7}),
     # the train cell's 4 layers, "full" in 2 segments: 3 x 4 - 2
     ("qwen3-32b", {"flash_attention": 10}, {"flash_attention": 4}),
+    # 2 layers, "full" and "dots" each: B3's forward is no product "dots"
+    # keeps, so it is recomputed
+    ("qwen3-14b", {"flash_attention": 4}, {"flash_attention": 2}),
 ])
 def test_remat_check_launch_counts(arch, full, none):
     """The remat check's step 1 on one super-block (qwen3-32b: its train
-    cell's layers) and one microbatch: "full" runs each forward kernel
-    twice (three times in two-level remat but the last layer's of each
-    segment), "none" once; the backwards once either way.  The hybrid
-    unit has no tail."""
+    cell's layers; qwen3-14b: 2 layers) and one microbatch: "full" and
+    "dots" run each forward kernel twice (three times in two-level remat
+    but the last layer's of each segment), "none" once; the backwards
+    once either way.  The hybrid unit has no tail."""
     spec = chip_smoke.REMAT_CHECK[arch]
-    for policy, want in (("full", full), ("none", none)):
+    policies = spec.get("policies", ("full",))
+    assert policies == (("full", "dots") if arch == "qwen3-14b"
+                        else ("full",))
+    for policy, want in [(p, full) for p in policies] + [("none", none)]:
         cfg = chip_smoke.remat_check_config(arch, policy)
         assert (cfg.num_layers, cfg.microbatches) == (spec["layers"], 1)
         assert cfg.remat_segments == (spec.get("remat_segments", 0)
@@ -532,6 +559,9 @@ def test_fill_ring_gives_the_token_by_token_cache(arch, fill, w):
     # one microbatch sums into f32 whatever grad_accum_dtype says
     ("grok-1-314b", 1, 12),
     ("xlstm-350m", None, 16),
+    # the last two dense cells: f32 moments and sum
+    ("qwen3-14b", None, 16),
+    ("chatglm3-6b", None, 16),
 ])
 def test_train_state_bytes_follow_the_config(arch, microbatches, want):
     """The train phase's reckoning of its state (``train_state_gb``):
