@@ -94,7 +94,7 @@ Phases, each printing one JSON line:
    Launch counts are zeroed just before each path (the serve run, each
    lockstep step) and read just after it, so every path has its own.
    One more run of the workload under torch.profiler gives the device
-   time by kernel and the card's busy share;
+   time by kernel and the card's summed kernel time;
    autotune — the same workload through QueryService on spmd with the
    kernel and autotune=True: each shape class of its windows sweeps the
    kernel's block sizes on a sample chunk (one warm-up and tune.REPEATS
@@ -164,7 +164,7 @@ Phases, each printing one JSON line:
    within LM_REL_TOL, and the top-1 agreement at or above LM_TOP1_MIN.
    The peak memory of the served path and of the phase is printed.  One
    more generate() under torch.profiler gives the device time by kernel
-   and the busy share;
+   and their sum;
    brick   — qwen3-14b on the same weights decoding through the
    grid-brick KV cache (core/brick_attention.py): a cache of 8192 slots
    on a (1, 4) ("data", "model") mesh emulated on the card, so its 4
@@ -270,7 +270,7 @@ Phases, each printing one JSON line:
    TRAIN_REL_TOL on its own where the two plain runs agree on it
    (E2E_IF_STABLE's rule), always for qwen3-14b and qwen3-32b
    (E2E_GATED); ms a step, tokens/s, the peak memory
-   (reckoned in phase_train) and, for one more step, the busy share
+   (reckoned in phase_train) and, for one more step, the device time
    under torch.profiler, with each family's kernels listed by name
    (TRAIN_BREAKDOWN);
    remat_check — one super-block of each recurrent family at full width
@@ -1862,7 +1862,6 @@ def profile_run(phase, run, breakdown=(), host_ops=True, **extra):
     extra["analysis_s"] = time.perf_counter() - t0
     busy_s = sum(us for us, _, _ in rows) / 1e6
     line = {"phase": phase, **extra, "wall_s": wall, "device_busy_s": busy_s,
-            "device_busy_share": busy_s / wall,
             "device_launches": sum(n for _, _, n in rows),
             "top": [{"name": key[:80], "device_ms": us / 1e3, "count": n}
                     for us, key, n in rows[:12]],
@@ -3806,8 +3805,7 @@ def phase_brick(cfg, model, params):
         prof = profile_run(
             "brick_profile", lambda: model.decode_step(
                 params, c, toks[:, -1:], shd), mesh=name)
-        row[name].update(device_launches_per_step=prof["device_launches"],
-                         device_busy_share=prof["device_busy_share"])
+        row[name].update(device_launches_per_step=prof["device_launches"])
     emit({"phase": "brick", "arch": cfg.name, "layers": cfg.num_layers,
           "batch": LM_BATCH, "cache_slots": BRICK_CACHE,
           "bricks": n_bricks, "fill_tokens": BRICK_FILL, "fill_s": fill_s,

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.catalog import MetadataCatalog
 from repro_torch.core.packets import AdaptivePacketScheduler
 from repro_torch.core.replication import failover_owner, place_replicas
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -144,7 +145,16 @@ class BrickDataPipeline:
 
     def next_device_batch(self) -> dict:
         """The next batch as int64 tokens (and labels, the same tensor) on
-        the pipeline's device."""
-        tokens = torch.from_numpy(self.next_batch()).to(
-            device=self.device, dtype=torch.int64)
+        the pipeline's device; while ``torch.profiler`` records, a
+        ``data.fetch`` span of the step tracer (``obs/trace.py``) around
+        ``data.read`` (the packets read on the host) and ``data.copy``."""
+        with trace.step_root("data.fetch", self.device,
+                             rows=self.global_batch) as span:
+            with trace.step_span("data.read"):
+                batch = self.next_batch()
+            with trace.step_span("data.copy"):
+                tokens = torch.from_numpy(batch).to(device=self.device,
+                                                    dtype=torch.int64)
+            if span is not None:
+                span.attrs["bytes"] = batch.nbytes
         return {"tokens": tokens, "labels": tokens}

@@ -12,7 +12,10 @@ remat: ``remat_policy`` ``"full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
 products without batch dims and recomputes the rest, and
 ``remat_segments`` G > 1 checkpoints G segments of L / G layers around
-them; serving (grad mode off) runs the plain loop.  Every attention call goes through
+them; serving (grad mode off) runs the plain loop.  In a step traced by
+the step tracer (``obs/trace.py``) each recompute of a checkpointed layer
+or segment is a ``train.recompute`` span and the unembedding a
+``model.unembed`` span.  Every attention call goes through
 ``kernels/flash_attention/ops.py``: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain version.  A config
 with experts runs ``models/moe.py`` in place of the MLP (forward returns
@@ -30,6 +33,7 @@ Param paths (all stacked with leading L), as the reference:
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Optional
 
 import torch
@@ -41,6 +45,7 @@ from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.model_zoo import LanguageModel
 from repro_torch.models.params import ParamTable, torch_dtype
+from repro_torch.obs import trace
 
 
 # --------------------------------------------------------------------------- #
@@ -212,15 +217,25 @@ def _dots_policy():
 def _remat(cfg, fn):
     """``fn`` under ``cfg.remat_policy``: ``"none"`` as it is, ``"dots"``
     checkpointed keeping the products without batch dims, ``"full"``
-    checkpointed whole (its activations recomputed in the backward)."""
+    checkpointed whole (its activations recomputed in the backward).  In
+    a traced step each call's recompute is a ``train.recompute`` span
+    whose ``layer`` is the call's place among the calls of the returned
+    function (a layer's or super-block's index in a forward that runs
+    each once, in order)."""
     if cfg.remat_policy == "none":
         return fn
     if cfg.remat_policy == "dots":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
-                                 context_fn=_dots_policy)
-    if cfg.remat_policy != "full":
+        remat = functools.partial(ckpt.checkpoint, use_reentrant=False,
+                                  context_fn=_dots_policy)
+    elif cfg.remat_policy == "full":
+        remat = functools.partial(ckpt.checkpoint, use_reentrant=False)
+    else:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if trace.step_tracer() is None:
+        return functools.partial(remat, fn)
+    calls = itertools.count()
+    return lambda *args: remat(trace.recomputed(fn, layer=next(calls)),
+                               *args)
 
 
 def run_layers(cfg, layers: dict, x, positions):
@@ -257,8 +272,8 @@ def run_layers(cfg, layers: dict, x, positions):
     k = n // g
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(g):
-        x, aux_s = ckpt.checkpoint(run, s * k, (s + 1) * k, x,
-                                   use_reentrant=False)
+        x, aux_s = ckpt.checkpoint(trace.recomputed(run, segment=s), s * k,
+                                   (s + 1) * k, x, use_reentrant=False)
         aux = aux + aux_s
     return x, aux
 
@@ -279,9 +294,14 @@ def embed_tokens(cfg, params, tokens, patch_embeds=None):
 
 
 def unembed(cfg, params, x):
+    """x (B, S, d) -> logits (B, S, Vp); in a traced step a
+    ``model.unembed`` span with the ``positions`` it unembeds and, as the
+    step marks them, the ``served`` ones whose logits it uses."""
     table = (params["embed"]["table"].T if cfg.tie_embeddings
              else params["out"]["head"])
-    return torch.einsum("bsd,dv->bsv", x, table)
+    n = x.shape[0] * x.shape[1]
+    with trace.step_span("model.unembed", positions=n, served=n):
+        return torch.einsum("bsd,dv->bsv", x, table)
 
 
 def forward(cfg, params, tokens, patch_embeds=None):

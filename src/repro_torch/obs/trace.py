@@ -13,7 +13,7 @@ whole stack reports into:
   ``attrs``.
 * A :class:`Tracer` is the per-process collector.  Callers pass virtual
   timestamps explicitly (every layer has its own notion of virtual time);
-  wall stamps are taken automatically from ``time.perf_counter``.  A
+  wall stamps are taken automatically (:func:`wall_s`).  A
   parent *stack* (:meth:`Tracer.push`/:meth:`Tracer.pop`) lets an outer
   layer (the front-end's dispatch span) become the implicit parent of
   spans opened deeper in the stack (the engine's per-packet scans) without
@@ -27,9 +27,25 @@ whole stack reports into:
 Determinism contract: with a fixed seed and the simulated backend, every
 field except the ``*_wall`` stamps is identical run to run
 (:func:`comparable_records` strips the wall fields for such comparisons).
+
+Wall stamps are seconds since the Unix epoch (:func:`wall_s`), the clock
+``torch.profiler`` stamps its events with, so spans lie on the axis of a
+profiler's trace of the same process.
+
+The LM paths (``train/steps.py``, ``optim/adamw.py``, ``data/pipeline.py``,
+``models/transformer.py``) report into one process-wide *step tracer*,
+and only while a ``torch.profiler`` records: each root span
+(:func:`step_root`: a train step, a prompt, a batch) asks the profiler's
+state once at its entry; with it off no tracer is made and every site
+inside costs one ``is None`` test.  With it on, each span of the step
+also records a pair of CUDA timing events on the current stream (on a
+CUDA device), pooled; the next root reads those the device has passed
+(``Event.query``), and :meth:`Tracer.drain`, called after the caller's
+own synchronize, the rest: the tracer never synchronizes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -37,12 +53,17 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 SCHEMA_VERSION = 1
 
-# span taxonomy used by the instrumented layers (docs/observability.md)
+# span taxonomy used by the instrumented layers: the query service and
+# fleet's (docs/observability.md), then the LM steps' (the step tracer)
 SPAN_NAMES = (
-    "submit", "admit", "cache_probe", "window", "plan", "dispatch",
+    "submit", "window", "plan", "dispatch",
     "packet", "merge_prefix", "stream_partial", "stream", "final",
     "node_death", "policy_transition", "speculate", "rereplicate",
     "lease_adopt", "lease_fallback",
+    "train.step", "train.microbatch", "train.recompute", "train.grad_sum",
+    "train.optimizer", "optim.norm", "optim.update",
+    "data.fetch", "data.read", "data.copy",
+    "prefill.step", "model.unembed",
 )
 
 STATUS_OPEN, STATUS_OK, STATUS_ERROR = "open", "ok", "error"
@@ -68,6 +89,13 @@ _SCHEMA: Dict[str, Tuple[type, ...]] = {
 WALL_FIELDS = ("t0_wall", "t1_wall")
 
 
+def wall_s() -> float:
+    """The wall clock of every span: seconds since the Unix epoch, from
+    ``time.time_ns``, the clock ``torch.profiler`` stamps its events with
+    (``start_ns()``), and converted as a reader of those converts them."""
+    return time.time_ns() * 1e-9
+
+
 @dataclasses.dataclass
 class Span:
     """One traced phase: a node in the per-ticket span tree.
@@ -89,6 +117,9 @@ class Span:
     t1_wall: Optional[float] = None
     status: str = STATUS_OPEN
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: a step span's CUDA timing events (start, end), until they are read
+    events: Optional[list] = dataclasses.field(default=None, repr=False,
+                                               compare=False)
 
     def to_record(self) -> Dict[str, Any]:
         """The span as a schema-versioned JSONL record (plain dict)."""
@@ -128,12 +159,15 @@ class Tracer:
         self.virtual_base = 0.0
         self._next_id = 0
         self._stack: List[Span] = []
-        self._wall0 = time.perf_counter()
+        #: step spans: roots opened so far by name (their tickets), whether
+        #: the open root's spans take CUDA timing events, the closed spans
+        #: whose events are not read yet, and the free events
+        self._roots: Dict[str, int] = {}
+        self._timed = False
+        self._pending: List[Span] = []
+        self._pool: list = []
 
     # ------------------------------------------------------------------ #
-    def _wall(self) -> float:
-        return time.perf_counter() - self._wall0
-
     def begin(self, name: str, *, t_virtual: float = 0.0,
               ticket: Optional[Any] = None,
               parent: Optional[Span] = None, **attrs) -> Span:
@@ -142,7 +176,7 @@ class Tracer:
         if parent is None and self._stack:
             parent = self._stack[-1]
         span = Span(span_id=self._next_id, name=name, process=self.process,
-                    t0_virtual=float(t_virtual), t0_wall=self._wall(),
+                    t0_virtual=float(t_virtual), t0_wall=wall_s(),
                     parent_id=None if parent is None else parent.span_id,
                     ticket=ticket, attrs=dict(attrs))
         self._next_id += 1
@@ -158,7 +192,7 @@ class Tracer:
             return
         span.t1_virtual = (span.t0_virtual if t_virtual is None
                            else float(t_virtual))
-        span.t1_wall = self._wall()
+        span.t1_wall = wall_s()
         span.status = status
         if note is not None:
             span.attrs["note"] = note
@@ -188,6 +222,86 @@ class Tracer:
         """Spans never closed — must be empty after a clean drain."""
         return [s for s in self.spans if s.status == STATUS_OPEN]
 
+    # ------------------------------ step spans ------------------------ #
+    def _event(self):
+        import torch
+        ev = self._pool.pop() if self._pool else \
+            torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def open_step(self, name: str, *, root_of=None, **attrs) -> Span:
+        """Open a step span, a child of the innermost open one, and push
+        it; ``root_of`` (a ``torch.device``) opens a root instead, whose
+        ticket is its index among the roots of its name, and whose spans
+        take CUDA timing events where the device is CUDA (first reading
+        those of the closed spans the device has passed)."""
+        if root_of is not None and not self._stack:
+            self._resolve()
+            ticket = self._roots.get(name, 0)
+            self._roots[name] = ticket + 1
+            self._timed = root_of.type == "cuda"
+        else:
+            ticket = self._stack[-1].ticket
+        span = self.begin(name, ticket=ticket, **attrs)
+        if self._timed:
+            span.events = [self._event(), None]
+        self._stack.append(span)
+        return span
+
+    def close_step(self, span: Span, status: str = STATUS_OK):
+        """Close the innermost open step span, ``span``."""
+        if span.events is not None:
+            span.events[1] = self._event()
+            self._pending.append(span)
+        self._stack.pop()
+        self.end(span, status=status)
+
+    def _resolve(self, wait: bool = False):
+        """Read the device ms of each closed span whose end event the
+        device has passed (``query``, which does not wait; with ``wait``
+        every one, which must have been passed: after the caller's
+        synchronize) into its ``attrs``, and pool its events."""
+        keep = []
+        for span in self._pending:
+            start, end = span.events
+            if wait or end.query():
+                span.attrs["device_ms"] = start.elapsed_time(end)
+                self._pool += span.events
+                span.events = None
+            else:
+                keep.append(span)
+        self._pending = keep
+
+    def device_ms(self, span: Span) -> float:
+        """Milliseconds on the device between the span's two timing
+        events (once read: see ``_resolve``), else, with no events (a CPU
+        step), its host duration."""
+        if "device_ms" in span.attrs:
+            return span.attrs["device_ms"]
+        if span.events is not None:
+            return span.events[0].elapsed_time(span.events[1])
+        return (span.t1_wall - span.t0_wall) * 1e3
+
+    def last(self, name: str) -> Optional[Span]:
+        """The latest span named ``name``, or None."""
+        return next((s for s in reversed(self.spans) if s.name == name),
+                    None)
+
+    def drain(self) -> List[Dict[str, Any]]:
+        """Every span's record, each with its ``device_ms`` in ``attrs``,
+        and forget them.  Call it with no step open, after the device has
+        run the steps (a synchronize)."""
+        if self._stack:
+            raise RuntimeError(f"drain inside an open {self._stack[-1].name}")
+        self._resolve(wait=True)
+        out = []
+        for span in self.spans:
+            span.attrs["device_ms"] = self.device_ms(span)
+            out.append(span.to_record())
+        self.spans = []
+        return out
+
     # ------------------------------- export --------------------------- #
     def records(self) -> List[Dict[str, Any]]:
         """Every span as a schema-versioned record, in open order."""
@@ -205,6 +319,83 @@ class Tracer:
         """Write this tracer's records as a Chrome-trace file."""
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f)
+
+
+# ------------------------------ the step tracer --------------------------- #
+#: the process-wide tracer of the LM steps, made by the first root span
+#: opened while torch.profiler records (``step_root``)
+_STEP: Optional[Tracer] = None
+_OFF = contextlib.nullcontext()
+
+
+def step_tracer() -> Optional[Tracer]:
+    """The step tracer while a root span it traces is open, else None."""
+    return _STEP if _STEP is not None and _STEP._stack else None
+
+
+@contextlib.contextmanager
+def _step_span(tracer: Tracer, name: str, root_of=None, **attrs):
+    span = tracer.open_step(name, root_of=root_of, **attrs)
+    status = STATUS_ERROR
+    try:
+        yield span
+        status = STATUS_OK
+    finally:
+        tracer.close_step(span, status)
+
+
+def step_root(name: str, device, **attrs):
+    """A context manager around one step, prompt or batch on ``device``:
+    while ``torch.profiler`` records, a root span of the step tracer
+    (yielded; a child where a root is open already), else nothing
+    (yields None)."""
+    global _STEP
+    if _STEP is not None and _STEP._stack:
+        return _step_span(_STEP, name, **attrs)
+    import torch
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    if _STEP is None:
+        _STEP = Tracer(process="step")
+    return _step_span(_STEP, name, root_of=torch.device(device), **attrs)
+
+
+def step_span(name: str, **attrs):
+    """A context manager: a span of the step being traced (yielded), or
+    nothing where none is (yields None)."""
+    tracer = step_tracer()
+    return _OFF if tracer is None else _step_span(tracer, name, **attrs)
+
+
+def recomputed(fn, **attrs):
+    """``fn`` for ``torch.utils.checkpoint``: as it is where no step is
+    traced; else its first call (the forward) as it is, and each later
+    one (the checkpoint's recompute in the backward, on whichever thread
+    runs it) inside a ``train.recompute`` span, also when the checkpoint
+    stops it early."""
+    tracer = step_tracer()
+    if tracer is None:
+        return fn
+    calls = 0
+
+    def run(*args):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or not tracer._stack:
+            return fn(*args)
+        span = tracer.open_step("train.recompute", **attrs)
+        try:
+            return fn(*args)
+        finally:
+            tracer.close_step(span)
+
+    return run
+
+
+def drain_steps() -> List[Dict[str, Any]]:
+    """The step tracer's records so far (:meth:`Tracer.drain`), [] where
+    no step was traced."""
+    return [] if _STEP is None else _STEP.drain()
 
 
 # ---------------------------- record helpers ----------------------------- #

@@ -13,6 +13,8 @@ still takes the reference's operations in the reference's order, so a
 slice gives the same bits as the whole leaf; bf16 moments are read into
 f32 and rounded back once, as the reference's ``m_new.astype(m.dtype)``.
 The grad norm's squares are summed in f64 (``global_norm``, C-ref13).
+A traced step (``obs/trace.py``) sees the update as a ``train.optimizer``
+span around ``optim.norm`` and ``optim.update``.
 ``abstract_opt_state`` and ``opt_specs`` give the state's shapes and
 partition specs without storage, leaf for leaf those of the parameters
 (``ParamTable.abstract_sharded``).
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import torch_dtype
+from repro_torch.obs import trace
 
 #: elements of one slice of the update and of the norm's squares
 SLICE_ELEMENTS = 1 << 26
@@ -178,23 +181,33 @@ def adamw_update(params, grads, state, lr, opt: AdamW):
     metrics)``, the reference's signature (the reference returns new
     trees).  ``lr`` is a float or a 0-dim tensor; ``metrics`` holds the
     grad norm before clipping, as a 0-dim f32 tensor."""
-    count = state["count"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    cf = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(opt.b1, dtype=torch.float32,
-                                      device=cf.device), cf)
-    c2 = 1.0 - torch.pow(torch.tensor(opt.b2, dtype=torch.float32,
-                                      device=cf.device), cf)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
-    flat = zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
-               _leaves(state["v"]), strict=True)
-    for leaf in flat:
-        if len({x.numel() for x in leaf}) != 1:
-            raise ValueError("a parameter, its gradient and its moments "
-                             f"differ in size: {[x.shape for x in leaf]}")
-        for p, g, m, v in zip(*map(_flat_slices, leaf)):
-            _update_slice(p, g, m, v, clip=clip, c1=c1, c2=c2, lr=lr,
-                          opt=opt)
-    state["count"].copy_(count)
+    with trace.step_span("train.optimizer") as span:
+        count = state["count"] + 1
+        with trace.step_span("optim.norm"):
+            gnorm = global_norm(grads)
+        clip = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9),
+                           max=1.0)
+        cf = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(torch.tensor(opt.b1, dtype=torch.float32,
+                                          device=cf.device), cf)
+        c2 = 1.0 - torch.pow(torch.tensor(opt.b2, dtype=torch.float32,
+                                          device=cf.device), cf)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
+        flat = zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
+                   _leaves(state["v"]), strict=True)
+        slices = elements = 0
+        with trace.step_span("optim.update"):
+            for leaf in flat:
+                if len({x.numel() for x in leaf}) != 1:
+                    raise ValueError(
+                        "a parameter, its gradient and its moments differ "
+                        f"in size: {[x.shape for x in leaf]}")
+                for p, g, m, v in zip(*map(_flat_slices, leaf)):
+                    _update_slice(p, g, m, v, clip=clip, c1=c1, c2=c2,
+                                  lr=lr, opt=opt)
+                    slices += 1
+                elements += leaf[0].numel()
+        state["count"].copy_(count)
+        if span is not None:
+            span.attrs.update(slices=slices, elements=elements)
     return params, state, {"grad_norm": gnorm}

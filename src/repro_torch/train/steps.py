@@ -19,6 +19,12 @@ mesh for which ``brick_active`` holds, the step attends through the
 grid-brick cache.  Without a mesh the step gets no Sharder: the one-card
 path.  The train and prefill factories take no mesh: a Sharder changes
 no computation of the forward on the port's meshes.
+
+While ``torch.profiler`` records, a train step is a ``train.step`` span
+of the step tracer (``obs/trace.py``) whose children are each
+microbatch's forward and backward (``train.microbatch``), the f32 sum's
+fill, adds and divide (``train.grad_sum``) and AdamW
+(``train.optimizer``); a prefill is a ``prefill.step`` span.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.params import _flatten, torch_dtype
+from repro_torch.obs import trace
 from repro_torch.optim.adamw import AdamW, adamw_update
 from repro_torch.parallel.sharding import Sharder
 
@@ -51,9 +58,19 @@ def cross_entropy(logits, labels, vocab_size: int):
     return torch.mean(lse - gold)
 
 
+def _served(positions: int):
+    """Mark the traced step's latest unembedding with the positions whose
+    logits the step uses."""
+    tracer = trace.step_tracer()
+    span = None if tracer is None else tracer.last("model.unembed")
+    if span is not None:
+        span.attrs["served"] = positions
+
+
 def make_loss_fn(cfg, model):
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch)
+        _served(logits.shape[0] * (logits.shape[1] - 1))
         # next-token prediction: positions 0..S-2 predict labels 1..S-1
         loss = cross_entropy(logits[:, :-1, :], batch["labels"][:, 1:],
                              cfg.vocab_size)
@@ -118,20 +135,24 @@ def make_grads_fn(cfg, model):
         if rows % m:
             raise ValueError(f"a batch of {rows} rows does not split into "
                              f"{m} microbatches")
-        g_sum = {path: torch.zeros(t.shape, dtype=acc_dt, device=t.device)
-                 for path, t in _flatten(params).items()}
+        with trace.step_span("train.grad_sum", phase="fill"):
+            g_sum = {path: torch.zeros(t.shape, dtype=acc_dt,
+                                       device=t.device)
+                     for path, t in _flatten(params).items()}
         total = None
         m_sum = None
         per = rows // m
         for i in range(m):
             mb = {key: x[i * per:(i + 1) * per] for key, x in batch.items()}
-            with torch.enable_grad():
+            with trace.step_span("train.microbatch", i=i), \
+                    torch.enable_grad():
                 tree, leaves = _trainable(cfg, params)
                 tot, met = loss_fn(tree, mb)
                 grads = torch.autograd.grad(tot, [x for _, _, x in leaves],
                                             allow_unused=True)
             del tree
-            with torch.no_grad():
+            with torch.no_grad(), trace.step_span("train.grad_sum",
+                                                  phase="add", i=i):
                 for (path, j, _), g in zip(leaves, grads):
                     if g is not None:   # an unused leaf adds zeros
                         acc = g_sum[path] if j is None else g_sum[path][j]
@@ -150,8 +171,9 @@ def make_grads_fn(cfg, model):
             m_sum = met if m_sum is None else \
                 {key: m_sum[key] + met[key] for key in m_sum}
         if m > 1:
-            for g in g_sum.values():
-                g.div_(m)
+            with trace.step_span("train.grad_sum", phase="divide"):
+                for g in g_sum.values():
+                    g.div_(m)
             total = total / m
             m_sum = {key: val / m for key, val in m_sum.items()}
         return _unflatten(g_sum), total, m_sum
@@ -173,10 +195,13 @@ def make_train_step(cfg, model, opt: Optional[AdamW] = None,
     grads_fn = make_grads_fn(cfg, model)
 
     def train_step(params, opt_state, batch):
-        grads, total, metrics = grads_fn(params, batch)
-        params, opt_state, opt_metrics = adamw_update(
-            params, grads, opt_state, lr, opt)
-        del grads
+        tokens = batch["tokens"]
+        with trace.step_root("train.step", tokens.device,
+                             tokens=tokens.numel()):
+            grads, total, metrics = grads_fn(params, batch)
+            params, opt_state, opt_metrics = adamw_update(
+                params, grads, opt_state, lr, opt)
+            del grads
         return params, opt_state, dict(metrics, **opt_metrics,
                                        total_loss=total)
 
@@ -186,7 +211,11 @@ def make_train_step(cfg, model, opt: Optional[AdamW] = None,
 def make_prefill_step(cfg, model):
     """serve prefill: full-sequence forward -> last-position logits."""
     def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch)
+        tokens = batch["tokens"]
+        with trace.step_root("prefill.step", tokens.device,
+                             tokens=tokens.numel()):
+            logits, _ = model.forward(params, batch)
+            _served(logits.shape[0])
         return logits[:, -1, :]
 
     return prefill_step
