@@ -6,10 +6,10 @@
 Phases, each printing one JSON line:
 
 1. device  — torch's device name, nvidia-smi's name and power limit;
-2. build   — nvcc builds the six CUDA sources, one nvcc each, started
+2. build   — nvcc builds the seven CUDA sources, one nvcc each, started
    together; ptxas's registers and spills for every kernel instance (an
-   instance of flash_attention, mlstm, rglru_scan or a backward that
-   spills fails the run);
+   instance of flash_attention, mlstm, rglru_scan, adamw or a backward
+   that spills fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card.
    event_filter at the query path's chunk shape (64, 4096, 63) with S = 64
    and a ragged (37, 1000, 63), K in {1, 4, 17}, calib_iters in {0, 4},
@@ -257,7 +257,8 @@ Phases, each printing one JSON line:
    16 x 2 x 2 = 64 and 32, qwen3-32b's (3 x 4 - 2) x 8 x 2 = 160 (two-level
    remat: train_launches) and 64, qwen3-14b's 8 x 8 x 2 x 2 = 256 and
    128, chatglm3-6b's 18 x 4 x 2 x 2 = 288 and 144, all on the tensor
-   cores.  Every
+   cores; AdamW's passes (kernels/adamw) two a non-empty leaf and one
+   final sum a step.  Every
    backward call of step 1
    (B3, B4, B5) is held against its plain backward in f32 (against its f64 value where that
    plain backward is off; the RG-LRU backward also bit-equal to its
@@ -292,12 +293,14 @@ Phases, each printing one JSON line:
    shape (LM_BATCH rows, a ring of LM_PROMPT + LM_NEW slots, the step
    that writes the last: 40 B3 decode launches; after the brick phase,
    on the same weights).  The same OpTrace records both runs: outside
-   the kernel wrappers the op lists (names, shapes, dtypes, in order) and
-   the kernel entries (kernel, variant, shape, count, flops, bytes) must
-   be equal, and each kernel's calls must equal the profiler's launches
-   of one step (PROFILED_CALL: the train phase's profiled step; one more
-   decode step under the profiler).  xlstm-350m's train step is dry-run
-   on meta alone, at 512 of its 2048 steps (DRYRUN_XL_SEQ): its B5
+   the kernel wrappers and AdamW's stand-ins (meta's plain passes, the
+   card's wrapper) the op lists (names, shapes, dtypes, in order), the
+   kernel entries (kernel, variant, shape, count, flops, bytes) and the
+   stand-ins' planned calls must be equal, and each kernel's calls must
+   equal the profiler's launches of one step (PROFILED_CALL: the train
+   phase's profiled step; one more decode step under the profiler).
+   xlstm-350m's train step is dry-run on meta alone, at 512 of its 2048
+   steps (DRYRUN_XL_SEQ): its B5
    calls equal the profiler's launches of the train phase's step.  Printed, with nvidia-smi's name
    and power limit, not gated: MODEL_FLOPS over (ms a step x 989
    TFLOP/s), the roofline time over the measured and its dominant term
@@ -325,7 +328,15 @@ Phases, each printing one JSON line:
    non-causal (their bound counts every key), with
    scaled_dot_product_attention (enable_gqa; an explicit mask under the
    window) as the library call; rglru_scan and mlstm with no library call
-   (no PyTorch call computes either function); every row with its share of
+   (no PyTorch call computes either function); AdamW's two passes
+   (kernels/adamw) at chatglm3-6b's largest leaf (layers/mlp/w_gate at
+   18 layers, 1.01 B elements) and over its train cell's whole tree (4.20
+   B parameters: bf16 p, f32 g, m and v, 58.8 GB), a step's norm, scalars
+   and update timed by CUDA events beside the plain version (the eager
+   slices and the f64 norm), the leaf's step bit for bit the plain one's
+   (bound: 28 bytes a parameter at 3.35 TB/s; no library call: torch's
+   fused AdamW decays before the step and takes no clip); every row with
+   its share of
    the bound, the event filter's also with the sector bound of the store's
    strided pt, beside the launch floor (a one-element fill); and the
    backward at the training shape (bound: 10 flops a valid (query, key,
@@ -371,6 +382,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1715,6 +1727,121 @@ def time_scan_bwd(gen, b, s, w):
                        "load": pl.load, **time_pair(kern, plain),
                        "library_ms": None, "bound_ms": bound,
                        "bound_by": by, "max_abs_err": err})
+
+
+#: a parameter's bytes through AdamW's two passes: the update reads p
+#: (bf16), g, m and v (f32) and writes p, m and v (24 bytes); the norm
+#: reads g once more (4)
+ADAMW_BYTES = 2 + 4 + 4 + 4 + 2 + 4 + 4 + 4
+
+
+def time_adamw(gen, iters=3):
+    """AdamW's two passes at chatglm3-6b's train cell (TRAIN_ARCHS: 18
+    layers): its largest leaf, then its whole tree of 12 leaves (bf16 p,
+    f32 g, m, v), each beside the plain version (``global_norm_plain``,
+    the eager clip, ``_update_slice`` over flat slices).  A step is the
+    norm with the clip factor, the bias corrections and the update; ms a
+    step by CUDA events over ``iters`` steps, plain, kernel, kernel,
+    plain.  The leaf's step is held bit for bit against the plain step
+    from the same state, with the kernel's norm (the plain norm may
+    differ by an ulp, and the clip factor with it)."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    opt = adamw.AdamW()
+    cfg = train_config(GLM_ARCH)
+    shapes = {path: d.shape
+              for path, d in model_zoo.build_model(cfg).table.defs.items()}
+    largest = max(shapes, key=lambda k: math.prod(shapes[k]))
+
+    def state(shape):
+        return (torch.randn(shape, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16),
+                torch.randn(shape, generator=gen, device=DEVICE) * 1e-4,
+                torch.randn(shape, generator=gen, device=DEVICE) * 1e-4,
+                torch.rand(shape, generator=gen, device=DEVICE) * 1e-8)
+
+    def scalars():
+        count = torch.ones((), dtype=torch.int32, device=DEVICE)
+        cf = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(torch.tensor(opt.b1, dtype=torch.float32,
+                                          device=DEVICE), cf)
+        c2 = 1.0 - torch.pow(torch.tensor(opt.b2, dtype=torch.float32,
+                                          device=DEVICE), cf)
+        return c1, c2, torch.as_tensor(TRAIN_LR, dtype=torch.float32,
+                                       device=DEVICE)
+
+    def kernel_step(leaves):
+        _, clip = adamw_kernel.norm_and_clip([x[1] for x in leaves],
+                                             opt.grad_clip)
+        adamw_kernel.update(leaves, clip, *scalars(), opt)
+
+    def plain_update(leaves, clip):
+        c1, c2, lr = scalars()
+        for leaf in leaves:
+            for p, g, m, v in zip(*map(adamw._flat_slices, leaf)):
+                adamw._update_slice(p, g, m, v, clip=clip, c1=c1, c2=c2,
+                                    lr=lr, opt=opt)
+
+    def plain_step(leaves):
+        gnorm = adamw.global_norm_plain(
+            {str(i): leaf[1] for i, leaf in enumerate(leaves)})
+        plain_update(leaves, torch.clamp(
+            opt.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0))
+
+    def ms(step, leaves):
+        step(leaves)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            step(leaves)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    def pair(leaves):
+        p1, k1, k2, p2 = (ms(plain_step, leaves), ms(kernel_step, leaves),
+                          ms(kernel_step, leaves), ms(plain_step, leaves))
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    # the largest leaf: bit for bit, then timed
+    leaf = state(shapes[largest])
+    other = tuple(x.clone() for x in leaf)
+    gnorm, clip = adamw_kernel.norm_and_clip([leaf[1]], opt.grad_clip)
+    plain_norm = adamw.global_norm_plain({"g": leaf[1]})
+    adamw_kernel.update([leaf], clip, *scalars(), opt)
+    plain_update([other], clip)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(leaf, other)):
+        raise AssertionError(f"adamw at {largest}: the kernel's step is not "
+                             f"the plain step's bits")
+    ulps = abs(int(gnorm.reshape(1).view(torch.int32)) -
+               int(plain_norm.reshape(1).view(torch.int32)))
+    if ulps > 1:
+        raise AssertionError(f"adamw at {largest}: norm {float(gnorm)} "
+                             f"against the plain {float(plain_norm)}")
+    del other
+    n_leaf = math.prod(shapes[largest])
+    leaf_ms, leaf_plain = pair([leaf])
+    del leaf
+    release()
+    tree = [state(shape) for shape in shapes.values()]
+    n = sum(math.prod(shape) for shape in shapes.values())
+    tree_ms, tree_plain = pair(tree)
+    del tree
+    release()
+    bound = n * ADAMW_BYTES / HBM_BYTES_PER_S * 1e3
+    return with_share({
+        "arch": cfg.name, "layers": cfg.num_layers, "params": n,
+        "leaves": len(shapes), "leaf": largest, "leaf_shape":
+        list(shapes[largest]), "leaf_ms": leaf_ms,
+        "leaf_plain_ms": leaf_plain,
+        "leaf_bound_ms": n_leaf * ADAMW_BYTES / HBM_BYTES_PER_S * 1e3,
+        "ms": tree_ms, "plain_ms": tree_plain, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+        "norm_ulps": ulps, "launches_a_step": 2 * len(shapes) + 1})
 
 
 def kernel_ms(calls, iters, counts=None):
@@ -3380,11 +3507,19 @@ def phase_train(arch):
                     "params": params, "m": opt_state["m"],
                     "v": opt_state["v"]}))
 
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    fused = adamw_kernel.launches()
     _, launches = train_counted(run)
+    fused = adamw_kernel.launches() - fused
     # the steps' peak, and that of the steps after step 1 (None with one)
     peak_after = torch.cuda.max_memory_allocated() if peaks else None
     peak = max(peaks + [torch.cuda.max_memory_allocated()])
     check_launches(f"{cfg.name} train", launches, train_launches(cfg, steps))
+    # AdamW's passes: a norm and an update a non-empty leaf, a final sum
+    leaves = sum(1 for d in model.table.defs.values()
+                 if math.prod(d.shape))
+    check_launches(f"{cfg.name} train adamw", {"adamw": fused},
+                   {"adamw": steps * (2 * leaves + 1)})
     for i, m in enumerate(metrics):
         if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
             raise AssertionError(f"{cfg.name} train step {i + 1}: {m}")
@@ -3447,7 +3582,8 @@ def phase_train(arch):
           "global_batch": batch, "seq_len": seq,
           "microbatches": cfg.microbatches, "lr": TRAIN_LR,
           "remat": cfg.remat_policy, "remat_segments": cfg.remat_segments,
-          "launches": launches, "metrics": metrics, "step_wall_s": walls,
+          "launches": launches, "adamw_launches": fused,
+          "metrics": metrics, "step_wall_s": walls,
           "ms_per_step": step_s * 1e3,
           "ms_per_step_from": "steps 2 on" if steps > 1 else
           "step 1 less its backward checks",
@@ -3483,7 +3619,7 @@ def phase_train(arch):
                     ms_per_step=step_s * 1e3, lowered=lowered,
                     measured_peak=None if card else peak_after)
     del params, opt_state, batches
-    return launches
+    return {**launches, "adamw": fused}
 
 
 def profiled_calls(line) -> dict:
@@ -3941,8 +4077,9 @@ def build_all():
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     # rglru_scan's backward is an instance of the forward's source
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     modules = (ef_kernel, fa_kernel, fa_backward, rg_kernel, ml_kernel,
-               ml_backward)
+               ml_backward, adamw_kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         futures = [pool.submit(m.build) for m in modules]
@@ -3955,7 +4092,7 @@ def build_all():
     # the chunked scan holds a few floats a thread: a spill is a fault of
     # the build, not a slowdown to report
     spilled = [row for m in (fa_kernel, fa_backward, ml_kernel, rg_kernel,
-                             ml_backward)
+                             ml_backward, adamw_kernel)
                for row in ptxas[m.SOURCE.name]
                if row.get("spill_stores") or row.get("spill_loads")]
     if spilled:
@@ -3978,7 +4115,10 @@ def build_all():
                     (fa_backward, "fa_bwd_dkdv_roles_kernel"),
                     (fa_backward, "fa_bwd_dq_roles_kernel"),
                     (fa_backward, "fa_bwd_dkdv_kernel"),
-                    (fa_backward, "fa_bwd_dq_kernel")):
+                    (fa_backward, "fa_bwd_dq_kernel"),
+                    (adamw_kernel, "adamw_sumsq_kernel"),
+                    (adamw_kernel, "adamw_norm_final_kernel"),
+                    (adamw_kernel, "adamw_update_kernel")):
         if not any(row["kernel"].startswith(name)
                    for row in ptxas[m.SOURCE.name]):
             raise AssertionError(f"no {name} in the ptxas report")
@@ -4130,6 +4270,7 @@ def main(argv=None) -> int:
                 "flash_attention_bwd.simt", "rglru_scan_bwd", "mlstm_bwd",
                 "mlstm_bwd.wgmma", "mlstm_bwd.simt"):
         launches[key] = sum(t[key] for t in train.values())
+    launches["adamw"] = sum(t["adamw"] for t in train.values())
 
     # 7. timing at the shapes the main path gave each kernel
     main_k = max(set(w for w in widths if w), key=widths.count)
@@ -4207,6 +4348,8 @@ def main(argv=None) -> int:
     mlstm_stats = time_mlstm(gen, 1, FORWARD_LEN[XL_ARCH], 4, 512,
                              with_stats=True)
     release()
+    # AdamW over chatglm3-6b's train cell: 58.8 GB with nothing else held
+    timed["adamw"] = time_adamw(gen)
     emit({"phase": "timing", "smi": smi,
           "launch_floor_ms": launch_floor_ms(),
           "event_filter_batch": {"shape": list(CHUNK_SHAPE), "k": main_k,
@@ -4292,7 +4435,9 @@ def main(argv=None) -> int:
                              **timed["rglru_scan_bwd"]},
           "mlstm_bwd": {"shape": list(xl_train_shape), "dtype": "bfloat16",
                         "launches_train": launches["mlstm_bwd"],
-                        **timed["mlstm_bwd"]}})
+                        **timed["mlstm_bwd"]},
+          "adamw": {"launches_train": launches["adamw"],
+                    **timed["adamw"]}})
 
     # 8. kernels line, nvidia-smi line, result line
     ef_src = "src/repro_torch/kernels/event_filter/csrc/event_filter.cu"
@@ -4324,6 +4469,9 @@ def main(argv=None) -> int:
         "mlstm_bwd": ("src/repro_torch/kernels/mlstm_scan/csrc/"
                       "mlstm_scan_bwd.cu",
                       "src/repro/kernels/mlstm_scan/kernel.py:70"),
+        # no Pallas kernel: the JAX package's AdamW is plain jnp
+        "adamw": ("src/repro_torch/kernels/adamw/csrc/adamw.cu",
+                  "none (src/repro/optim/adamw.py: plain jnp)"),
     }
     def entry(name, src, replaces, row, n):
         return {"name": name, "route": "cuda", "source": src,

@@ -18,6 +18,10 @@ plan each call as on an H100 and launch nothing.  :class:`OpTrace` (a
   scalar where ``meta`` makes one in place;
 - every kernel call as one entry (kernel, the variant its plan picked, its
   shape arguments), with the work ``analysis/roofline.py`` counts for it;
+- AdamW's passes (``kernels/adamw``), which ``meta`` runs as their plain
+  version (``optim/adamw.py``): those ops stay in the list, their bytes
+  and temporaries the dry run's, marked as the stand-in for the kernel
+  calls the card makes there (:meth:`OpTrace.fused`);
 - memory: the step's argument, output and alias bytes, which are exact,
   and its temp bytes, the peak of the live storages the step allocates
   beyond its arguments, each storage counted once across its views and
@@ -25,8 +29,9 @@ plan each call as on an H100 and launch nothing.  :class:`OpTrace` (a
   included: ``StorageWeakRef``).
 
 The same recorder traces a step on CUDA tensors (``chip_smoke.py``'s
-``dryrun`` phase): outside the kernel wrappers the two op lists must be
-equal, and so must the kernel entries (:func:`trace_mismatch`).
+``dryrun`` phase): outside the kernel wrappers and the stand-ins the two
+op lists must be equal, and so must the kernel entries and the stand-ins'
+calls (:func:`trace_mismatch`).
 
 The record keeps the reference's keys where they mean something here:
 ``arch``, ``shape``, ``mesh``, ``num_params``, ``lower_s`` (the traced
@@ -171,6 +176,8 @@ class OpTrace(TorchDispatchMode):
         self._peak = 0
         self._since_sweep = 0
         self._outputs = {}
+        self.fused_ops = []          # [first, end) of each stand-in's ops
+        self.fused_calls = {}        # json [kernel, variant, shape] -> calls
 
     # ---------------------------------------------------------------- #
     def arguments(self, tree) -> None:
@@ -211,6 +218,21 @@ class OpTrace(TorchDispatchMode):
         finally:
             kernel_pkg.TRACE = None
         self._sweep()
+
+    @contextlib.contextmanager
+    def fused(self, calls):
+        """The ops run inside stand in for the kernel calls ``calls``
+        ((kernel, variant, shape) each): on ``meta`` the plain version
+        that the card replaces with those launches (AdamW's passes), on
+        the card the wrapper's own ops around them.  The ops stay in the
+        op list; :func:`trace_mismatch` leaves them out and compares the
+        calls instead."""
+        first = len(self.ops)
+        yield
+        self.fused_ops.append([first, len(self.ops)])
+        for call in calls:
+            key = json.dumps(call, sort_keys=True)
+            self.fused_calls[key] = self.fused_calls.get(key, 0) + 1
 
     # the kernel wrappers' hook ---------------------------------------- #
     def begin(self) -> None:
@@ -299,18 +321,25 @@ class OpTrace(TorchDispatchMode):
     def as_dict(self) -> dict:
         """The trace as ``hlo_parse.analyze_trace`` reads it (and as
         ``run_cell`` writes it)."""
-        return {"ops": self.ops, "kernels": list(self.kernels.values())}
+        out = {"ops": self.ops, "kernels": list(self.kernels.values())}
+        if self.fused_ops:
+            out["fused"] = {"ops": self.fused_ops,
+                            "calls": self.fused_calls}
+        return out
 
 
 def trace_mismatch(a: dict, b: dict) -> Optional[str]:
     """None when two traces (``OpTrace.as_dict()``) hold the same ops
-    outside the kernels (names, shapes and dtypes, in order) and the same
-    kernel entries (kernel, variant, shape, count, flops and bytes); else
+    outside the kernels and the stand-ins (names, shapes and dtypes, in
+    order), the same kernel entries (kernel, variant, shape, count, flops
+    and bytes) and the same stand-ins' calls (``OpTrace.fused``); else
     what differs: the span between the first and the last op that
     differ, its first ops on each side, and the op names one side holds
-    more often there; the kernel entries only one trace holds."""
-    ops_a = [json.dumps(op[:3]) for op in a["ops"]]
-    ops_b = [json.dumps(op[:3]) for op in b["ops"]]
+    more often there; the kernel entries only one trace holds; the
+    stand-ins' calls of each."""
+    kept_a, kept_b = _outside_fused(a), _outside_fused(b)
+    ops_a = [json.dumps(op[:3]) for op in kept_a]
+    ops_b = [json.dumps(op[:3]) for op in kept_b]
     out = []
     if ops_a != ops_b:
         n = min(len(ops_a), len(ops_b))
@@ -318,8 +347,8 @@ def trace_mismatch(a: dict, b: dict) -> Optional[str]:
         j = 0
         while j < n - i and ops_a[-1 - j] == ops_b[-1 - j]:
             j += 1
-        span_a = a["ops"][i:len(ops_a) - j]
-        span_b = b["ops"][i:len(ops_b) - j]
+        span_a = kept_a[i:len(ops_a) - j]
+        span_b = kept_b[i:len(ops_b) - j]
         names_a = collections.Counter(op[0] for op in span_a)
         names_b = collections.Counter(op[0] for op in span_b)
         out.append(
@@ -336,7 +365,18 @@ def trace_mismatch(a: dict, b: dict) -> Optional[str]:
     if ka != kb:
         out.append(f"kernel entries differ: {sorted(ka - kb)} against "
                    f"{sorted(kb - ka)}")
+    fa, fb = (t.get("fused", {}).get("calls", {}) for t in (a, b))
+    if fa != fb:
+        out.append(f"stand-ins' calls differ: {fa} against {fb}")
     return "; ".join(out) or None
+
+
+def _outside_fused(t: dict) -> list:
+    """The ops of a trace outside its stand-ins (``OpTrace.fused``)."""
+    keep = [True] * len(t["ops"])
+    for first, end in t.get("fused", {}).get("ops", []):
+        keep[first:end] = [False] * (end - first)
+    return [op for op, k in zip(t["ops"], keep) if k]
 
 
 # --------------------------------------------------------------------- #

@@ -115,6 +115,16 @@ def test_the_optimizer_span_holds_the_norm_and_the_update(monkeypatch):
         len(sizes)
 
 
+def test_the_optimizer_span_counts_no_kernel_launch_on_the_cpu():
+    """``kernel_launches``, the fused AdamW passes a step launched, is 0
+    where the plain version runs."""
+    _, _, params, state, step, batch = _train(m=1)
+    _, recs = _profiled(step, params, state, batch)
+    (opt,) = [r for r in recs if r["name"] == "train.optimizer"]
+    assert opt["attrs"]["kernel_launches"] == 0
+    assert opt["attrs"]["slices"] == len(_flatten(params))
+
+
 def test_one_unembedding_a_forward_with_the_positions_it_serves():
     cfg, model, params, state, step, batch = _train(m=2)
     _, recs = _profiled(step, params, state, batch)
